@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (tpumap_torch) on one NVIDIA GPU.
 
-Runs the port's main path — single-end DNA through the fused ladder and
-the native SAM emitter — at the repo's headline DNA size, and fails
+Runs the port's two main paths through the fused ladder and the native
+SAM emitter — single-end DNA at the repo's headline DNA size, and
+single-end RNA with novel splicing at the bench's RNA size — and fails
 (exit code != 0) if any phase fails:
 
 1. card name and power limit; build the CUDA kernels from csrc/;
@@ -10,13 +11,20 @@ the native SAM emitter — at the repo's headline DNA size, and fails
    its k=14, interval-3 index, uploaded to the card;
 3. every kernel at its main-path shapes against its plain PyTorch
    version on the same CUDA tensors: exact equality, both median times;
-4. end to end: one warm-up call, then align_records over all 50,000
+4. DNA end to end: one warm-up call, then align_records over all 50,000
    100-bp reads at batch size 32,768 with launch counters reset just
    before; reads/s, aligned fraction and agreement with the generator's
-   truth (>= 99% within 10 bp on the truth strand); every kernel must
+   truth (>= 99% within 10 bp on the truth strand); the DNA kernels
+   (K1-K3) must have launched;
+5. RNA end to end: the bench's 50,000 RNA reads (40% spliced) with
+   novelsplicing=True at batch size 16,384, one warm-up call, then the
+   timed run with launch counters reset; reads/s, mapped fraction and
+   junction precision and recall against the generator's truth (>= 0.99
+   mapped, >= 0.99 precision, >= 0.95 recall); all seven kernels must
    have launched;
-5. the first 2,048 reads through the port on the CPU (plain versions)
-   and on the GPU with the same batching: byte-identical SAM.
+6. the first 2,048 DNA reads and the first 512 RNA reads through the
+   port on the CPU (plain versions) and on the GPU with the same
+   batching: byte-identical SAM.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. JAX is blocked: the port must run
@@ -39,6 +47,22 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 B = 32768
 N_CPU = 2048
+RB = 16384              # RNA batch (bench.py's RNA leg)
+N_CPU_RNA = 512
+DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
+SOURCES = {
+    "verify_diagonals": ("tpumap_torch/csrc/verify.cu",
+                         "tools/pallas_verify_experiment.py:100"),
+    "banded_align": ("tpumap_torch/csrc/dp.cu", "tpumap/ops/dp.py:53"),
+    "traceback": ("tpumap_torch/csrc/traceback.cu", "tpumap/ops/dp.py:154"),
+    "chain_dp": ("tpumap_torch/csrc/chain.cu", "tpumap/ops/pathdp.py:217"),
+    "scan_fragment": ("tpumap_torch/csrc/localscan.cu",
+                      "tpumap/ops/localscan.py:68"),
+    "scan_exact_sites": ("tpumap_torch/csrc/localscan.cu",
+                         "tpumap/ops/localscan.py:118"),
+    "scan_fragment_runs": ("tpumap_torch/csrc/localscan.cu",
+                           "tpumap/ops/localscan.py:148"),
+}
 
 
 def log(*a):
@@ -162,12 +186,123 @@ def kernel_phase(index, gpu):
                  max_abs_err(tb, tbp),
                  cuda_ms(lambda: dp.traceback(*targs), 50),
                  cuda_ms(lambda: dp.traceback_plain(*targs), 3)))
+    rows += rna_kernel_rows(index, rng, reads_at)
     for name, shape, err, ms, plain_ms in rows:
         log(f"kernel {name:17s} {shape:34s} max_abs_err={err:g} "
             f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{gpu}]")
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
     return rows
+
+
+def rna_kernel_rows(index, rng, reads_at):
+    """K5 and K6a-c at the RNA path's shapes (ladder.py: chain passes
+    R = 8,192 and 2,048, K = 8, L = 128; salvage scans R = 2,048; review
+    scan R = 1,536; 65,536-bp windows) against their plain versions."""
+    from tpumap_torch.ops import localscan, pathdp, verify
+
+    dev = index.device
+    glen = index.genome_length
+    rows = []
+
+    def ints(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for R in (8192, 2048):
+        d, codes = reads_at(R)
+        # a junction or indel at query q in half the rows: bases from q
+        # on come from diagonal d + jump
+        half = np.arange(0, R, 2)
+        q = rng.integers(20, 80, len(half))
+        jump = rng.choice([-3, 4, 300, 5000], len(half))
+        moved = verify.extract_codes_window(
+            index.genome_packed, ints(d[half] + jump), 100).cpu().numpy()
+        codes[half, :100] = np.where(np.arange(100)[None, :] >= q[:, None],
+                                     moved, codes[half, :100])
+        cands = np.stack([d, d + 4, d - 3, d + 300, d + 5000]
+                         + [rng.integers(0, glen, R) for _ in range(3)], 1)
+        cands[rng.random(cands.shape) < 0.25] = 0xFFFFFFFF
+        lengths = ints(np.full(R, 100, np.int32))
+        inp = pathdp.chain_inputs(index, ints(codes),
+                                  torch.zeros(codes.shape, dtype=torch.bool,
+                                              device=dev),
+                                  lengths, ints(cands), pathdp.PathScoring())
+        got = pathdp.chain_dp(inp, lengths)
+        want = pathdp.chain_dp_plain(inp, lengths)
+        rows.append(("chain_dp", f"R={R}, K=8, L=128", max_abs_err(got, want),
+                     cuda_ms(lambda: pathdp.chain_dp(inp, lengths), 20),
+                     cuda_ms(lambda: pathdp.chain_dp_plain(inp, lengths), 2)))
+
+    W = 65536
+
+    def scan_inputs(R, F):
+        ws = rng.integers(0, glen, R).astype(np.int64)
+        ws[:2] = [glen - 100, glen + 10_000]          # clamped windows
+        at = np.minimum(ws + rng.integers(0, W, R), glen - 16)
+        frag = verify.extract_codes_window(index.genome_packed, ints(at), F)
+        flen = rng.integers(0, F + 1, R).astype(np.int32)
+        return ints(ws), frag.contiguous(), ints(flen)
+
+    g = index.genome_packed
+    ws, frag, flen = scan_inputs(2048, 16)
+    args = (g, ws, frag, flen, W, 16, 4)
+    rows.append(("scan_fragment", "R=2048, W=65536, F=16, top 4",
+                 max_abs_err(localscan.scan_fragment(*args),
+                             localscan.scan_fragment_plain(*args)),
+                 cuda_ms(lambda: localscan.scan_fragment(*args), 20),
+                 cuda_ms(lambda: localscan.scan_fragment_plain(*args), 2)))
+    ws, frag, flen = scan_inputs(1536, 10)
+    args = (g, ws, frag, flen, W, 10, 8)
+    rows.append(("scan_exact_sites", "R=1536, W=65536, F=10, top 8",
+                 max_abs_err(localscan.scan_exact_sites(*args),
+                             localscan.scan_exact_sites_plain(*args)),
+                 cuda_ms(lambda: localscan.scan_exact_sites(*args), 20),
+                 cuda_ms(lambda: localscan.scan_exact_sites_plain(*args), 2)))
+    ws, frag, _ = scan_inputs(2048, 16)
+    for suffix in (True, False):
+        args = (g, ws, frag, W, 8, suffix)
+        rows.append((
+            "scan_fragment_runs",
+            f"R=2048, W=65536, top 8, {'suffix' if suffix else 'prefix'}",
+            max_abs_err(localscan.scan_fragment_runs(*args),
+                        localscan.scan_fragment_runs_plain(*args)),
+            cuda_ms(lambda: localscan.scan_fragment_runs(*args), 20),
+            cuda_ms(lambda: localscan.scan_fragment_runs_plain(*args), 2)))
+    return rows
+
+
+def junctions(pos: int, cigar: str):
+    """Genomic (donor, acceptor) pairs of a record (bench.py
+    _cigar_junctions; the bench genome is one chromosome)."""
+    js, cur, num = [], pos - 1, 0
+    for ch in cigar:
+        if ch.isdigit():
+            num = num * 10 + ord(ch) - 48
+            continue
+        if ch == "N":
+            js.append((cur, cur + num))
+        if ch in "MDN=X":
+            cur += num
+        num = 0
+    return js
+
+
+def grade_rna(sam_bytes: bytes, truth):
+    """(mapped fraction, junction precision, junction recall) against
+    the generator's truth, as bench.py grades the RNA leg."""
+    lines = sam_bytes.decode().splitlines()
+    if len(lines) != len(truth):
+        raise AssertionError(f"{len(lines)} SAM lines for {len(truth)} reads")
+    tp = fp = fn = mapped = 0
+    for line, (tjs, _start) in zip(lines, truth):
+        f = line.split("\t", 6)
+        pjs = set(junctions(int(f[3]), f[5]))
+        mapped += not int(f[1]) & 4
+        tp += len(pjs & tjs)
+        fp += len(pjs - tjs)
+        fn += len(tjs - pjs)
+    return (mapped / len(truth), tp / max(tp + fp, 1),
+            tp / max(tp + fn, 1))
 
 
 def grade(sam_bytes: bytes, bench_data):
@@ -223,70 +358,113 @@ def main():
 
     rows = kernel_phase(index, smi)
 
-    reads = list(read_fasta(rfa))
     config = AlignConfig(top_k=4, max_occ=4)
-    t0 = time.perf_counter()
-    align_records(db, index, reads[:B], config, batch_size=B,
-                  sink=io.BytesIO().write)
-    torch.cuda.synchronize()
-    log(f"warm-up {time.perf_counter() - t0:.2f} s")
+    reads = list(read_fasta(rfa))
+    dna_launches = run_e2e(
+        "DNA", reads, B, smi, db, index, config,
+        lambda buf: check_dna(buf, bench_data), DNA_KERNELS)
+    _gfa, rna_rfa = bench_data.ensure_rna_files()
+    rna_reads = list(read_fasta(rna_rfa))
+    truth = bench_data.rna_truth()
+    rna_launches = run_e2e(
+        "RNA", rna_reads, RB, smi, db, index, config,
+        lambda buf: check_rna(buf, truth), tuple(SOURCES),
+        novelsplicing=True)
 
-    kernels.reset_launches()
-    buf = io.BytesIO()
-    stats = {}
-    t0 = time.perf_counter()
-    align_records(db, index, reads, config, batch_size=B, sink=buf.write,
-                  stats=stats)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    aligned, near = grade(buf.getvalue(), bench_data)
-    log(f"end to end: {len(reads)} reads in {dt:.3f} s = "
-        f"{len(reads) / dt:.1f} reads/s, aligned_frac={aligned:.5f}, "
-        f"within 10 bp of truth={near:.5f}, launches={launches}, "
-        f"stats={stats} [{smi}]")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched: {launches}")
-    if aligned < 0.99 or near < 0.99:
-        raise AssertionError("end-to-end accuracy below 0.99")
-
-    # GPU vs CPU (plain versions) on the first N_CPU reads, same batching
-    gbuf = io.BytesIO()
-    align_records(db, index, reads[:N_CPU], config, batch_size=N_CPU,
-                  sink=gbuf.write)
+    # GPU vs CPU (plain versions) on the first reads, same batching
+    subsets = [("DNA", reads[:N_CPU], {}),
+               ("RNA", rna_reads[:N_CPU_RNA], {"novelsplicing": True})]
+    gpu_sam = []
+    for _name, sub, kw in subsets:
+        gbuf = io.BytesIO()
+        align_records(db, index, sub, config, batch_size=len(sub),
+                      sink=gbuf.write, **kw)
+        gpu_sam.append(gbuf.getvalue())
     del index
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     cpu_index = DeviceIndex.from_host(db, "cpu")
-    cbuf = io.BytesIO()
-    align_records(db, cpu_index, reads[:N_CPU], config, batch_size=N_CPU,
-                  sink=cbuf.write)
-    same = cbuf.getvalue() == gbuf.getvalue()
-    log(f"CPU plain run of {N_CPU} reads in {time.perf_counter() - t0:.1f}"
-        f" s: SAM byte-identical to the GPU run: {same} "
-        f"({len(gbuf.getvalue())} bytes)")
-    if not same:
-        raise AssertionError("CPU and GPU SAM differ")
+    for (name, sub, kw), want in zip(subsets, gpu_sam):
+        t0 = time.perf_counter()
+        cbuf = io.BytesIO()
+        align_records(db, cpu_index, sub, config, batch_size=len(sub),
+                      sink=cbuf.write, **kw)
+        same = cbuf.getvalue() == want
+        log(f"{name}: CPU plain run of {len(sub)} reads in "
+            f"{time.perf_counter() - t0:.1f} s: SAM byte-identical to the "
+            f"GPU run: {same} ({len(want)} bytes)")
+        if not same:
+            raise AssertionError(f"{name}: CPU and GPU SAM differ")
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("JAX was imported")
 
-    src = {"verify_diagonals": ("tpumap_torch/csrc/verify.cu",
-                                "tools/pallas_verify_experiment.py:100"),
-           "banded_align": ("tpumap_torch/csrc/dp.cu", "tpumap/ops/dp.py:53"),
-           "traceback": ("tpumap_torch/csrc/traceback.cu",
-                         "tpumap/ops/dp.py:154")}
-    # one entry per kernel, at its largest main-path shape (rows[0] is
-    # the ends-rung verify)
-    table = [{"name": name, "route": "cuda", "source": src[name][0],
-              "replaces": src[name][1], "launches": launches[name],
-              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-              "shape": shape}
-             for name, shape, err, ms, plain_ms in rows if shape != "[512, 8] x 4"]
+    # one entry per kernel, at its first (largest) main-path shape;
+    # launches from the RNA run, which drives all seven, and the DNA
+    # kernels' launches in the DNA run beside them
+    table, seen = [], set()
+    for name, shape, err, ms, plain_ms in rows:
+        if name in seen:
+            continue
+        seen.add(name)
+        entry = {"name": name, "route": "cuda", "source": SOURCES[name][0],
+                 "replaces": SOURCES[name][1],
+                 "launches": rna_launches[name], "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain_ms, "shape": shape}
+        if name in DNA_KERNELS:
+            entry["dna_launches"] = dna_launches[name]
+        table.append(entry)
     log(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def run_e2e(name, reads, batch, smi, db, index, config, check,
+            must_launch, **kw):
+    """One warm-up batch, then all reads with the launch counters reset
+    just before; check(sam bytes) -> a log string (raises on failure).
+    Returns the launch counts of the timed run."""
+    from tpumap_torch import kernels
+    from tpumap_torch.gsnap.driver import align_records
+    t0 = time.perf_counter()
+    align_records(db, index, reads[:batch], config, batch_size=batch,
+                  sink=io.BytesIO().write, **kw)
+    torch.cuda.synchronize()
+    log(f"{name} warm-up {time.perf_counter() - t0:.2f} s")
+    kernels.reset_launches()
+    buf = io.BytesIO()
+    stats = {}
+    t0 = time.perf_counter()
+    align_records(db, index, reads, config, batch_size=batch, sink=buf.write,
+                  stats=stats, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log(f"{name} end to end: {len(reads)} reads at batch {batch} in "
+        f"{dt:.3f} s = {len(reads) / dt:.1f} reads/s, "
+        f"{check(buf.getvalue())}, launches={launches}, stats={stats} "
+        f"[{smi}]")
+    missing = [k for k in must_launch if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched: {missing}")
+    return launches
+
+
+def check_dna(sam_bytes, bench_data):
+    aligned, near = grade(sam_bytes, bench_data)
+    if aligned < 0.99 or near < 0.99:
+        raise AssertionError(f"DNA accuracy below 0.99: aligned {aligned}, "
+                             f"near truth {near}")
+    return f"aligned_frac={aligned:.5f}, within 10 bp of truth={near:.5f}"
+
+
+def check_rna(sam_bytes, truth):
+    mapped, prec, rec = grade_rna(sam_bytes, truth)
+    msg = (f"mapped_frac={mapped:.5f}, junction precision={prec:.5f}, "
+           f"junction recall={rec:.5f}")
+    if mapped < 0.99 or prec < 0.99 or rec < 0.95:
+        raise AssertionError(f"RNA accuracy below its floor: {msg}")
+    return msg
 
 
 if __name__ == "__main__":

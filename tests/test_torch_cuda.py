@@ -18,8 +18,10 @@ from tpumap_torch import kernels
 from tpumap_torch.gsnap.driver import align_records
 from tpumap_torch.gsnap.engine import AlignConfig
 from tpumap_torch.index.device import DeviceIndex
-from tpumap_torch.ops import dp, verify
+from tpumap_torch.ops import dp, localscan, pathdp, verify
 from torch_workloads import mixed_workload, sam_text
+
+DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
 
 pytestmark = pytest.mark.cuda
 
@@ -142,4 +144,109 @@ def test_slice_on_gpu_matches_cpu(dev, tmp_path, sink):
         got = sam_text(align_records(db, gpu_index, reads, cfg,
                                      batch_size=32))
     assert got == want
+    assert min(kernels.LAUNCHES[k] for k in DNA_KERNELS) > 0, \
+        kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("R,L,quals,known", [
+    (300, 128, False, False), (97, 100, True, False), (64, 37, False, True),
+    (2048, 128, False, False),
+])
+def test_chain_kernel_matches_plain(dev, R, L, quals, known):
+    """K5 on reads cut from the genome against candidate sets with a
+    deletion, an insertion jump, an intron and INVALID lanes, and rows
+    with no valid candidate."""
+    rng = np.random.default_rng(R + L)
+    glen = 300_000
+    idx = random_index(rng, glen, dev, 0.001)
+    d = rng.integers(1000, glen - 5000, R).astype(np.int64)
+    codes = verify.extract_codes_window(
+        idx.genome_packed, torch.from_numpy(d).to(dev), L).cpu().numpy()
+    lengths = rng.integers(L // 2, L + 1, R).astype(np.int32)
+    for r in range(R):                  # splice two genome pieces together
+        q = int(rng.integers(10, L - 10))
+        jump = int(rng.choice([-2, -5, 3, 7, 500, 20_000]))
+        codes[r, q:] = verify.extract_codes_window(
+            idx.genome_packed, torch.tensor([d[r] + jump + q], device=dev),
+            L - q)[0].cpu().numpy()
+        mut = rng.random(L) < 0.03
+        codes[r, mut] = rng.integers(0, 4, int(mut.sum()))
+        codes[r, lengths[r]:] = 0
+    cands = np.stack([d, d + 3, d - 2, d - 5, d + 7, d + 500, d + 20_000,
+                      rng.integers(0, glen, R)], 1)
+    cands[rng.random(cands.shape) < 0.2] = 0xFFFFFFFF
+    cands[:5] = 0xFFFFFFFF              # no valid candidate
+    nmask = rng.random((R, L)) < 0.01
+    q = (rng.integers(0, 41, (R, L)).astype(np.uint8) if quals else None)
+    ct, nt, lt, cdt = to(dev, codes, nmask, lengths, cands)
+    inp = pathdp.chain_inputs(idx, ct, nt, lt, cdt, pathdp.PathScoring(),
+                              None if q is None else to(dev, q)[0])
+    if known:
+        inp["known"] = torch.from_numpy(
+            rng.integers(0, 16, inp["s"].shape).astype(np.uint8)).to(dev)
+    got = pathdp.chain_dp(inp, lt)
+    want = pathdp.chain_dp_plain(inp, lt)
+    torch.cuda.synchronize()
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert (want["nsegs"] >= 2).any()
+
+
+@pytest.mark.parametrize("scan,window,top_k", [
+    ("fragment", 65536, 4), ("exact", 65536, 8), ("runs_suffix", 65536, 8),
+    ("runs_prefix", 65536, 8), ("fragment", 2048, 4), ("exact", 100, 8),
+    ("runs_suffix", 200, 3),
+])
+def test_scan_kernels_match_plain(dev, scan, window, top_k):
+    """K6a-c against their plain versions, with window starts past the
+    genome end (clamped as tpumap's dynamic slice clamps them) and
+    zero-length fragments."""
+    rng = np.random.default_rng(window + top_k)
+    glen = 200_000
+    idx = random_index(rng, glen, dev)
+    R = 300
+    F = 10 if scan == "exact" else 16
+    ws = rng.integers(0, glen, R).astype(np.int64)
+    ws[:4] = [glen - 50, glen + 40_000, 2 ** 32 - 40, 0]
+    frag_at = np.minimum(ws + rng.integers(0, window, R), glen - F)
+    frag = verify.extract_codes_window(
+        idx.genome_packed, torch.from_numpy(frag_at).to(dev), F).cpu().numpy()
+    frag[1::3, 2] ^= 1
+    flen = rng.integers(0, F + 1, R).astype(np.int32)
+    flen[4:10] = 0
+    flen[10:40] = F
+    g = idx.genome_packed
+    wt, ft, lt = to(dev, ws, frag, flen)
+    if scan == "fragment":
+        args = (g, wt, ft, lt, window, F, top_k)
+        got, want = (localscan.scan_fragment(*args),
+                     localscan.scan_fragment_plain(*args))
+    elif scan == "exact":
+        args = (g, wt, ft, lt, window, F, top_k)
+        got, want = (localscan.scan_exact_sites(*args),
+                     localscan.scan_exact_sites_plain(*args))
+    else:
+        args = (g, wt, ft, window, top_k, scan == "runs_suffix")
+        got, want = (localscan.scan_fragment_runs(*args),
+                     localscan.scan_fragment_runs_plain(*args))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_rna_on_gpu_matches_cpu(dev, tmp_path):
+    """The stream workload with novel splicing through every kernel
+    gives the plain CPU run's SAM."""
+    db, reads, _gfa = mixed_workload(tmp_path)
+    cfg = AlignConfig(top_k=4, max_occ=8)
+    want = sam_text(align_records(db, DeviceIndex.from_host(db, "cpu"),
+                                  reads, cfg, novelsplicing=True,
+                                  batch_size=32))
+    gpu_index = DeviceIndex.from_host(db, dev)
+    kernels.reset_launches()
+    chunks = []
+    align_records(db, gpu_index, reads, cfg, novelsplicing=True,
+                  batch_size=32, sink=chunks.append)
+    assert b"".join(bytes(c) for c in chunks) == want
     assert min(kernels.LAUNCHES.values()) > 0, kernels.LAUNCHES

@@ -26,6 +26,7 @@ from tpumap.io.fasta import Record, read_fasta
 from tpumap.ops import pathdp as jpathdp
 from tpumap.utils.fetch import device_fetch, widen_ints
 from tpumap_torch.gsnap import driver, engine, ladder
+from tpumap_torch.ops import pathdp
 from tpumap_torch.index.device import DeviceIndex
 from torch_workloads import mixed_workload, sam_text
 
@@ -97,9 +98,11 @@ def test_align_batch_full_dict_matches(workload, mixed, synthetic):
     B, L = 64, 128
     batch, want = jax_full(db, ji, reads[:B], B, L,
                            jengine.AlignConfig(**CFG))
+    r_chain = min(max(8192, B // 2), B)
     got = ladder.fetch_result(ladder.align_batch_full(
         ti, driver._to_device(batch, "cpu"), engine.AlignConfig(**CFG), L,
-        r_indel=min(2048, B)))
+        pathdp.PathScoring(), False, False, r_chain,
+        min(max(2048, B // 8), r_chain), min(2048, B)))
     assert sorted(got) == sorted(want)
     for key in want:
         a, b = np.asarray(want[key]), np.asarray(got[key])
@@ -208,7 +211,18 @@ def test_multimappers_and_secondaries_match(repeats, npaths):
         assert b"HI:i:2" in got
 
 
-@pytest.mark.parametrize("kw", [{"novelsplicing": True}, {"known": object()},
+def test_secondaries_in_list_mode_match(repeats):
+    """-n 3 without YM:Z: tags: the bulk emitter leaves rows with
+    secondaries to the per-row path, as tpumap's does."""
+    db, ji, ti, reads = repeats
+    want = sam_text(jdriver.align_records(
+        db, ji, reads, jengine.AlignConfig(**CFG), batch_size=32, npaths=3))
+    got = sam_text(driver.align_records(
+        db, ti, reads, engine.AlignConfig(**CFG), batch_size=32, npaths=3))
+    assert got == want and b"HI:i:2" in got
+
+
+@pytest.mark.parametrize("kw", [{"known_indels": object()}, {"known": object()},
                                 {"find_fusions": True},
                                 {"config": engine.AlignConfig(
                                     mode="cmet-stranded")}])

@@ -3,13 +3,15 @@
 
 The host half here is a JAX-free copy of tpumap's: `make_batch` packs a
 batch in one C pass, the fused ladder runs on the index's device, and
-its result goes through the same acceptance rules, MAPQ and native SAM
-emitters (tpumap.io.sam_bulk) as tpumap's fused branch. Batch i+1 is
-dispatched before the host work of batch i, so device and host overlap.
+its result goes through the same acceptance rules (indels, chain
+solutions, the ambiguous splice-end review of stage 3b), MAPQ and
+native SAM emitters (tpumap.io.sam_bulk) as tpumap's fused branch. Batch
+i+1 is dispatched before the host work of batch i, so device and host
+overlap.
 
-Splicing, known splicing, transcriptome-guided runs, fusions, known
-indels, device meshes, non-standard modes and SNP tolerance are later
-slices of the port and raise NotImplementedError.
+Known splicing, transcriptome-guided runs, fusions, known indels,
+device meshes, non-standard modes and SNP tolerance are later slices of
+the port and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -23,11 +25,14 @@ from tpumap.index.build import GenomeDB
 from tpumap.io import sam, sam_bulk
 from tpumap.io.fasta import Record, read_seqs
 from tpumap.gsnap.params import MIN_INTRON
+from tpumap.gsnap.spliceends import (AMB_MAX, NC_REVIEW_MAX,
+                                     pool_device_results, xa_tag)
 from tpumap.utils import dna
 from tpumap_torch.gsnap import ladder
 from tpumap_torch.gsnap.engine import AlignConfig, mapq_from_scores
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops import dp as dp_ops
+from tpumap_torch.ops import pathdp
 from tpumap_torch.ops.pack import words_for
 
 
@@ -176,44 +181,302 @@ def _indel_limits_ok(ops, max_insertions: int, max_deletions: int,
     return True
 
 
-def refine_unsolved(batch, res, max_insertions=6, max_deletions=9,
-                    indel_endlength=4):
-    """Host acceptance of the fused ladder's indel rows (tpumap's fused
-    branch of refine_unsolved with splicing off): returns dp_result,
-    batch row -> (genome start, forward ops, score)."""
+def refine_unsolved(db, batch, res, config, novelsplicing=False,
+                    max_intron=200_000, L=None, max_insertions=6,
+                    max_deletions=9, indel_endlength=4, amb_out=None):
+    """Host acceptance of the fused ladder's results (tpumap's fused
+    branch of refine_unsolved): the chain solutions (splice_result dicts
+    for rows the per-row path emits, res["sp_sel"] for the array-form
+    rest), the indel rows, then the ambiguous splice-end review.
+    Returns (dp_result, splice_result); dp_result maps a batch row to
+    (genome start, forward ops, score)."""
+    if L is None:
+        L = batch["codes"].shape[1]
     chunk_len = res["nmismatch"].shape[0]
     len_v = np.asarray(batch["lengths"])[:chunk_len].astype(np.int32)
     diag_v = res["diag"][:chunk_len]
     dp_result = {}
+    splice_result = {}
+    if "ch_sel" in res:
+        ch_idx = res["ch_idx"]
+        segq_l = res["ch_segq"]
+        segd_l = res["ch_segd"]
+        nsegs_l = res["ch_nsegs"].astype(np.int32)
+        st_l = res["strand"]
+        sel = res["ch_sel"] & (ch_idx < chunk_len)
+        # rows whose accepted path has a short terminal exon need the
+        # splice-ends review and so a mutable dict; the rest stay
+        # array-form for the native bulk emitter (sp_sel)
+        last_q = np.take_along_axis(
+            segq_l, np.maximum(nsegs_l - 1, 0)[:, None],
+            axis=1)[:, 0].astype(np.int64)
+        multi = nsegs_l >= 2
+        end_short = multi & (res["ch_qend"] - last_q >= 1) & (
+            res["ch_qend"] - last_q <= NC_REVIEW_MAX)
+        start_short = multi & (
+            segq_l[:, 1].astype(np.int64) - res["ch_qstart"] >= 1) & (
+            segq_l[:, 1].astype(np.int64) - res["ch_qstart"]
+            <= NC_REVIEW_MAX)
+        # insertion junctions (diagonal decreases) emit through
+        # path_record: the native emitter takes N/D gaps only
+        sd = segd_l.astype(np.int64)
+        vpair = np.arange(1, sd.shape[1])[None, :] < nsegs_l[:, None]
+        has_ins = np.any(vpair & (sd[:, 1:] < sd[:, :-1]), axis=1)
+        need_dict = sel & (end_short | start_short | has_ins)
+        if sam_bulk._get_lib() is None:
+            need_dict = sel
+        for r in np.nonzero(need_dict)[0].tolist():
+            i = int(ch_idx[r])
+            ns = int(nsegs_l[r])
+            splice_result[i] = {
+                "segs": list(zip(segq_l[r][:ns].tolist(),
+                                 segd_l[r][:ns].tolist())),
+                "q_start": int(res["ch_qstart"][r]),
+                "q_end": int(res["ch_qend"][r]),
+                "strand": int(st_l[i]),
+                "score": int(res["ch_score"][r]),
+                "nmm": int(res["ch_nmm"][r]),
+            }
+        res["sp_sel"] = sel & ~need_dict
     irows = np.nonzero(res["in_sel"])[0]
-    if not len(irows):
-        return dp_result
-    nmm_v = res["nmismatch"]
-    trim_score_v = res.get("trim_score")
-    runop_l = res["in_runop"][irows].tolist()
-    runlen_l = res["in_runlen"][irows].tolist()
-    score_l = res["in_score"][irows].tolist()
-    start_l = res["in_startoff"][irows].tolist()
-    for row, r in enumerate(irows.tolist()):
-        i = int(res["in_idx"][r])
-        if i >= chunk_len:
+    if len(irows):
+        nmm_v = res["nmismatch"]
+        trim_score_v = res.get("trim_score")
+        runop_l = res["in_runop"][irows].tolist()
+        runlen_l = res["in_runlen"][irows].tolist()
+        score_l = res["in_score"][irows].tolist()
+        start_l = res["in_startoff"][irows].tolist()
+        for row, r in enumerate(irows.tolist()):
+            i = int(res["in_idx"][r])
+            if i >= chunk_len or i in splice_result:
+                continue
+            li = int(len_v[i])
+            sub_score = 3 * li - 6 * int(nmm_v[i])
+            if trim_score_v is not None:
+                sub_score = max(sub_score, int(trim_score_v[i]) * 3 // 8)
+            if score_l[row] > sub_score:
+                ops = []
+                for op1, n in zip(runop_l[row], runlen_l[row]):
+                    if not op1:
+                        break
+                    ops.extend([op1 - 1] * n)
+                if not _indel_limits_ok(ops, max_insertions, max_deletions,
+                                        indel_endlength):
+                    continue
+                dp_result[i] = (int(diag_v[i]) + start_l[row], ops,
+                                score_l[row])
+    if novelsplicing and "trim_qstart" in res:
+        _splice_ends_review(db, batch, res, config, dp_result, splice_result,
+                            max_intron, L, amb_out, chunk_len, len_v)
+    return dp_result, splice_result
+
+
+def _oriented_rows(batch, idx, strands, L):
+    """Host rows idx of the batch as (codes, nmask), strand-1 rows
+    reverse-complemented (past the read length zero-padded)."""
+    codes = np.asarray(batch["codes"])[idx]
+    nmask = np.asarray(batch["nmask"])[idx]
+    li = np.asarray(batch["lengths"])[idx].astype(np.int64)
+    st = np.asarray(strands).astype(bool)
+    if st.any():
+        ar = np.arange(L)
+        src = li[:, None] - 1 - ar[None, :]
+        valid = src >= 0
+        srcc = np.clip(src, 0, L - 1)
+        rc = np.where(valid, 3 - np.take_along_axis(codes, srcc, axis=1),
+                      0).astype(np.uint8)
+        rm = np.where(valid, np.take_along_axis(nmask, srcc, axis=1),
+                      False)
+        codes = np.where(st[:, None], rc, codes)
+        nmask = np.where(st[:, None], rm, nmask)
+    return codes, nmask
+
+
+_CANON_PAIRS = {(2, 3, 0, 2), (2, 1, 0, 2), (0, 3, 0, 1),   # GT-AG GC-AG AT-AC
+                (1, 3, 0, 1), (1, 3, 2, 1), (2, 3, 0, 3)}   # antisense
+
+
+def _junction_bonus_zero(db, dprox, ddist, qb) -> bool:
+    """True iff the junction boundary at query position qb between the
+    proximal diagonal dprox and distal diagonal ddist carries no signal:
+    noncanonical dinucleotides."""
+    lo, hi = (dprox, ddist) if dprox <= ddist else (ddist, dprox)
+    don = db.get_codes(lo + qb, 2)
+    acc = db.get_codes(hi + qb - 2, 2)
+    if len(don) < 2 or len(acc) < 2:
+        return False
+    return (int(don[0]), int(don[1]), int(acc[0]),
+            int(acc[1])) not in _CANON_PAIRS
+
+
+def _noncanon_tie(db, c, s, side) -> bool:
+    """The altsplice.c tie rule on a junction boundary: a noncanonical
+    boundary that can wobble to another equal-mismatch noncanonical
+    placement has no evidence for either, and the caller demotes the
+    terminal exon to a soft clip."""
+    segs = s["segs"]
+    if side == "qend":
+        qb, dprox, ddist = segs[-1][0], segs[-2][1], segs[-1][1]
+        lo_q = segs[-2][0] + 1
+        hi_q = s["q_end"] - 1
+    else:
+        qb, ddist, dprox = segs[1][0], segs[0][1], segs[1][1]
+        lo_q = s["q_start"] + 1
+        hi_q = (segs[2][0] if len(segs) > 2 else s["q_end"]) - 1
+    if not _junction_bonus_zero(db, dprox, ddist, qb):
+        return False
+    d_lt = segs[-2][1] if side == "qend" else segs[0][1]   # earlier-q diag
+    d_rt = segs[-1][1] if side == "qend" else segs[1][1]
+    for sh in (-2, -1, 1, 2):
+        qb2 = qb + sh
+        if not (lo_q <= qb2 <= hi_q):
+            continue
+        a, b = sorted((qb, qb2))
+        gl = db.get_codes(d_lt + a, b - a)
+        gr = db.get_codes(d_rt + a, b - a)
+        if len(gl) < b - a or len(gr) < b - a:
+            continue
+        seg = c[a:b]
+        delta = int(np.sum(seg != gl)) - int(np.sum(seg != gr))
+        if sh < 0:
+            delta = -delta
+        # a zero-cost move to another signal-free boundary is a tie
+        if delta == 0 and _junction_bonus_zero(db, d_lt, d_rt, qb2):
+            return True
+    return False
+
+
+def _demote(s, side) -> None:
+    """Drop a path's terminal exon on `side`; the residue becomes a soft
+    clip."""
+    if side == "qend":
+        s["score"] -= 8 * (s["q_end"] - s["segs"][-1][0])
+        s["q_end"] = s["segs"][-1][0]
+        s["segs"] = s["segs"][:-1]
+    else:
+        s["score"] -= 8 * (s["segs"][1][0] - s["q_start"])
+        s["q_start"] = s["segs"][1][0]
+        s["segs"] = s["segs"][1:]
+
+
+def _splice_ends_review(db, batch, res, config, dp_result, splice_result,
+                        max_intron, L, amb_out, chunk_len, len_v):
+    """Stage 3b of tpumap's _late_stages (src/altsplice.c,
+    src/spliceends.c): short terminal residues (1..AMB_MAX bases) placed
+    by the ladder's exact-site scan. A unique distal placement extends a
+    trimmed row's path with the junction (into splice_result); tied
+    placements keep the soft clip and go to amb_out (XA:Z:); a solved
+    short terminal exon with tied placements, or with a noncanonical
+    boundary that wobbles to a tie, is demoted to a soft clip."""
+    diag_v = res["diag"][:chunk_len]
+    strand_v = res["strand"][:chunk_len]
+    valid_v = diag_v != 0xFFFFFFFF
+    trim_nmm = res.get("trim_nmm", res["nmismatch"])
+    amb_rows = []       # trimmed rows whose short end may splice
+    review_rows = []    # solved splices with a short terminal exon
+    nc_rows = []        # ... and those reviewed for boundary-wobble ties
+    acode_req = {}
+    acodes = {}
+    tqs_v = np.asarray(res["trim_qstart"])[:chunk_len].astype(np.int64)
+    tqe_v = np.minimum(np.asarray(res["trim_qend"])[:chunk_len],
+                       len_v).astype(np.int64)
+    u_va, v_va = tqs_v, len_v - tqe_v
+    tnm_v = np.asarray(trim_nmm)[:chunk_len]
+    amb_m = valid_v & (((u_va >= 1) & (u_va <= AMB_MAX))
+                       | ((v_va >= 1) & (v_va <= AMB_MAX)))
+    amb_m = amb_m & (tnm_v <= np.maximum(
+        1, ((tqe_v - tqs_v).astype(np.float64)
+            * config.max_mismatch_frac).astype(np.int64)))
+    for i in sorted(set(np.nonzero(amb_m)[0].tolist()) | set(splice_result)):
+        if not valid_v[i]:
             continue
         li = int(len_v[i])
-        sub_score = 3 * li - 6 * int(nmm_v[i])
-        if trim_score_v is not None:
-            sub_score = max(sub_score, int(trim_score_v[i]) * 3 // 8)
-        if score_l[row] > sub_score:
-            ops = []
-            for op1, n in zip(runop_l[row], runlen_l[row]):
-                if not op1:
-                    break
-                ops.extend([op1 - 1] * n)
-            if not _indel_limits_ok(ops, max_insertions, max_deletions,
-                                    indel_endlength):
+        if i in splice_result:
+            s = splice_result[i]
+            segs = s["segs"]
+            if len(segs) < 2:
                 continue
-            dp_result[i] = (int(diag_v[i]) + start_l[row], ops,
-                            score_l[row])
-    return dp_result
+            sides = []
+            # only splice junctions are reviewed; terminal segments joined
+            # by an insertion or deletion are placed by the DP
+            end_intron = int(segs[-1][1]) - int(segs[-2][1]) >= MIN_INTRON
+            start_intron = int(segs[1][1]) - int(segs[0][1]) >= MIN_INTRON
+            if end_intron and 1 <= s["q_end"] - segs[-1][0] <= AMB_MAX:
+                sides.append(("qend", segs[-2][1], 0, segs[-1][0]))
+            if start_intron and 1 <= segs[1][0] - s["q_start"] <= AMB_MAX:
+                sides.append(("qstart", segs[1][1], segs[1][0], li))
+            if (end_intron
+                    and 1 <= s["q_end"] - segs[-1][0] <= NC_REVIEW_MAX):
+                nc_rows.append((i, "qend"))
+            if (start_intron
+                    and 1 <= segs[1][0] - s["q_start"] <= NC_REVIEW_MAX):
+                nc_rows.append((i, "qstart"))
+            if not sides and not (nc_rows and nc_rows[-1][0] == i):
+                continue
+            acode_req[i] = s["strand"]
+            for (side, a, tqs, tqe) in sides:
+                review_rows.append((i, a, tqs, tqe, li, (side,)))
+            continue
+        if i in dp_result or not amb_m[i]:
+            continue
+        tqs, tqe = int(tqs_v[i]), int(tqe_v[i])
+        acode_req[i] = int(strand_v[i])
+        amb_rows.append((i, int(diag_v[i]), tqs, tqe, li,
+                         ("qstart", "qend")))
+    if acode_req:
+        iis = np.fromiter(acode_req.keys(), dtype=np.int64)
+        sts = np.fromiter(acode_req.values(), dtype=np.int64)
+        ac, _m = _oriented_rows(batch, iis, sts, L)
+        acodes = {int(ii): ac[k] for k, ii in enumerate(iis)}
+    if amb_rows or review_rows:
+        se_res, se_amb = pool_device_results(res, max_intron)
+        for (i, a, tqs, tqe, li, _sides) in amb_rows:
+            sides = se_res.get(i)
+            if sides:
+                lo, hi = tqs, tqe             # proximal segment span
+                segs = []
+                q_start, q_end = tqs, tqe
+                for (side, qb, diag, _sense) in sides:
+                    if side == "qstart":
+                        segs.append((0, diag))
+                        q_start, lo = 0, qb
+                    else:
+                        q_end, hi = li, qb
+                segs.append((lo, a))
+                for (side, qb, diag, _sense) in sides:
+                    if side == "qend":
+                        segs.append((qb, diag))
+                # mismatches at the (possibly shifted) boundaries; the
+                # distal residues matched exactly
+                c = acodes[i]
+                nmm = int(np.sum(c[lo:hi] != db.get_codes(a + lo, hi - lo)))
+                splice_result[i] = {
+                    "segs": segs, "q_start": q_start, "q_end": q_end,
+                    "strand": int(res["strand"][i]),
+                    "score": 8 * (q_end - q_start) - 32 * nmm,
+                    "nmm": nmm,
+                }
+            if amb_out is not None and i in se_amb:
+                amb_out[i] = se_amb[i]
+        # a unique placement confirms a solved junction; tied placements
+        # demote it and surface in XA:Z:
+        for (i, _a, _tqs, _tqe, _li, sides) in review_rows:
+            for amb in se_amb.get(i, []):
+                if amb.side not in sides:
+                    continue
+                _demote(splice_result[i], amb.side)
+                if amb_out is not None:
+                    amb_out.setdefault(i, []).append(amb)
+    for (i, side) in nc_rows:
+        s = splice_result.get(i)
+        if s is None or len(s["segs"]) < 2 or i not in acodes:
+            continue
+        if side == "qend" and s["q_end"] <= s["segs"][-1][0]:
+            continue            # already demoted by the review above
+        if side == "qstart" and s["q_start"] >= s["segs"][1][0]:
+            continue
+        if _noncanon_tie(db, acodes[i], s, side):
+            _demote(s, side)
 
 
 def _sub_rows(batch, res, config, n):
@@ -242,22 +505,63 @@ def _sub_rows(batch, res, config, n):
     return li, diag, strand, tqs, tqe, plain, trim_ok
 
 
-def _bulk_emit_chunk(db, chunk, batch, res, mapq, dp_result, config):
-    """One native C call emits the final SAM text of every plain or
-    soft-clipped ungapped row and one more every unmapped row. Returns
-    (lines, flags, methods), lines[i] None where the Python loop emits
-    row i, or None without the native library."""
+def _sp_array_rows(res, li, config, amb_result, n):
+    """Array-form chain solutions (res["sp_sel"]) of rows below n:
+    (rsel, rows, ok), ok where the path passes the coverage and mismatch
+    filters and has no XA alternatives."""
+    rsel = np.nonzero(res["sp_sel"])[0]
+    ii = res["ch_idx"][rsel].astype(np.int64)
+    keep = ii < n
+    rsel, ii = rsel[keep], ii[keep]
+    al = (res["ch_qend"][rsel] - res["ch_qstart"][rsel]).astype(np.int32)
+    a_nmm = res["ch_nmm"][rsel].astype(np.int32)
+    ok = ((a_nmm <= np.maximum(
+              1, (al * config.max_mismatch_frac).astype(np.int32)))
+          & (al >= np.maximum(
+              20, (li[ii] * config.min_coverage).astype(np.int32))))
+    if amb_result:
+        ok &= ~np.fromiter((int(i_) in amb_result for i_ in ii),
+                           dtype=bool, count=len(ii))
+    return rsel, ii, ok
+
+
+def _path_ok(s, li, config, S) -> bool:
+    """A splice_result path the native emitters take: it passes the
+    filters and has at most S segments, none joined by an insertion."""
+    al = s["q_end"] - s["q_start"]
+    if not (s["nmm"] <= max(1, int(al * config.max_mismatch_frac))
+            and al >= max(20, int(li * config.min_coverage))):
+        return False
+    segs = s["segs"]
+    return (segs[0][0] == s["q_start"] and len(segs) <= S
+            and not any(b[1] < a[1] for a, b in zip(segs, segs[1:])))
+
+
+def _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides, config):
+    """Native C calls emit the final SAM text of every plain or
+    soft-clipped ungapped row, every unmapped row and every chain-DP path
+    row. overrides: (splice_result, dp_result, amb_result, sec_map).
+    Returns (lines, flags, methods), lines[i] None where the Python loop
+    emits row i, or None without the native library."""
     if sam_bulk._get_lib() is None:
         return None
+    splice_result, _dp, amb_result, _sec = overrides
     n = len(chunk)
     li, diag, strand, tqs, tqe, plain, trim_ok = _sub_rows(batch, res,
                                                            config, n)
     emit = plain | trim_ok
     unm = ~plain & ~trim_ok
-    for i in dp_result:
-        if i < n:
-            emit[i] = False
-            unm[i] = False
+    for d in overrides:
+        for i in d:
+            if i < n:
+                emit[i] = False
+                unm[i] = False
+    sp_rows = None
+    if "sp_sel" in res:
+        rsel, ii, ok = _sp_array_rows(res, li, config, amb_result, n)
+        emit[ii] = False            # spliced rows never emit as ungapped
+        sp_rows = (rsel[ok], ii[ok])
+        unm[sp_rows[1]] = False
     qstart = np.where(plain, 0, tqs).astype(np.int32)
     qend = np.where(plain, li, tqe).astype(np.int32)
     methods = np.full(n, "sub", dtype=object)
@@ -279,55 +583,147 @@ def _bulk_emit_chunk(db, chunk, batch, res, mapq, dp_result, config):
                     lines[i] = ulines[i]
                     flags[i] = 4
                     methods[i] = "unmapped"
+
+    # chain-DP spliced and deletion paths
+    if splice_result or (sp_rows is not None and len(sp_rows[0])):
+        S = res["ch_segq"].shape[1] if "ch_segq" in res else 8
+        rows = []
+        sp_strand = np.zeros(n, np.uint8)
+        sp_qs = np.zeros(n, np.int32)
+        sp_qe = np.zeros(n, np.int32)
+        sp_emit = np.zeros(n, np.uint8)
+        counts = np.zeros(n, dtype=np.int64)
+        segq_m = np.zeros((n, S), np.int32)
+        segd_m = np.zeros((n, S), np.uint64)
+        if sp_rows is not None and len(sp_rows[0]):
+            rsel, ii = sp_rows
+            ns = res["ch_nsegs"][rsel].astype(np.int64)
+            rows.extend(ii.tolist())
+            sp_emit[ii] = 1
+            flags[ii] = np.where(strand[ii], 16, 0)
+            sp_strand[ii] = strand[ii]
+            sp_qs[ii] = res["ch_qstart"][rsel]
+            sp_qe[ii] = res["ch_qend"][rsel]
+            counts[ii] = ns
+            segq_m[ii] = res["ch_segq"][rsel]
+            segd_m[ii] = res["ch_segd"][rsel]
+            methods[ii[ns > 1]] = "splice"
+        for i in sorted(splice_result):
+            s = splice_result[i]
+            if i >= n or i in amb_result or not _path_ok(s, li[i], config,
+                                                         S):
+                continue
+            segs = s["segs"]
+            rows.append(i)
+            sp_emit[i] = 1
+            flags[i] = 16 if s["strand"] else 0
+            sp_strand[i] = s["strand"]
+            sp_qs[i] = s["q_start"]
+            sp_qe[i] = s["q_end"]
+            counts[i] = len(segs)
+            for c_, (q0, d0) in enumerate(segs):
+                segq_m[i, c_] = q0
+                segd_m[i, c_] = d0
+            methods[i] = "splice" if len(segs) > 1 else "sub"
+        if rows:
+            # row i's segments are [off[i], off[i+1]) of the flat arrays
+            off = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(counts, out=off[1:])
+            segmask = (np.arange(S, dtype=np.int64)[None, :]
+                       < counts[:, None])
+            plines = sam_bulk.emit_path_bulk(
+                db, chunk, batch["codes"], batch["nmask"], li, sp_strand,
+                mapq, sp_qs, sp_qe, off, segq_m[segmask].astype(np.int32),
+                segd_m[segmask].astype(np.uint64), sp_emit, MIN_INTRON)
+            if plines is not None:
+                for i in rows:
+                    if plines[i] is not None:
+                        lines[i] = plines[i]
     return lines, flags, methods
 
 
-def _mixed_emit_chunk(db, chunk, batch, res, mapq, dp_result, config):
-    """Row-order blob emission: every unmapped and ungapped row in one C
-    call (io/sam_bulk.emit_mixed_blob); indel rows get kind 0 and their
-    lines from the Python loop. Returns (SamBlob, methods) or None
-    without the native library."""
+def _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides, config):
+    """Row-order blob emission: every unmapped, ungapped and chain-DP
+    path row in one C call (io/sam_bulk.emit_mixed_blob); rows of the
+    overrides (splice_result rows the native emitter does not take,
+    indel rows, rows with XA alternatives) get kind 0 and their lines
+    from the Python loop. Returns (SamBlob, methods) or None without the
+    native library."""
     if sam_bulk._get_lib() is None:
         return None
+    splice_result, dp_result, amb_result, _sec = overrides
     n = len(chunk)
     li, diag, strand, tqs, tqe, plain, trim_ok = _sub_rows(batch, res,
                                                            config, n)
     kind = np.where(plain | trim_ok, np.uint8(2), np.uint8(1))
     qstart = np.where(plain, 0, tqs).astype(np.int32)
     qend = np.where(plain, li, tqe).astype(np.int32)
-    for i in dp_result:
-        if i < n:
-            kind[i] = 0
+    S = res["ch_segq"].shape[1] if "ch_segq" in res else 8
+    counts = np.zeros(n, dtype=np.int64)
+    segq_m = np.zeros((n, S), np.int32)
+    segd_m = np.zeros((n, S), np.uint64)
+    if "sp_sel" in res:
+        rsel, ii, ok = _sp_array_rows(res, li, config, amb_result, n)
+        rsel, ii = rsel[ok], ii[ok]
+        if len(ii):
+            kind[ii] = 3
+            qstart[ii] = res["ch_qstart"][rsel]
+            qend[ii] = res["ch_qend"][rsel]
+            counts[ii] = res["ch_nsegs"][rsel].astype(np.int64)
+            segq_m[ii] = res["ch_segq"][rsel]
+            segd_m[ii] = res["ch_segd"][rsel]
+    for i in sorted(splice_result):
+        if i >= n:
+            continue
+        s = splice_result[i]
+        kind[i] = 0             # the Python path_record by default
+        if i in amb_result or not _path_ok(s, li[i], config, S):
+            continue
+        kind[i] = 3
+        strand[i] = s["strand"]
+        qstart[i] = s["q_start"]
+        qend[i] = s["q_end"]
+        counts[i] = len(s["segs"])
+        for c_, (q0, d0) in enumerate(s["segs"]):
+            segq_m[i, c_] = q0
+            segd_m[i, c_] = d0
+    for d in (dp_result, amb_result):
+        for i in d:
+            if i < n:
+                kind[i] = 0
+    off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=off[1:])
+    segmask = np.arange(S, dtype=np.int64)[None, :] < counts[:, None]
     mq_eff = np.where(kind == 1, 0, mapq[:n]).astype(np.int32)
-    # no N-exon path rows (kind 3) with splicing off: no segments
     blob = sam_bulk.emit_mixed_blob(
         db, chunk, batch["codes"], batch["nmask"], li, kind, diag, strand,
         mq_eff, np.asarray(res["n_best"][:n]), qstart, qend, MIN_INTRON,
-        seg_off=np.zeros(n + 1, dtype=np.int64),
-        seg_q=np.zeros(0, np.int32), seg_d=np.zeros(0, np.uint64),
-        has_qual="quals" in batch)
+        seg_off=off, seg_q=segq_m[segmask].astype(np.int32),
+        seg_d=segd_m[segmask].astype(np.uint64), has_qual="quals" in batch)
     if blob is None:
         return None
     methods = np.full(n, "sub", dtype=object)
     methods[kind == 1] = "unmapped"
+    methods[(kind == 3) & (counts > 1)] = "splice"
     return blob, methods
 
 
 def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                   config: AlignConfig = AlignConfig(),
-                  novelsplicing: bool = False, batch_size: int = 1024,
-                  known=None, tr=None, find_fusions: bool = False,
-                  npaths: int = 1, show_method: bool = False,
-                  stats: dict | None = None,
+                  novelsplicing: bool = False, max_intron: int = 200_000,
+                  batch_size: int = 1024, known=None, tr=None,
+                  find_fusions: bool = False, npaths: int = 1,
+                  show_method: bool = False, stats: dict | None = None,
                   max_insertions: int = 6, max_deletions: int = 9,
-                  indel_endlength: int = 4, known_indels=None,
-                  device_ctx=None, sink=None) -> list[sam.SamRecord]:
-    """Align single-end DNA reads through the fused ladder on the
-    index's device. Returns SAM records in input order, or, with
-    sink (a callable taking bytes), streams the final SAM text to it in
-    input order and returns []."""
-    unported = {"novelsplicing": novelsplicing, "known": known is not None,
-                "tr": tr is not None, "find_fusions": find_fusions,
+                  indel_endlength: int = 4, use_localdb: bool = True,
+                  known_indels=None, device_ctx=None,
+                  sink=None) -> list[sam.SamRecord]:
+    """Align single-end reads (DNA, or RNA with novelsplicing) through
+    the fused ladder on the index's device. Returns SAM records in input
+    order, or, with sink (a callable taking bytes), streams the final SAM
+    text to it in input order and returns []."""
+    unported = {"known": known is not None, "tr": tr is not None,
+                "find_fusions": find_fusions,
                 "known_indels": known_indels is not None,
                 "device_ctx": device_ctx is not None,
                 "mode": config.mode != "standard",
@@ -337,6 +733,7 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
             raise NotImplementedError(
                 f"{name} is a later slice of the port")
     out = []
+    scoring = pathdp.PathScoring(max_intron=max(max_intron, MIN_INTRON))
     # one (B, L) shape for the whole run; runs smaller than one batch use
     # the small buckets
     run_L = pad_to_bucket(max((len(r.sequence) for r in records),
@@ -350,8 +747,13 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
         B = (batch_size if (pad_tail or len(chunk) == batch_size)
              else pad_to_bucket(len(chunk)))
         batch = make_batch(chunk, B, run_L)
-        dev = ladder.align_batch_full(index, _to_device(batch, index.device),
-                                      config, run_L, r_indel=min(2048, B))
+        # compactions scale with the batch: an RNA batch can be ~50%
+        # spliced
+        r_chain = min(max(8192, B // 2), B)
+        dev = ladder.align_batch_full(
+            index, _to_device(batch, index.device), config, run_L, scoring,
+            novelsplicing, novelsplicing and use_localdb, r_chain,
+            min(max(2048, B // 8), r_chain), min(2048, B))
         return chunk, batch, ladder.start_fetch(dev)
 
     starts = list(range(0, len(records), batch_size))
@@ -370,8 +772,10 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                                 res["n_best"], batch["lengths"],
                                 mm_qualsum=res.get("mm_qualsum"),
                                 qual_mean16=res.get("qual_mean16"))
-        dp_result = refine_unsolved(batch, res, max_insertions,
-                                    max_deletions, indel_endlength)
+        amb_result = {}
+        dp_result, splice_result = refine_unsolved(
+            db, batch, res, config, novelsplicing, max_intron, run_L,
+            max_insertions, max_deletions, indel_endlength, amb_result)
         sec_map = {}
         if npaths > 1:
             for r in np.nonzero(res["sec_sel"])[0].tolist():
@@ -380,13 +784,14 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                     sec_map[i2] = (res["sec_diags"][r],
                                    res["sec_strands"][r], res["sec_nmm"][r])
 
+        overrides = (splice_result, dp_result, amb_result, sec_map)
         bulk = None
         mix = None
         if sink is not None and not show_method:
-            mix = _mixed_emit_chunk(db, chunk, batch, res, mapq, dp_result,
+            mix = _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides,
                                     config)
         if mix is None and not show_method:
-            bulk = _bulk_emit_chunk(db, chunk, batch, res, mapq, dp_result,
+            bulk = _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides,
                                     config)
         if bulk is not None:
             bulk_lines, bulk_flags, bulk_methods = bulk
@@ -409,7 +814,8 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
             rows_iter = rows_py
 
         # every row bulk-emitted: skip the per-row loop
-        if (bulk is not None and not dp_result
+        if (bulk is not None and not dp_result and not splice_result
+                and not amb_result
                 and all(ln is not None for ln in bulk_lines)):
             unm = bulk_methods == "unmapped"
             mq_l = np.where(unm, 0, mapq[:len(bulk_lines)]).tolist()
@@ -423,6 +829,10 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
             continue
 
         def _emit(record, method, nh=1):
+            if not record.flag & 4 and i in amb_result:
+                # tied splice-end placements: the residue stays soft
+                # clipped, the alternatives go in XA:Z:
+                record.tags.append(xa_tag(amb_result[i]))
             if not record.flag & 4:
                 record.tags.append(f"NH:i:{max(1, nh)}")
                 record.tags.append("HI:i:1")
@@ -445,6 +855,17 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                     0 if m == "unmapped" else int(mapq[i])))
                 continue
             li = int(batch["lengths"][i])
+            if i in splice_result:
+                s = splice_result[i]
+                alen = s["q_end"] - s["q_start"]
+                if (s["nmm"] <= max(1, int(alen * config.max_mismatch_frac))
+                        and alen >= max(20, int(li * config.min_coverage))):
+                    _emit(sam.path_record(
+                        db, rec.accession, rec.sequence, rec.quality,
+                        s["segs"], s["q_start"], s["q_end"], s["strand"],
+                        int(mapq[i]), min_intron=MIN_INTRON),
+                        "splice" if len(s["segs"]) > 1 else "sub")
+                    continue
             if i in dp_result:
                 pos0, ops, score = dp_result[i]
                 if (3 * li - score) // 6 <= int(li * config.max_mismatch_frac):
@@ -529,19 +950,32 @@ def _secondaries(db, rec, res, i, sec, mapq: int, npaths: int):
     return secs or None
 
 
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(prog="tpumap_torch-gsnap")
     ap.add_argument("-D", "--dir", required=True, help="database directory")
     ap.add_argument("reads", help="FASTA/FASTQ file")
     ap.add_argument("--batch-size", type=int, default=1024)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the index and the ladder "
+                         "(default cuda; cpu runs the plain versions)")
+    ap.add_argument("-N", "--novelsplicing", type=int, choices=(0, 1),
+                    default=0, help="look for novel splice junctions")
+    ap.add_argument("-w", "--max-intron", type=int, default=200_000,
+                    help="longest novel intron (bp)")
     args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("tpumap_torch-gsnap: no CUDA device (pass "
+                         "--device cpu to run the plain versions)")
     db = GenomeDB.load(args.dir)
-    index = DeviceIndex.from_host(
-        db, "cuda" if torch.cuda.is_available() else "cpu")
+    index = DeviceIndex.from_host(db, device)
     records = list(read_seqs(args.reads))
     sys.stdout.write(sam.header(db, " ".join(argv or sys.argv)))
-    for r in align_records(db, index, records, batch_size=args.batch_size):
+    for r in align_records(db, index, records, batch_size=args.batch_size,
+                           novelsplicing=bool(args.novelsplicing),
+                           max_intron=args.max_intron):
         sys.stdout.write(r.lines())
 
 

@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled at first use with nvcc for sm_90a into one
-shared library with a plain C interface, under tpumap_torch/_build/
-keyed by a hash of the sources, and loaded with ctypes. Each C entry
+The sources are compiled at first use with nvcc for sm_90a, one nvcc
+process per source run side by side, and linked into one shared library
+with a plain C interface, under tpumap_torch/_build/ keyed by a hash of
+the sources, and loaded with ctypes. Each C entry
 point launches on the stream it is given and returns cudaGetLastError();
 `launch` raises if that is not 0. There is no fallback: a missing nvcc
 or a failed build raises.
@@ -24,6 +25,8 @@ import torch
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent / "_build"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the three window scans share one argument list (csrc/localscan.cu)
+_SCAN_ARGS = [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
 
 # C entry point and argument types of each kernel before the stream
 # (tensors are passed as pointers)
@@ -37,6 +40,12 @@ _ENTRY = {
     "traceback": ("tt_traceback",
                   [_P, _P, _P, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P, _P]),
+    "chain_dp": ("tt_chain_dp",
+                 [_P] * 7 + [_I] * 3 + [_I] * 7 + [_L, _L] + [_I] * 4
+                 + [_P] * 8),
+    "scan_fragment": ("tt_scan_fragment", _SCAN_ARGS),
+    "scan_exact_sites": ("tt_scan_exact_sites", _SCAN_ARGS),
+    "scan_fragment_runs": ("tt_scan_fragment_runs", _SCAN_ARGS),
 }
 
 LAUNCHES = {name: 0 for name in _ENTRY}
@@ -73,15 +82,32 @@ def build() -> ctypes.CDLL:
     out = _BUILD / h.hexdigest()[:16] / "libtpumap_torch_kernels.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp)] + [str(s) for s in srcs]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = r.stdout + r.stderr
+        tag = os.getpid()
+        nvcc = _nvcc()
+        flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC"]
+        # one nvcc per source, all at once, then one link
+        objs = [out.parent / f"{s.stem}.{tag}.o" for s in srcs]
+        procs = [subprocess.Popen(
+            [nvcc] + flags + ["-Xptxas", "-v", "-c", "-o", str(o), str(s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [s.name for s, p in zip(srcs, procs) if p.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = out.with_suffix(f".{tag}.tmp")
+        r = subprocess.run([nvcc] + flags + ["-shared", "-o", str(tmp)]
+                           + [str(o) for o in objs],
+                           capture_output=True, text=True)
+        build_log += r.stdout + r.stderr
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{build_log}")
         os.replace(tmp, out)
+        for o in objs:
+            o.unlink()
     lib = ctypes.CDLL(str(out))
     for name, (sym, argtypes) in _ENTRY.items():
         fn = getattr(lib, sym)

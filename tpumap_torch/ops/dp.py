@@ -18,9 +18,9 @@ from dataclasses import dataclass
 import torch
 
 from tpumap_torch import kernels
+from tpumap_torch.ops.u32 import INT32_MIN, take_along
 
 NEG = -(2 ** 20)
-INT32_MIN = -(2 ** 31)
 
 # direction codes
 DIAG, UP, LEFT, STOP = 0, 1, 2, 3
@@ -35,16 +35,6 @@ class Scoring:
     mismatch: int = -3
     gap_open: int = 8      # cost of a 1-residue gap
     gap_extend: int = 3    # per additional residue
-
-
-def _take_lane(H: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """JAX take_along_axis of one lane: negative indices wrap once,
-    indices past the end fill with INT32_MIN."""
-    W = H.shape[1]
-    kk = torch.where(k < 0, k + W, k).to(torch.int64)
-    ok = (kk >= 0) & (kk < W)
-    v = torch.gather(H, 1, kk.clamp(0, W - 1)[:, None])[:, 0]
-    return torch.where(ok, v, torch.full_like(v, INT32_MIN))
 
 
 def banded_align_plain(qcodes, qlens, gcodes, glens, band: int,
@@ -98,7 +88,8 @@ def banded_align_plain(qcodes, qlens, gcodes, glens, band: int,
         F = torch.where(active, Fn, F)
     if mode == "global":
         end_k = (glens - qlens + band).to(i32)
-        score = _take_lane(H, end_k)
+        # JAX's take_along_axis fill for out-of-band end lanes
+        score = take_along(H, end_k[:, None], INT32_MIN)[:, 0]
     else:
         # torch.max returns the first maximal index, as jnp.argmax
         score, end_k = torch.max(H, dim=1)

@@ -1,14 +1,322 @@
-"""End trimming of ungapped alignments (port of tpumap/ops/pathdp.py:
-trim_ends and _trim_scan; the chain solver is a later slice).
+"""Chain DP path solver and end trimming (port of tpumap/ops/pathdp.py).
 
-Exact re-expression of the reference's Spliceends_trim_qstart/qend
-scoring with prefix scans over the per-base mismatch mask.
+`chain_solve` solves each read against its candidate diagonals with one
+local-alignment DP over query positions (extend, open, or jump from a
+genomically earlier diagonal through a deletion or a scored intron, or
+from a later one through an insertion), then walks the choices back to
+the segments. It runs in two parts:
+
+- `chain_inputs`, plain torch: sorted diagonals, the per-base score s,
+  the donor and acceptor dinucleotides, the mismatch mask and the
+  known-site bits (none yet), each [R, K, L];
+- the DP and its traceback: `chain_dp` launches kernel K5
+  (csrc/chain.cu) for CUDA tensors; `chain_dp_plain` beside it, which
+  runs for CPU tensors, is tpumap's two lax.scans as Python loops over
+  [R, K, K] tensors with the same int32 arithmetic and tie rules.
+
+`trim_ends` and `_trim_scan` re-express the reference's
+Spliceends_trim_qstart/qend scoring with prefix scans over the
+per-base mismatch mask.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
+from tpumap_torch import kernels
+from tpumap_torch.ops import verify
+from tpumap_torch.ops.u32 import INT32_MIN, INVALID, MASK32, take_along
+
 NEG = -(2 ** 20)
+MAX_SEGMENTS = 8        # segments kept per read (tpumap's S)
+
+# dinucleotide codes (2-bit base codes a=0 c=1 g=2 t=3, hi*4+lo)
+_GT, _AG, _GC, _AT, _CT, _AC = 11, 2, 9, 3, 7, 1
+# known-site bits of chain_inputs()["known"]
+KNOWN_DONOR, KNOWN_ACCEPTOR, KNOWN_ANTIDONOR, KNOWN_ANTIACCEPTOR = 1, 2, 4, 8
+
+
+@dataclass(frozen=True)
+class PathScoring:
+    """Integer scores, scaled so one match = +8 (a JAX-free copy of
+    tpumap.ops.pathdp.PathScoring, field for field)."""
+    match: int = 8
+    mismatch: int = -24
+    del_open: int = -24          # 1-base deletion
+    del_extend: int = -8         # per additional deleted base
+    splice_base: int = -90       # noncanonical junction
+    bonus_gtag: int = 50
+    bonus_gcag: int = 40
+    bonus_atac: int = 30
+    bonus_known: int = 74        # net -16: known junctions open readily
+    min_intron: int = 9
+    max_intron: int = 200_000
+    ins_open: int = -24          # insertion jump to an earlier diagonal
+    ins_extend: int = -8
+    max_insert: int = 6
+    allow_noncanon: bool = True
+
+
+def quality_mismatch_cost(quals: torch.Tensor) -> torch.Tensor:
+    """Per-base mismatch cost from phred qualities (uint8[..., L]): Q30
+    -> -24, low-quality bases nearly free."""
+    q = torch.clamp(quals.to(torch.int32), max=40)
+    return -(8 + torch.div(q * 8, 15, rounding_mode="floor"))
+
+
+def chain_inputs(index, codes, nmask, lengths, diags,
+                 scoring: PathScoring = PathScoring(), quals=None) -> dict:
+    """The DP's inputs (pathdp.py:137-215): diags int64[R, K] sorted
+    (INVALID last); s int32[R, K, L] per-base score (0 past the read or
+    on an INVALID lane); don and acc int32[R, K, L] dinucleotides (the
+    pair at q, and the pair ending before q, 16 for q < 2); mm
+    bool[R, K, L] mismatches; known None (no known sites)."""
+    R, L = codes.shape
+    dev = codes.device
+    ds = torch.sort(diags, dim=1).values
+    valid_k = ds != INVALID
+    d0 = torch.where(valid_k, ds, 0)
+    gwin = verify.extract_codes_window(index.genome_packed, d0, L + 1)
+    mm = codes[:, None, :] != gwin[..., :L]
+    if getattr(index, "genome_has_n", True):
+        gn2 = verify.extract_bit_window(index.genome_nmask, d0,
+                                        (L + 15) // 16)
+        mm = mm | verify.mismatch_base_mask(gn2, L)
+    mm = mm | nmask[:, None, :]
+    inlen = torch.arange(L, device=dev)[None, :] < lengths[:, None]
+    miscost = (quality_mismatch_cost(quals)[:, None, :] if quals is not None
+               else scoring.mismatch)
+    s = torch.where(mm, miscost, scoring.match).to(torch.int32)
+    s = torch.where(inlen[:, None, :] & valid_k[..., None], s, 0)
+    g = gwin.to(torch.int32)
+    don = g[..., :L] * 4 + g[..., 1:L + 1]
+    acc = torch.cat([torch.full((R, ds.shape[1], 2), 16, dtype=torch.int32,
+                                device=dev), don[..., :L - 2]], dim=-1)
+    return {"diags": ds, "s": s, "don": don, "acc": acc, "mm": mm,
+            "known": None}
+
+
+def _pair_tables(ds: torch.Tensor, sc: PathScoring):
+    """Per-row junction geometry [R, K', K] for a jump k' -> k, with
+    gap = diag[k] - diag[k'] in uint32 wrap arithmetic."""
+    gap = (ds[:, None, :] - ds[:, :, None]) & MASK32
+    neg_gap = (-gap) & MASK32
+    gap_small = torch.clamp(gap, max=sc.min_intron).to(torch.int32)
+    nins = torch.clamp(neg_gap, max=sc.max_insert).to(torch.int32)
+    valid_k = ds != INVALID
+    return {
+        "is_del": (gap >= 1) & (gap < sc.min_intron),
+        "is_intron": (gap >= sc.min_intron) & (gap <= sc.max_intron),
+        "del_cost": sc.del_open + sc.del_extend * torch.clamp(gap_small - 1,
+                                                              min=0),
+        "is_ins": (neg_gap >= 1) & (neg_gap <= sc.max_insert),
+        "nins": nins,
+        "ins_cost": sc.ins_open + sc.ins_extend * torch.clamp(nins - 1,
+                                                              min=0),
+        "pair_ok": valid_k[:, :, None] & valid_k[:, None, :],
+    }
+
+
+def _intron_bonus(dj, aj, kn_src, kn_dst, sc: PathScoring):
+    """Splice bonus of donor dinucleotides dj [R, K', 1] against acceptor
+    dinucleotides aj [R, 1, K]: the best canonical pair, or the known-site
+    bonus."""
+    sense_b = torch.where((dj == _GT) & (aj == _AG), sc.bonus_gtag,
+                          torch.where((dj == _GC) & (aj == _AG), sc.bonus_gcag,
+                                      torch.where((dj == _AT) & (aj == _AC),
+                                                  sc.bonus_atac, 0)))
+    anti_b = torch.where((dj == _CT) & (aj == _AC), sc.bonus_gtag,
+                         torch.where((dj == _CT) & (aj == _GC), sc.bonus_gcag,
+                                     torch.where((dj == _GT) & (aj == _AT),
+                                                 sc.bonus_atac, 0)))
+    bonus = torch.maximum(sense_b, anti_b)
+    if kn_src is not None:
+        pair = (((kn_src & KNOWN_DONOR) != 0) & ((kn_dst & KNOWN_ACCEPTOR) != 0)
+                | ((kn_src & KNOWN_ANTIACCEPTOR) != 0)
+                & ((kn_dst & KNOWN_ANTIDONOR) != 0))
+        bonus = torch.maximum(bonus, torch.where(pair, sc.bonus_known, 0))
+    return bonus
+
+
+def chain_dp_plain(inp: dict, lengths: torch.Tensor,
+                   scoring: PathScoring = PathScoring()) -> dict:
+    """The chain DP and its traceback on chain_inputs(): tpumap's forward
+    and reverse lax.scans (pathdp.py:217-411) step by step. Returns score,
+    q_start, q_end, nsegs, nmm int32[R], seg_q int32[R, 8] and seg_diag
+    int64[R, 8] (INVALID past nsegs)."""
+    sc = scoring
+    ds, s, don, acc, mmask = (inp["diags"], inp["s"], inp["don"], inp["acc"],
+                              inp["mm"])
+    known = inp["known"]
+    R, K, L = s.shape
+    S = MAX_SEGMENTS
+    NI = sc.max_insert
+    dev = s.device
+    i32 = torch.int32
+    t = _pair_tables(ds, sc)
+    valid_k = ds != INVALID
+    start_val = torch.where(valid_k, 0, NEG).to(i32)
+    lengths = lengths.to(i32)
+
+    H = torch.full((R, K), NEG, dtype=i32, device=dev)
+    best_score = torch.full((R,), NEG, dtype=i32, device=dev)
+    best_q = torch.zeros(R, dtype=i32, device=dev)
+    best_k = torch.zeros(R, dtype=torch.int64, device=dev)
+    recent = torch.zeros((R, K, NI), dtype=i32, device=dev)
+    choices = torch.empty((L, R, K), dtype=torch.uint8, device=dev)
+    for q in range(L):
+        s_q = s[:, :, q]
+        kn = known[:, :, q] if known is not None else None
+        bonus = _intron_bonus(don[:, :, q][:, :, None],
+                              acc[:, :, q][:, None, :],
+                              None if kn is None else kn[:, :, None],
+                              None if kn is None else kn[:, None, :], sc)
+        intron_cost = sc.splice_base + bonus
+        if not sc.allow_noncanon:
+            intron_cost = torch.where(bonus > 0, intron_cost, NEG)
+        # exact insertion correction: the scores H gathered on the old
+        # diagonal for the n inserted bases [q-n, q)
+        run = torch.cumsum(recent, dim=-1, dtype=i32)
+        corr = torch.zeros_like(t["ins_cost"])
+        for n in range(1, NI + 1):
+            corr = torch.where(t["nins"] == n, run[..., n - 1][:, :, None],
+                               corr)
+        trans = torch.where(t["is_intron"], intron_cost,
+                            torch.where(t["is_del"], t["del_cost"],
+                                        torch.where(t["is_ins"],
+                                                    t["ins_cost"] - corr,
+                                                    NEG)))
+        trans = torch.where(t["is_ins"] & (q < t["nins"] + 1), NEG, trans)
+        trans = torch.where(t["pair_ok"] & (q >= 1), trans, NEG)
+        jump = H[:, :, None] + trans.to(i32)
+        switch_best, switch_arg = torch.max(jump, dim=1)
+        best3 = torch.maximum(H, torch.maximum(start_val, switch_best))
+        choice = torch.where(best3 == H, 0,
+                             torch.where(best3 == start_val, 1,
+                                         2 + switch_arg))
+        active = (q < lengths)[:, None]
+        H = torch.where(active, best3 + s_q, H)
+        choices[q] = torch.where(active, choice, 0).to(torch.uint8)
+        if NI:
+            recent = torch.where(
+                active[..., None],
+                torch.cat([s_q[..., None], recent[..., :-1]], dim=-1),
+                recent)
+        row_best, row_k = torch.max(H, dim=1)
+        # ties keep the latest co-optimal end
+        upd = (row_best >= best_score) & (q < lengths)
+        best_score = torch.where(upd, row_best, best_score)
+        best_q = torch.where(upd, q, best_q)
+        best_k = torch.where(upd, row_k, best_k)
+
+    k_cur = best_k
+    done = torch.zeros(R, dtype=torch.bool, device=dev)
+    nsegs = torch.zeros(R, dtype=i32, device=dev)
+    seg_q_rev = torch.zeros((R, S), dtype=i32, device=dev)
+    seg_k_rev = torch.zeros((R, S), dtype=i32, device=dev)
+    skip = torch.zeros(R, dtype=i32, device=dev)
+    nmm = torch.zeros(R, dtype=i32, device=dev)
+    ar_s = torch.arange(S, device=dev)
+    for q in range(L - 1, -1, -1):
+        inside = (q <= best_q) & ~done
+        c = torch.gather(choices[q], 1, k_cur[:, None])[:, 0].to(torch.int64)
+        is_start = inside & (c == 1)
+        is_switch = inside & (c >= 2)
+        event = is_start | is_switch
+        slot = (ar_s[None, :] == nsegs[:, None]) & event[:, None]
+        seg_q_rev = torch.where(slot, q, seg_q_rev)
+        seg_k_rev = torch.where(slot, k_cur[:, None].to(i32), seg_k_rev)
+        nsegs = nsegs + event.to(i32)
+        # inserted query bases (the skip window below an insertion jump)
+        # are not on the path's diagonal: they stay out of nmm
+        on_path = inside & (skip == 0)
+        mm_q = torch.gather(mmask[:, :, q], 1, k_cur[:, None])[:, 0]
+        nmm = nmm + (on_path & mm_q).to(i32)
+        skip = torch.where(inside, torch.clamp(skip - 1, min=0), skip)
+        d_cur = torch.gather(ds, 1, k_cur[:, None])[:, 0]
+        d_prev = torch.gather(ds, 1, torch.clamp(c - 2, 0, K - 1)[:, None])[:, 0]
+        n_ij = (d_prev - d_cur) & MASK32
+        ins_j = is_switch & (n_ij >= 1) & (n_ij <= sc.max_insert)
+        skip = torch.where(ins_j, n_ij.to(i32), skip)
+        k_cur = torch.where(is_switch, c - 2, k_cur)
+        done = done | is_start
+
+    # segments were recorded last-first; flip to ascending query order
+    # (JAX's out-of-range take fills INT32_MIN / INVALID past slot S)
+    flip = torch.clamp(nsegs[:, None] - 1 - ar_s[None, :], min=0)
+    in_seg = ar_s[None, :] < nsegs[:, None]
+    seg_q = torch.where(in_seg, take_along(seg_q_rev, flip, INT32_MIN), 0)
+    seg_k = take_along(seg_k_rev, flip, INT32_MIN)
+    seg_diag = torch.where(in_seg, take_along(ds, seg_k, INVALID), INVALID)
+    return {"score": best_score, "q_start": seg_q[:, 0].contiguous(),
+            "q_end": best_q + 1, "nsegs": nsegs, "seg_q": seg_q,
+            "seg_diag": seg_diag, "nmm": nmm}
+
+
+def chain_dp(inp: dict, lengths: torch.Tensor,
+             scoring: PathScoring = PathScoring()) -> dict:
+    """chain_dp_plain for CPU tensors; kernel K5 for CUDA. The kernel
+    reads its [R, K, L] inputs time-major ([L, K, R], one thread per
+    row, neighbouring rows on neighbouring addresses)."""
+    s = inp["s"]
+    if s.device.type == "cpu":
+        return chain_dp_plain(inp, lengths, scoring)
+    sc = scoring
+    R, K, L = s.shape
+    dev = s.device
+    S = MAX_SEGMENTS
+    kernels.check_args("chain_dp", dev,
+                       (inp["diags"], torch.int64, (R, K)),
+                       (s, torch.int32, (R, K, L)),
+                       (inp["don"], torch.int32, (R, K, L)),
+                       (inp["acc"], torch.int32, (R, K, L)),
+                       (inp["mm"], torch.bool, (R, K, L)),
+                       (lengths, torch.int32, (R,)))
+    if K > 8 or not 0 <= sc.max_insert <= 8 or L < 2:
+        raise ValueError("chain_dp: needs K <= 8 candidates, "
+                         "max_insert <= 8 and L >= 2")
+
+    def tmajor(x):
+        return x.permute(2, 1, 0).to(torch.uint8).contiguous()
+
+    known = inp["known"]
+    out = {"score": torch.empty(R, dtype=torch.int32, device=dev),
+           "q_start": torch.empty(R, dtype=torch.int32, device=dev),
+           "q_end": torch.empty(R, dtype=torch.int32, device=dev),
+           "nsegs": torch.empty(R, dtype=torch.int32, device=dev),
+           "seg_q": torch.empty((R, S), dtype=torch.int32, device=dev),
+           "seg_diag": torch.empty((R, S), dtype=torch.int64, device=dev),
+           "nmm": torch.empty(R, dtype=torch.int32, device=dev)}
+    if R == 0:
+        return out
+    choices = torch.empty((L, K, R), dtype=torch.uint8, device=dev)
+    kn = tmajor(known) if known is not None else None
+    kernels.launch(
+        "chain_dp", dev, inp["diags"], s.permute(2, 1, 0).contiguous(),
+        tmajor(inp["don"]), tmajor(inp["acc"]), tmajor(inp["mm"]),
+        kn if kn is not None else 0, lengths, R, K, L,
+        sc.del_open, sc.del_extend, sc.splice_base, sc.bonus_gtag,
+        sc.bonus_gcag, sc.bonus_atac, sc.bonus_known, sc.min_intron,
+        sc.max_intron, sc.ins_open, sc.ins_extend, sc.max_insert,
+        int(sc.allow_noncanon), choices, out["score"], out["q_start"],
+        out["q_end"], out["nsegs"], out["seg_q"], out["seg_diag"],
+        out["nmm"])
+    return out
+
+
+def chain_solve(index, codes, nmask, lengths, diags,
+                scoring: PathScoring = PathScoring(),
+                with_quals: bool = False, quals=None, known=None) -> dict:
+    """Solve each read (codes uint8[R, L] in the aligned orientation,
+    nmask bool[R, L], lengths int32[R]) against its candidate diagonals
+    int64[R, K] (INVALID-padded, any order). Returns the dict of
+    chain_dp_plain."""
+    if known is not None:
+        raise NotImplementedError("known splicing is a later slice")
+    inp = chain_inputs(index, codes, nmask, lengths, diags, scoring,
+                       quals if with_quals else None)
+    return chain_dp(inp, lengths, scoring)
 
 
 def _cat_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,7 @@ import torch
 
 INVALID = 0xFFFFFFFF
 MASK32 = 0xFFFFFFFF
+INT32_MIN = -(2 ** 31)     # JAX's int32 fill for an out-of-range take
 
 
 def u32(x: torch.Tensor) -> torch.Tensor:
@@ -36,6 +37,17 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
     return ((x * 0x01010101) & MASK32) >> 24
+
+
+def take_along(arr: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
+    """jnp.take_along_axis on the last axis as JAX does it: a negative
+    index wraps once, an index still out of range reads `fill` (JAX's
+    int32 fill is INT32_MIN, its uint32 fill 0xFFFFFFFF)."""
+    n = arr.shape[-1]
+    ii = torch.where(idx < 0, idx + n, idx).to(torch.int64)
+    ok = (ii >= 0) & (ii < n)
+    v = torch.gather(arr, -1, ii.clamp(0, n - 1))
+    return torch.where(ok, v, torch.full_like(v, fill))
 
 
 def stable_topk(values: torch.Tensor, k: int):

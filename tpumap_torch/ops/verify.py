@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from tpumap_torch import kernels
+from tpumap_torch.index.device import SAFE_PAD_WORDS
 from tpumap_torch.ops.u32 import INVALID, MASK32, popcount32, shl32, u32
 
 LOW_PAIRS = 0x55555555
@@ -38,13 +39,22 @@ def extract_packed_window(genome_packed: torch.Tensor, starts: torch.Tensor,
                           nwords: int) -> torch.Tensor:
     """Genome words at arbitrary base offsets: [..., nwords] int64, word j
     holding bases [start + 16j, start + 16j + 16)."""
-    if nwords >= 16:
-        raise NotImplementedError(
-            "windows of 16 or more words (tpumap's dynamic-slice path) "
-            "are not on the ported path")
     starts = starts.to(torch.int64) & MASK32
+    n = genome_packed.shape[0]
+    w0 = starts >> 4
+    zext = nwords >= 16 and nwords + 1 > SAFE_PAD_WORDS
+    if nwords >= 16:
+        # tpumap fetches wide windows as one lax.dynamic_slice of
+        # nwords + 1 words, which clamps its start to len - size: a
+        # window past the padded genome end moves back. Past
+        # SAFE_PAD_WORDS it zero-extends the genome by nwords + 1 words
+        # first, so the clamp is to the unextended length.
+        w0 = w0.clamp(0, max(n if zext else n - (nwords + 1), 0))
     ar = torch.arange(nwords + 1, dtype=torch.int64, device=starts.device)
-    words = _gather_clip(genome_packed, (starts >> 4)[..., None] + ar)
+    idx = w0[..., None] + ar
+    words = _gather_clip(genome_packed, idx)
+    if zext:
+        words = torch.where(idx < n, words, torch.zeros_like(words))
     return _align_words(words, (starts & 15) << 1, nwords)
 
 
