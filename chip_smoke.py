@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (tpumap_torch) on one NVIDIA GPU.
 
-Runs the port's two main paths through the fused ladder and the native
-SAM emitter — single-end DNA at the repo's headline DNA size, and
-single-end RNA with novel splicing at the bench's RNA size — and fails
-(exit code != 0) if any phase fails:
+Runs the port's main paths through the fused ladder and the native SAM
+emitter — single-end DNA at the repo's headline DNA size, single-end RNA
+with novel splicing and with known splicing (-s) at the bench's RNA
+size, paired-end DNA at the bench's PE size, and paired RNA through the
+mate repair — and fails (exit code != 0) if any phase fails:
 
 1. card name and power limit; build the CUDA kernels from csrc/;
 2. the chr21-scale bench genome (46.7 Mbp, tools/bench_data.py) and
    its k=14, interval-3 index, uploaded to the card;
 3. every kernel at its main-path shapes against its plain PyTorch
-   version on the same CUDA tensors: exact equality, both median times;
+   version on the same CUDA tensors: exact equality, both median times
+   (with the mate rescue's K1 at [512, 1000], K5 with known-site masks
+   at R = 8,192 and 14 lanes, K6a at the mate repair's W = 1,024);
 4. DNA end to end: one warm-up call, then align_records over all 50,000
    100-bp reads at batch size 32,768 with launch counters reset just
    before; reads/s, aligned fraction and agreement with the generator's
@@ -22,9 +25,26 @@ single-end RNA with novel splicing at the bench's RNA size — and fails
    junction precision and recall against the generator's truth (>= 0.99
    mapped, >= 0.99 precision, >= 0.95 recall); all seven kernels must
    have launched;
-6. the first 2,048 DNA reads and the first 512 RNA reads through the
-   port on the CPU (plain versions) and on the GPU with the same
-   batching: byte-identical SAM.
+6. RNA with known splicing: the same 50,000 reads with novelsplicing=True
+   and the bench genes' junctions as a KnownSplicing, batch 16,384, one
+   warm-up call, then the timed run; reads/s and the floors of 5; all
+   seven kernels must have launched (K5 with 14 lanes and known-site
+   masks);
+7. paired-end DNA: the bench's 20,000 FR pairs (tools/bench_data.py),
+   8,192 pairs per batch, pairmax 1,000, one warm-up call, then the
+   timed run; reads/s (2 x pairs), the concordant fraction as bench.py
+   computes it and the pairs whose mates both lie within 10 bp of the
+   plan (>= 0.99 each); the DNA kernels (K1-K3) must have launched;
+8. paired RNA through the mate repair: 512 pairs from the bench genes
+   (mate 1 inside an exon, mate 2 the reverse complement of a read
+   across the gene's next junction, introns of 200 or 1,000 bp),
+   novelsplicing=True, pairmax 2,000; the rescue and the repair must
+   have run (K1 at [512, 2000], K6a at W = 2,000, K5), and all seven
+   kernels launched;
+9. the first 2,048 DNA reads, the first 512 RNA reads (novel, and with
+   known splicing), the first 2,048 PE pairs and the 512 repair pairs
+   through the port on the CPU (plain versions) and on the GPU with the
+   same batching: byte-identical SAM.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. JAX is blocked: the port must run
@@ -49,6 +69,10 @@ B = 32768
 N_CPU = 2048
 RB = 16384              # RNA batch (bench.py's RNA leg)
 N_CPU_RNA = 512
+PB = 8192               # pairs per PE batch (bench.py's PE leg)
+PAIRMAX = 1000
+N_CPU_PE = 2048
+N_REPAIR = 512          # paired RNA pairs through the mate repair
 DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
 SOURCES = {
     "verify_diagonals": ("tpumap_torch/csrc/verify.cu",
@@ -96,7 +120,7 @@ def max_abs_err(got, want) -> float:
     return float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
-def load_index():
+def load_index(smi):
     from tools import bench_data
     from tpumap.index.build import GenomeDB, build_db
     bench_data.ROOT = ROOT / ".bench_data"
@@ -109,11 +133,11 @@ def load_index():
         db = build_db(gfa, name="bench", k=14, interval=3)
         db.save(str(dbdir))
     log(f"bench data + k=14 index ready in {time.perf_counter() - t0:.1f} s"
-        f" (genome {db.genome_length} bp)")
+        f" (genome {db.genome_length} bp) [{smi}]")
     return bench_data, db, rfa
 
 
-def kernel_phase(index, gpu):
+def kernel_phase(index, gpu, known):
     """Each kernel at its main-path shapes vs its plain version."""
     from tpumap.gsnap.params import INDEL_BAND, INDEL_MARGIN
     from tpumap_torch.gsnap.engine import ENDS_VERIFY_K
@@ -187,6 +211,7 @@ def kernel_phase(index, gpu):
                  cuda_ms(lambda: dp.traceback(*targs), 50),
                  cuda_ms(lambda: dp.traceback_plain(*targs), 3)))
     rows += rna_kernel_rows(index, rng, reads_at)
+    rows += pe_known_kernel_rows(index, rng, reads_at, known)
     for name, shape, err, ms, plain_ms in rows:
         log(f"kernel {name:17s} {shape:34s} max_abs_err={err:g} "
             f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{gpu}]")
@@ -271,6 +296,114 @@ def rna_kernel_rows(index, rng, reads_at):
     return rows
 
 
+def pe_known_kernel_rows(index, rng, reads_at, known):
+    """The new shapes and inputs of the paired and known-splicing paths:
+    K1 over the mate rescue's [512, 1000] window diagonals, K5 at
+    R = 8,192 with 14 lanes (the cascade's 8 and 6 partner diagonals) and
+    known-site masks from the bench genes, at least one site bit per row,
+    and K6a at the mate repair's R = 512, W = 1,024."""
+    from tpumap_torch.gsnap.knownsplicing import known_to_device
+    from tpumap_torch.ops import localscan, pack, pathdp, verify
+
+    dev = index.device
+    glen = index.genome_length
+    rows = []
+
+    def ints(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    R, W = 512, PAIRMAX
+    d, codes = reads_at(R)
+    base = np.maximum(d - rng.integers(0, W, R), 0)
+    base[:2] = [glen - 300, 2 ** 32 - 400]          # past the end, wrapping
+    packed = pack.pack_reads(ints(codes))
+    lengths = torch.full((R,), 100, dtype=torch.int32, device=dev)
+    diags = (ints(base)[:, None] + torch.arange(W, device=dev)) & 0xFFFFFFFF
+    args = (index, packed, torch.zeros_like(packed), lengths, diags)
+    rows.append(("verify_diagonals", f"[{R}, 8] x {W} (rescue)",
+                 max_abs_err(verify.verify_diagonals(*args),
+                             verify.verify_diagonals_plain(*args)),
+                 cuda_ms(lambda: verify.verify_diagonals(*args), 50),
+                 cuda_ms(lambda: verify.verify_diagonals_plain(*args), 10)))
+
+    R, K, L = 8192, 14, 128
+    jn = np.asarray(known.junctions, np.int64)
+    pick = jn[rng.integers(0, len(jn), R)]
+    l0 = rng.integers(20, 81, R)
+    da, db_ = pick[:, 0] - l0, pick[:, 1] - l0
+    a = verify.extract_codes_window(index.genome_packed, ints(da), L)
+    b = verify.extract_codes_window(index.genome_packed, ints(db_), L)
+    qs = torch.arange(L, device=dev)[None, :]
+    codes = torch.where(qs < ints(l0)[:, None], a, b)
+    codes[:, 100:] = 0
+    cands = np.concatenate([np.stack([da, db_], 1),
+                            rng.integers(0, glen, (R, K - 2))], 1)
+    cands[:, 2:][rng.random((R, K - 2)) < 0.5] = 0xFFFFFFFF
+    lengths = torch.full((R,), 100, dtype=torch.int32, device=dev)
+    inp = pathdp.chain_inputs(index, codes.contiguous(),
+                              torch.zeros(codes.shape, dtype=torch.bool,
+                                          device=dev),
+                              lengths, ints(cands), pathdp.PathScoring(),
+                              known=known_to_device(known, dev))
+    if not bool((inp["known"] != 0).flatten(1).any(dim=1).all()):
+        raise AssertionError("K5 known rows without a site bit")
+    rows.append(("chain_dp", f"R={R}, K={K}, L={L}, known sites",
+                 max_abs_err(pathdp.chain_dp(inp, lengths),
+                             pathdp.chain_dp_plain(inp, lengths)),
+                 cuda_ms(lambda: pathdp.chain_dp(inp, lengths), 20),
+                 cuda_ms(lambda: pathdp.chain_dp_plain(inp, lengths), 2)))
+
+    R, W = 512, 1024
+    ws = rng.integers(0, glen, R).astype(np.int64)
+    ws[:2] = [glen - 100, glen + 5000]
+    at = np.minimum(ws + rng.integers(0, W, R), glen - 16)
+    frag = verify.extract_codes_window(index.genome_packed, ints(at), 16)
+    flen = ints(np.where(rng.random(R) < 0.9, 16, 0).astype(np.int32))
+    args = (index.genome_packed, ints(ws), frag.contiguous(), flen, W, 16, 4)
+    rows.append(("scan_fragment", f"R={R}, W={W}, F=16, top 4 (repair)",
+                 max_abs_err(localscan.scan_fragment(*args),
+                             localscan.scan_fragment_plain(*args)),
+                 cuda_ms(lambda: localscan.scan_fragment(*args), 20),
+                 cuda_ms(lambda: localscan.scan_fragment_plain(*args), 5)))
+    return rows
+
+
+def gene_known(bench_data):
+    """The bench genes' junctions as a KnownSplicing: donor = exon start +
+    exon length, acceptor = the next exon's start, sense +1 (the bench
+    genome is one chromosome, so these are univcoords)."""
+    from tpumap.gsnap.knownsplicing import KnownSplicing
+    don, acc = [], []
+    for exons in bench_data.gene_table():
+        for (s0, n0), (s1, _n1) in zip(exons, exons[1:]):
+            don.append(s0 + n0)
+            acc.append(s1)
+    return KnownSplicing.from_junctions(don, acc, np.ones(len(don)))
+
+
+def repair_pairs(bench_data, db, n):
+    """n FR pairs from the bench genes whose third intron is 200 or
+    1,000 bp: mate 1 is 100 bp forward inside the third exon, mate 2 the
+    reverse complement of a 100-bp read across that exon's junction."""
+    from tpumap.io.fasta import Record
+    from tpumap.utils import dna
+    rng = np.random.default_rng(17)
+    genes = [g for g in bench_data.gene_table()
+             if g[3][0] - (g[2][0] + g[2][1]) in (200, 1000)]
+
+    def seq(a, m):
+        return "".join("ACGT"[c] for c in db.get_codes(a, m))
+    pairs = []
+    for i in range(n):
+        (s2, n2), (s3, _n3) = genes[i % len(genes)][2:4]
+        u = int(rng.integers(0, 101))
+        l0 = int(rng.integers(30, 71))
+        m2 = seq(s2 + n2 - l0, l0) + seq(s3, 100 - l0)
+        pairs.append((Record(f"m{i}/1", "", seq(s2 + u, 100)),
+                      Record(f"m{i}/2", "", dna.revcomp(m2))))
+    return pairs
+
+
 def junctions(pos: int, cigar: str):
     """Genomic (donor, acceptor) pairs of a record (bench.py
     _cigar_junctions; the bench genome is one chromosome)."""
@@ -340,78 +473,121 @@ def main():
     from tpumap_torch import kernels
     from tpumap_torch.gsnap.driver import align_records
     from tpumap_torch.gsnap.engine import AlignConfig
+    from tpumap_torch.gsnap.paired import align_paired_records
     from tpumap_torch.index.device import DeviceIndex
 
     t0 = time.perf_counter()
     kernels.build()
-    log(f"kernel build {time.perf_counter() - t0:.1f} s")
+    log(f"kernel build {time.perf_counter() - t0:.1f} s [{smi}]")
     log("\n".join(ln for ln in kernels.build_log.splitlines()
                   if "registers" in ln or "spill" in ln))
 
-    bench_data, db, rfa = load_index()
+    bench_data, db, rfa = load_index(smi)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = DeviceIndex.from_host(db, "cuda")
     torch.cuda.synchronize()
     log(f"index upload {time.perf_counter() - t0:.2f} s, "
         f"{index.nbytes() / 1e9:.3f} GB on the device [{smi}]")
+    known = gene_known(bench_data)
 
-    rows = kernel_phase(index, smi)
+    rows = kernel_phase(index, smi, known)
 
     config = AlignConfig(top_k=4, max_occ=4)
+
+    def single(**kw):
+        def run(idx, items, batch, sink, stats=None):
+            align_records(db, idx, items, config, batch_size=batch,
+                          sink=sink, stats=stats, **kw)
+        return run
+
+    def paired(**kw):
+        def run(idx, items, batch, sink, stats=None):
+            align_paired_records(db, idx, items, config, batch_size=batch,
+                                 sink=sink, stats=stats, **kw)
+        return run
+
     reads = list(read_fasta(rfa))
-    dna_launches = run_e2e(
-        "DNA", reads, B, smi, db, index, config,
-        lambda buf: check_dna(buf, bench_data), DNA_KERNELS)
+    dna_launches = run_e2e("DNA", reads, B, smi, index, single(),
+                           lambda buf: check_dna(buf, bench_data),
+                           DNA_KERNELS)
     _gfa, rna_rfa = bench_data.ensure_rna_files()
     rna_reads = list(read_fasta(rna_rfa))
     truth = bench_data.rna_truth()
-    rna_launches = run_e2e(
-        "RNA", rna_reads, RB, smi, db, index, config,
-        lambda buf: check_rna(buf, truth), tuple(SOURCES),
-        novelsplicing=True)
+    rna_launches = run_e2e("RNA", rna_reads, RB, smi, index,
+                           single(novelsplicing=True),
+                           lambda buf: check_rna(buf, truth), tuple(SOURCES))
+    known_launches = run_e2e("RNA -s", rna_reads, RB, smi, index,
+                             single(novelsplicing=True, known=known),
+                             lambda buf: check_rna(buf, truth),
+                             tuple(SOURCES))
+    f1, f2 = bench_data.ensure_pe_files()
+    pe_pairs = list(zip(read_fasta(f1), read_fasta(f2)))
+    pe_launches = run_e2e("PE", pe_pairs, PB, smi, index,
+                          paired(pairmax=PAIRMAX),
+                          lambda buf: check_pe(buf, bench_data),
+                          DNA_KERNELS, reads_per_item=2)
+    rep_pairs = repair_pairs(bench_data, db, N_REPAIR)
+    rep_run = paired(novelsplicing=True, pairmax=2000)
+    kernels.reset_launches()
+    rep_stats = {}
+    gbuf = io.BytesIO()
+    rep_run(index, rep_pairs, N_REPAIR, gbuf.write, rep_stats)
+    torch.cuda.synchronize()
+    rep_launches = dict(kernels.LAUNCHES)
+    log(f"PE RNA repair: {N_REPAIR} pairs, stats={rep_stats}, "
+        f"launches={rep_launches} [{smi}]")
+    if not (rep_stats.get("repair_rows", 0) > 0
+            and rep_stats.get("repaired", 0) > 0):
+        raise AssertionError("PE RNA: the pairs never reached the repair")
+    missing = [k for k in SOURCES if rep_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"PE RNA repair: never launched: {missing}")
 
     # GPU vs CPU (plain versions) on the first reads, same batching
-    subsets = [("DNA", reads[:N_CPU], {}),
-               ("RNA", rna_reads[:N_CPU_RNA], {"novelsplicing": True})]
+    subsets = [("DNA", reads[:N_CPU], single()),
+               ("RNA", rna_reads[:N_CPU_RNA], single(novelsplicing=True)),
+               ("RNA -s", rna_reads[:N_CPU_RNA],
+                single(novelsplicing=True, known=known)),
+               ("PE", pe_pairs[:N_CPU_PE], paired(pairmax=PAIRMAX)),
+               ("PE RNA repair", rep_pairs, rep_run)]
     gpu_sam = []
-    for _name, sub, kw in subsets:
+    for _name, sub, run in subsets:
         gbuf = io.BytesIO()
-        align_records(db, index, sub, config, batch_size=len(sub),
-                      sink=gbuf.write, **kw)
+        run(index, sub, len(sub), gbuf.write)
         gpu_sam.append(gbuf.getvalue())
     del index
     torch.cuda.empty_cache()
     cpu_index = DeviceIndex.from_host(db, "cpu")
-    for (name, sub, kw), want in zip(subsets, gpu_sam):
+    for (name, sub, run), want in zip(subsets, gpu_sam):
         t0 = time.perf_counter()
         cbuf = io.BytesIO()
-        align_records(db, cpu_index, sub, config, batch_size=len(sub),
-                      sink=cbuf.write, **kw)
+        run(cpu_index, sub, len(sub), cbuf.write)
         same = cbuf.getvalue() == want
-        log(f"{name}: CPU plain run of {len(sub)} reads in "
+        log(f"{name}: CPU plain run of {len(sub)} items in "
             f"{time.perf_counter() - t0:.1f} s: SAM byte-identical to the "
-            f"GPU run: {same} ({len(want)} bytes)")
+            f"GPU run: {same} ({len(want)} bytes) [{smi}]")
         if not same:
             raise AssertionError(f"{name}: CPU and GPU SAM differ")
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("JAX was imported")
 
     # one entry per kernel, at its first (largest) main-path shape;
-    # launches from the RNA run, which drives all seven, and the DNA
-    # kernels' launches in the DNA run beside them
+    # launches from the RNA run, which drives all seven, and each other
+    # phase's launches beside them
     table, seen = [], set()
     for name, shape, err, ms, plain_ms in rows:
         if name in seen:
             continue
         seen.add(name)
-        entry = {"name": name, "route": "cuda", "source": SOURCES[name][0],
-                 "replaces": SOURCES[name][1],
-                 "launches": rna_launches[name], "max_abs_err": err,
-                 "ms": ms, "plain_ms": plain_ms, "shape": shape}
-        if name in DNA_KERNELS:
-            entry["dna_launches"] = dna_launches[name]
-        table.append(entry)
+        table.append({
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "launches": rna_launches[name],
+            "max_abs_err": max(r[2] for r in rows if r[0] == name),
+            "ms": ms, "plain_ms": plain_ms, "shape": shape,
+            "phase_launches": {
+                "dna": dna_launches[name], "rna_known": known_launches[name],
+                "pe": pe_launches[name], "pe_repair": rep_launches[name]}})
     log(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu,
@@ -419,29 +595,27 @@ def main():
     return 0
 
 
-def run_e2e(name, reads, batch, smi, db, index, config, check,
-            must_launch, **kw):
-    """One warm-up batch, then all reads with the launch counters reset
-    just before; check(sam bytes) -> a log string (raises on failure).
-    Returns the launch counts of the timed run."""
+def run_e2e(name, items, batch, smi, index, run, check, must_launch,
+            reads_per_item=1):
+    """One warm-up batch, then all items (reads or pairs) with the launch
+    counters reset just before; check(sam bytes) -> a log string (raises
+    on failure). Returns the launch counts of the timed run."""
     from tpumap_torch import kernels
-    from tpumap_torch.gsnap.driver import align_records
     t0 = time.perf_counter()
-    align_records(db, index, reads[:batch], config, batch_size=batch,
-                  sink=io.BytesIO().write, **kw)
+    run(index, items[:batch], batch, io.BytesIO().write)
     torch.cuda.synchronize()
-    log(f"{name} warm-up {time.perf_counter() - t0:.2f} s")
+    log(f"{name} warm-up {time.perf_counter() - t0:.2f} s [{smi}]")
     kernels.reset_launches()
     buf = io.BytesIO()
     stats = {}
     t0 = time.perf_counter()
-    align_records(db, index, reads, config, batch_size=batch, sink=buf.write,
-                  stats=stats, **kw)
+    run(index, items, batch, buf.write, stats)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    log(f"{name} end to end: {len(reads)} reads at batch {batch} in "
-        f"{dt:.3f} s = {len(reads) / dt:.1f} reads/s, "
+    nreads = reads_per_item * len(items)
+    log(f"{name} end to end: {nreads} reads at batch {batch} in "
+        f"{dt:.3f} s = {nreads / dt:.1f} reads/s, "
         f"{check(buf.getvalue())}, launches={launches}, stats={stats} "
         f"[{smi}]")
     missing = [k for k in must_launch if launches[k] <= 0]
@@ -450,12 +624,47 @@ def run_e2e(name, reads, batch, smi, db, index, config, check,
     return launches
 
 
+def grade_pe(sam_bytes: bytes, bench_data):
+    """(concordant fraction as bench.py:323-326 computes it, fraction of
+    pairs whose mates both lie within 10 bp of the plan: mate 1 forward
+    at the fragment start, mate 2 reverse at start + length - 100)."""
+    plan = bench_data.pe_read_plan()
+    first = conc = 0
+    near = np.zeros((len(plan), 2), bool)
+    for line in sam_bytes.decode().splitlines():
+        f = line.split("\t", 6)
+        flag = int(f[1])
+        if flag & 0x900:
+            continue
+        if flag & 0x40:
+            first += 1
+            conc += bool(flag & 2)
+        if flag & 4:
+            continue
+        i = int(f[0].split("/")[0][1:])
+        start, fl, _s1, _s2 = plan[i]
+        mate2 = bool(flag & 0x80)
+        want = start + fl - bench_data.READ_LEN if mate2 else start
+        near[i, int(mate2)] = (abs(int(f[3]) - 1 - want) <= 10
+                               and bool(flag & 16) == mate2)
+    return conc / max(first, 1), float(near.all(axis=1).mean())
+
+
 def check_dna(sam_bytes, bench_data):
     aligned, near = grade(sam_bytes, bench_data)
     if aligned < 0.99 or near < 0.99:
         raise AssertionError(f"DNA accuracy below 0.99: aligned {aligned}, "
                              f"near truth {near}")
     return f"aligned_frac={aligned:.5f}, within 10 bp of truth={near:.5f}"
+
+
+def check_pe(sam_bytes, bench_data):
+    conc, near = grade_pe(sam_bytes, bench_data)
+    msg = (f"concordant_frac={conc:.5f}, pairs within 10 bp of truth="
+           f"{near:.5f}")
+    if conc < 0.99 or near < 0.99:
+        raise AssertionError(f"PE accuracy below 0.99: {msg}")
+    return msg
 
 
 def check_rna(sam_bytes, truth):

@@ -9,17 +9,22 @@ need no JAX, so on the GPU machine run them without tests/conftest.py
 Every quantity is an integer, so kernel and plain version must agree
 exactly.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from tpumap.gsnap.knownsplicing import KnownSplicing
 from tpumap.utils import dna
 from tpumap_torch import kernels
 from tpumap_torch.gsnap.driver import align_records
 from tpumap_torch.gsnap.engine import AlignConfig
+from tpumap_torch.gsnap.knownsplicing import known_to_device
+from tpumap_torch.gsnap.paired import align_paired_records, rescue_mate
 from tpumap_torch.index.device import DeviceIndex
-from tpumap_torch.ops import dp, localscan, pathdp, verify
-from torch_workloads import mixed_workload, sam_text
+from tpumap_torch.ops import dp, localscan, pack, pathdp, verify
+from torch_workloads import mixed_workload, sam_text, stream_pairs
 
 DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
 
@@ -196,7 +201,7 @@ def test_chain_kernel_matches_plain(dev, R, L, quals, known):
 @pytest.mark.parametrize("scan,window,top_k", [
     ("fragment", 65536, 4), ("exact", 65536, 8), ("runs_suffix", 65536, 8),
     ("runs_prefix", 65536, 8), ("fragment", 2048, 4), ("exact", 100, 8),
-    ("runs_suffix", 200, 3),
+    ("runs_suffix", 200, 3), ("fragment", 1024, 4), ("fragment", 2000, 4),
 ])
 def test_scan_kernels_match_plain(dev, scan, window, top_k):
     """K6a-c against their plain versions, with window starts past the
@@ -250,3 +255,100 @@ def test_rna_on_gpu_matches_cpu(dev, tmp_path):
                   batch_size=32, sink=chunks.append)
     assert b"".join(bytes(c) for c in chunks) == want
     assert min(kernels.LAUNCHES.values()) > 0, kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("R,window", [(512, 1000), (64, 2000)])
+def test_verify_kernel_rescue_shape(dev, R, window):
+    """K1 at the mate rescue's shape: every diagonal of a pairmax-wide
+    window (uint32 wrap), windows past the genome end and across 2^32;
+    and rescue_mate on the card against the CPU."""
+    rng = np.random.default_rng(R + window)
+    glen = 300_000
+    idx = random_index(rng, glen, dev, 0.001)
+    bases = rng.integers(0, glen, R).astype(np.int64)
+    bases[:4] = [glen - 100, glen + 10, 2 ** 32 - 300, 0]
+    at = np.minimum(bases + rng.integers(0, window, R), glen - 128)
+    codes = verify.extract_codes_window(
+        idx.genome_packed, torch.from_numpy(at).to(dev), 128).cpu().numpy()
+    lengths = rng.integers(1, 129, R).astype(np.int32)
+    lengths[4:8] = [100, 16, 17, 128]
+    codes[np.arange(128)[None, :] >= lengths[:, None]] = 0
+    ct, lt, bt = to(dev, codes, lengths, bases)
+    pk = pack.pack_reads(ct)
+    diags = (bt[:, None] + torch.arange(window, device=dev)[None, :]) \
+        & 0xFFFFFFFF
+    args = (idx, pk, torch.zeros_like(pk), lt, diags)
+    got = verify.verify_diagonals(*args)
+    want = verify.verify_diagonals_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    g = rescue_mate(idx, ct, lt, window, bt)
+    cpu = dataclasses.replace(idx, **{
+        f.name: getattr(idx, f.name).cpu() for f in dataclasses.fields(idx)
+        if isinstance(getattr(idx, f.name), torch.Tensor)})
+    c = rescue_mate(cpu, ct.cpu(), lt.cpu(), window, bt.cpu())
+    for a, b in zip(g, c):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("K", [8, 14])
+def test_chain_kernel_known_masks(dev, K):
+    """K5 with known-site masks from a KnownSplicing (sense and
+    antisense sites on every row's junction), 8 lanes and the 14 of the
+    ladder with partner diagonals."""
+    rng = np.random.default_rng(K)
+    glen = 300_000
+    idx = random_index(rng, glen, dev)
+    R, L = 1024, 128
+    d = rng.integers(1000, glen - 30_000, R).astype(np.int64)
+    q = rng.integers(10, 90, R)
+    intron = rng.choice([200, 1000, 20_000], R)
+    codes = verify.extract_codes_window(
+        idx.genome_packed, torch.from_numpy(d).to(dev), L).cpu().numpy()
+    moved = verify.extract_codes_window(
+        idx.genome_packed, torch.from_numpy(d + intron).to(dev),
+        L).cpu().numpy()
+    codes = np.where(np.arange(L)[None, :] >= q[:, None], moved, codes)
+    lengths = np.full(R, 100, np.int32)
+    codes[:, 100:] = 0
+    sense = rng.random(R) < 0.7
+    ks = KnownSplicing.from_junctions(d + q, d + q + intron,
+                                      np.where(sense, 1, -1))
+    cands = np.stack([d, d + intron] + [rng.integers(0, glen, R)
+                                        for _ in range(K - 2)], 1)
+    cands[:, 2:][rng.random((R, K - 2)) < 0.3] = 0xFFFFFFFF
+    ct, lt, cdt = to(dev, codes, lengths, cands)
+    nt = torch.zeros(ct.shape, dtype=torch.bool, device=dev)
+    inp = pathdp.chain_inputs(idx, ct, nt, lt, cdt, pathdp.PathScoring(),
+                              known=known_to_device(ks, dev))
+    assert bool((inp["known"] != 0).flatten(1).any(dim=1).all())
+    got = pathdp.chain_dp(inp, lt)
+    want = pathdp.chain_dp_plain(inp, lt)
+    torch.cuda.synchronize()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert (want["nsegs"] >= 2).float().mean() > 0.5
+
+
+def test_paired_and_known_on_gpu_match_cpu(dev, tmp_path):
+    """The stream workload's pairs with novel splicing, and its reads
+    with known splicing, through the kernels give the plain CPU runs'
+    SAM."""
+    db, reads, _gfa = mixed_workload(tmp_path)
+    cfg = AlignConfig(top_k=4, max_occ=8)
+    cpu, gpu = DeviceIndex.from_host(db, "cpu"), DeviceIndex.from_host(db, dev)
+    pairs = stream_pairs(db)
+    kw = dict(batch_size=16, pairmax=1000, novelsplicing=True)
+
+    def pair_sam(index):
+        return b"".join((a.lines() + b.lines()).encode()
+                        for a, b in align_paired_records(db, index, pairs,
+                                                         cfg, **kw))
+    kernels.reset_launches()
+    assert pair_sam(gpu) == pair_sam(cpu)
+    assert min(kernels.LAUNCHES.values()) > 0, kernels.LAUNCHES
+    ks = KnownSplicing.from_junctions([30100], [31000], [1])
+    want = sam_text(align_records(db, cpu, reads, cfg, known=ks,
+                                  batch_size=32))
+    assert sam_text(align_records(db, gpu, reads, cfg, known=ks,
+                                  batch_size=32)) == want

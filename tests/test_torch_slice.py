@@ -222,10 +222,13 @@ def test_secondaries_in_list_mode_match(repeats):
     assert got == want and b"HI:i:2" in got
 
 
-@pytest.mark.parametrize("kw", [{"known_indels": object()}, {"known": object()},
+@pytest.mark.parametrize("kw", [{"known_indels": object()}, {"tr": object()},
                                 {"find_fusions": True},
                                 {"config": engine.AlignConfig(
-                                    mode="cmet-stranded")}])
+                                    mode="cmet-stranded")},
+                                {"device_ctx": object()},
+                                {"config": engine.AlignConfig(
+                                    snp_tolerant=True)}])
 def test_later_slices_raise(mixed, kw):
     db, _ji, ti, reads, _ = mixed
     with pytest.raises(NotImplementedError):

@@ -4,6 +4,7 @@ import numpy as np
 
 from tpumap.index import build_db
 from tpumap.io.fasta import Record
+from tpumap.utils import dna
 
 
 def write_fasta(path, seq):
@@ -48,6 +49,23 @@ def mixed_workload(root):
         reads.append(Record(f"unm{r}", "", s, "I" * 100))
     reads.append(Record("nn0", "", "ACGTN" * 20))
     return build_db(gfa, name="g", k=12, interval=3), reads, gfa
+
+
+def stream_pairs(db):
+    """tests/test_stream.py's paired workload on mixed_workload's genome:
+    25 FR pairs with qualities and one pair whose mate is random."""
+    rng = np.random.default_rng(3)
+    g = db.get_seq(0, db.genome_length)
+    pairs = []
+    for r in range(25):
+        p = int(rng.integers(0, len(g) - 700))
+        pairs.append((Record(f"pp{r}/1", "", g[p:p + 100], "I" * 100),
+                      Record(f"pp{r}/2", "", dna.revcomp(g[p + 400:p + 500]),
+                             "I" * 100)))
+    pairs.append((Record("dx/1", "", g[5000:5100]),
+                  Record("dx/2", "", "".join(
+                      "ACGT"[i] for i in rng.integers(0, 4, 100)))))
+    return pairs
 
 
 def sam_text(recs) -> bytes:

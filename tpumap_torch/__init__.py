@@ -7,12 +7,14 @@ plain PyTorch version beside it, which is what runs for CPU tensors.
 
 Package layout:
   tpumap_torch.index   DeviceIndex built from tpumap's host GenomeDB
-  tpumap_torch.ops     pack / verify / seed / trim / banded DP
-  tpumap_torch.gsnap   single-end cascade, fused ladder and host driver
+  tpumap_torch.ops     pack / verify / seed / trim / banded DP / chain DP /
+                       window scans
+  tpumap_torch.gsnap   cascade, fused ladder, host driver (single and
+                       paired end, novel and known splicing)
 
 It imports torch and numpy, and of tpumap only the modules that load
 without JAX (index.build, io, native, utils.dna, utils.fetch,
-gsnap.params).
+gsnap.params, gsnap.spliceends, gsnap.knownsplicing).
 """
 
 __version__ = "0.1.0"

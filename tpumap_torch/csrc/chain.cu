@@ -14,9 +14,11 @@
 // few threads for 132 SMs, so the kernel is latency bound.
 //
 // Design: one thread per row, in warps of 32 so the rows spread over the
-// SMs. H[K] and the insertion window recent[K][max_insert] stay in
-// registers; the per-step inputs are read time-major ([L, K, R]), so a
-// warp reads 32 neighbouring rows' bytes at once. The per-step choice
+// SMs. The lane count is a template bound: 8 (the cascade's candidate
+// lists) or 16 (14 lanes with known splicing's partner diagonals). H[K]
+// and the insertion window recent[K][max_insert] stay in registers; the
+// per-step inputs are read time-major ([L, K, R]), so a warp reads 32
+// neighbouring rows' bytes at once. The per-step choice
 // bytes go to a global scratch [L, K, R] that the reverse walk reads
 // back. Ties follow tpumap exactly: extend before open before jump, the
 // first k' of the best jump, the first k of the row maximum, and the
@@ -27,7 +29,6 @@
 
 namespace {
 
-constexpr int KMAX = 8;     // candidate diagonals per row
 constexpr int NIMAX = 8;    // longest insertion jump
 constexpr int S = 8;        // segments kept per row
 constexpr int NEG = -(1 << 20);
@@ -61,6 +62,7 @@ __device__ __forceinline__ int intron_bonus(int dj, int aj, int kn_src,
   return bonus;
 }
 
+template <int KMAX>
 __global__ void __launch_bounds__(32) chain_kernel(
     const long long* __restrict__ diags, const int32_t* __restrict__ s,
     const uint8_t* __restrict__ don, const uint8_t* __restrict__ acc,
@@ -247,8 +249,8 @@ extern "C" int tt_chain_dp(const void* diags, const void* s, const void* don,
              (uint32_t)max_intron,   ins_open,
              ins_extend, max_insert, allow_noncanon};
   const int threads = 32;
-  chain_kernel<<<(R + threads - 1) / threads, threads, 0,
-                 (cudaStream_t)stream>>>(
+  auto kernel = K <= 8 ? chain_kernel<8> : chain_kernel<16>;
+  kernel<<<(R + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
       (const long long*)diags, (const int32_t*)s, (const uint8_t*)don,
       (const uint8_t*)acc, (const uint8_t*)mm, (const uint8_t*)known,
       (const int32_t*)lengths, R, K, L, sc, (uint8_t*)choices,

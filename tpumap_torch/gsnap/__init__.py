@@ -1,1 +1,2 @@
-"""Single-end GSNAP cascade, fused ladder and host driver of the port."""
+"""GSNAP cascade, fused ladder and host driver of the port, single and
+paired end."""

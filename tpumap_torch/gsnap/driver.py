@@ -1,5 +1,6 @@
 """Host driver of the port: batching, the fused ladder, SAM output
-(port of the fused single-end path of tpumap/gsnap/driver.py).
+(port of the fused single-end path of tpumap/gsnap/driver.py) and the
+command line, single and paired end.
 
 The host half here is a JAX-free copy of tpumap's: `make_batch` packs a
 batch in one C pass, the fused ladder runs on the index's device, and
@@ -9,9 +10,12 @@ native SAM emitters (tpumap.io.sam_bulk) as tpumap's fused branch. Batch
 i+1 is dispatched before the host work of batch i, so device and host
 overlap.
 
-Known splicing, transcriptome-guided runs, fusions, known indels,
-device meshes, non-standard modes and SNP tolerance are later slices of
-the port and raise NotImplementedError.
+Known splicing (-s) runs on the same fused ladder: partner diagonals
+from the known junction table and the known-site bonus on the device,
+every chain row through the Python path_record for its XS tag.
+Transcriptome-guided runs, fusions, known indels, device meshes,
+non-standard modes and SNP tolerance are later slices of the port and
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from tpumap.gsnap.spliceends import (AMB_MAX, NC_REVIEW_MAX,
 from tpumap.utils import dna
 from tpumap_torch.gsnap import ladder
 from tpumap_torch.gsnap.engine import AlignConfig, mapq_from_scores
+from tpumap_torch.gsnap.knownsplicing import known_to_device
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops import dp as dp_ops
 from tpumap_torch.ops import pathdp
@@ -183,13 +188,15 @@ def _indel_limits_ok(ops, max_insertions: int, max_deletions: int,
 
 def refine_unsolved(db, batch, res, config, novelsplicing=False,
                     max_intron=200_000, L=None, max_insertions=6,
-                    max_deletions=9, indel_endlength=4, amb_out=None):
+                    max_deletions=9, indel_endlength=4, amb_out=None,
+                    known=None, dict_all=False):
     """Host acceptance of the fused ladder's results (tpumap's fused
     branch of refine_unsolved): the chain solutions (splice_result dicts
     for rows the per-row path emits, res["sp_sel"] for the array-form
-    rest), the indel rows, then the ambiguous splice-end review.
-    Returns (dp_result, splice_result); dp_result maps a batch row to
-    (genome start, forward ops, score)."""
+    rest; dicts for every row with known splicing or dict_all, the
+    paired emitter's need), the indel rows, then the ambiguous
+    splice-end review. Returns (dp_result, splice_result); dp_result
+    maps a batch row to (genome start, forward ops, score)."""
     if L is None:
         L = batch["codes"].shape[1]
     chunk_len = res["nmismatch"].shape[0]
@@ -223,7 +230,7 @@ def refine_unsolved(db, batch, res, config, novelsplicing=False,
         vpair = np.arange(1, sd.shape[1])[None, :] < nsegs_l[:, None]
         has_ins = np.any(vpair & (sd[:, 1:] < sd[:, :-1]), axis=1)
         need_dict = sel & (end_short | start_short | has_ins)
-        if sam_bulk._get_lib() is None:
+        if sam_bulk._get_lib() is None or dict_all or known is not None:
             need_dict = sel
         for r in np.nonzero(need_dict)[0].tolist():
             i = int(ch_idx[r])
@@ -265,9 +272,9 @@ def refine_unsolved(db, batch, res, config, novelsplicing=False,
                     continue
                 dp_result[i] = (int(diag_v[i]) + start_l[row], ops,
                                 score_l[row])
-    if novelsplicing and "trim_qstart" in res:
+    if (novelsplicing or known is not None) and "trim_qstart" in res:
         _splice_ends_review(db, batch, res, config, dp_result, splice_result,
-                            max_intron, L, amb_out, chunk_len, len_v)
+                            max_intron, L, amb_out, chunk_len, len_v, known)
     return dp_result, splice_result
 
 
@@ -296,20 +303,26 @@ _CANON_PAIRS = {(2, 3, 0, 2), (2, 1, 0, 2), (0, 3, 0, 1),   # GT-AG GC-AG AT-AC
                 (1, 3, 0, 1), (1, 3, 2, 1), (2, 3, 0, 3)}   # antisense
 
 
-def _junction_bonus_zero(db, dprox, ddist, qb) -> bool:
+def _junction_bonus_zero(db, dprox, ddist, qb, known) -> bool:
     """True iff the junction boundary at query position qb between the
     proximal diagonal dprox and distal diagonal ddist carries no signal:
-    noncanonical dinucleotides."""
+    noncanonical dinucleotides and (if given) not a known site pair."""
     lo, hi = (dprox, ddist) if dprox <= ddist else (ddist, dprox)
     don = db.get_codes(lo + qb, 2)
     acc = db.get_codes(hi + qb - 2, 2)
     if len(don) < 2 or len(acc) < 2:
         return False
-    return (int(don[0]), int(don[1]), int(acc[0]),
-            int(acc[1])) not in _CANON_PAIRS
+    if (int(don[0]), int(don[1]), int(acc[0]), int(acc[1])) in _CANON_PAIRS:
+        return False
+    if known is not None:
+        sl, sr = lo + qb, hi + qb
+        if ((sl in known.donor and sr in known.acceptor)
+                or (sl in known.antiacceptor and sr in known.antidonor)):
+            return False
+    return True
 
 
-def _noncanon_tie(db, c, s, side) -> bool:
+def _noncanon_tie(db, c, s, side, known) -> bool:
     """The altsplice.c tie rule on a junction boundary: a noncanonical
     boundary that can wobble to another equal-mismatch noncanonical
     placement has no evidence for either, and the caller demotes the
@@ -323,7 +336,7 @@ def _noncanon_tie(db, c, s, side) -> bool:
         qb, ddist, dprox = segs[1][0], segs[0][1], segs[1][1]
         lo_q = s["q_start"] + 1
         hi_q = (segs[2][0] if len(segs) > 2 else s["q_end"]) - 1
-    if not _junction_bonus_zero(db, dprox, ddist, qb):
+    if not _junction_bonus_zero(db, dprox, ddist, qb, known):
         return False
     d_lt = segs[-2][1] if side == "qend" else segs[0][1]   # earlier-q diag
     d_rt = segs[-1][1] if side == "qend" else segs[1][1]
@@ -341,7 +354,7 @@ def _noncanon_tie(db, c, s, side) -> bool:
         if sh < 0:
             delta = -delta
         # a zero-cost move to another signal-free boundary is a tie
-        if delta == 0 and _junction_bonus_zero(db, d_lt, d_rt, qb2):
+        if delta == 0 and _junction_bonus_zero(db, d_lt, d_rt, qb2, known):
             return True
     return False
 
@@ -360,7 +373,7 @@ def _demote(s, side) -> None:
 
 
 def _splice_ends_review(db, batch, res, config, dp_result, splice_result,
-                        max_intron, L, amb_out, chunk_len, len_v):
+                        max_intron, L, amb_out, chunk_len, len_v, known):
     """Stage 3b of tpumap's _late_stages (src/altsplice.c,
     src/spliceends.c): short terminal residues (1..AMB_MAX bases) placed
     by the ladder's exact-site scan. A unique distal placement extends a
@@ -475,7 +488,7 @@ def _splice_ends_review(db, batch, res, config, dp_result, splice_result,
             continue            # already demoted by the review above
         if side == "qstart" and s["q_start"] >= s["segs"][1][0]:
             continue
-        if _noncanon_tie(db, acodes[i], s, side):
+        if _noncanon_tie(db, acodes[i], s, side, known):
             _demote(s, side)
 
 
@@ -537,10 +550,12 @@ def _path_ok(s, li, config, S) -> bool:
             and not any(b[1] < a[1] for a, b in zip(segs, segs[1:])))
 
 
-def _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides, config):
+def _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
+                     known):
     """Native C calls emit the final SAM text of every plain or
     soft-clipped ungapped row, every unmapped row and every chain-DP path
-    row. overrides: (splice_result, dp_result, amb_result, sec_map).
+    row (known splicing leaves the path rows to path_record, for XS).
+    overrides: (splice_result, dp_result, amb_result, sec_map).
     Returns (lines, flags, methods), lines[i] None where the Python loop
     emits row i, or None without the native library."""
     if sam_bulk._get_lib() is None:
@@ -557,7 +572,7 @@ def _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides, config):
                 emit[i] = False
                 unm[i] = False
     sp_rows = None
-    if "sp_sel" in res:
+    if "sp_sel" in res and known is None:
         rsel, ii, ok = _sp_array_rows(res, li, config, amb_result, n)
         emit[ii] = False            # spliced rows never emit as ungapped
         sp_rows = (rsel[ok], ii[ok])
@@ -585,7 +600,8 @@ def _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides, config):
                     methods[i] = "unmapped"
 
     # chain-DP spliced and deletion paths
-    if splice_result or (sp_rows is not None and len(sp_rows[0])):
+    if (splice_result or (sp_rows is not None and len(sp_rows[0]))) \
+            and known is None:
         S = res["ch_segq"].shape[1] if "ch_segq" in res else 8
         rows = []
         sp_strand = np.zeros(n, np.uint8)
@@ -642,7 +658,8 @@ def _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides, config):
     return lines, flags, methods
 
 
-def _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides, config):
+def _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
+                      known):
     """Row-order blob emission: every unmapped, ungapped and chain-DP
     path row in one C call (io/sam_bulk.emit_mixed_blob); rows of the
     overrides (splice_result rows the native emitter does not take,
@@ -662,7 +679,7 @@ def _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides, config):
     counts = np.zeros(n, dtype=np.int64)
     segq_m = np.zeros((n, S), np.int32)
     segd_m = np.zeros((n, S), np.uint64)
-    if "sp_sel" in res:
+    if "sp_sel" in res and known is None:
         rsel, ii, ok = _sp_array_rows(res, li, config, amb_result, n)
         rsel, ii = rsel[ok], ii[ok]
         if len(ii):
@@ -677,7 +694,8 @@ def _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides, config):
             continue
         s = splice_result[i]
         kind[i] = 0             # the Python path_record by default
-        if i in amb_result or not _path_ok(s, li[i], config, S):
+        if known is not None or i in amb_result \
+                or not _path_ok(s, li[i], config, S):
             continue
         kind[i] = 3
         strand[i] = s["strand"]
@@ -718,11 +736,12 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                   indel_endlength: int = 4, use_localdb: bool = True,
                   known_indels=None, device_ctx=None,
                   sink=None) -> list[sam.SamRecord]:
-    """Align single-end reads (DNA, or RNA with novelsplicing) through
-    the fused ladder on the index's device. Returns SAM records in input
-    order, or, with sink (a callable taking bytes), streams the final SAM
-    text to it in input order and returns []."""
-    unported = {"known": known is not None, "tr": tr is not None,
+    """Align single-end reads (DNA, or RNA with novelsplicing and/or
+    known, a tpumap KnownSplicing) through the fused ladder on the
+    index's device. Returns SAM records in input order, or, with sink (a
+    callable taking bytes), streams the final SAM text to it in input
+    order and returns []."""
+    unported = {"tr": tr is not None,
                 "find_fusions": find_fusions,
                 "known_indels": known_indels is not None,
                 "device_ctx": device_ctx is not None,
@@ -734,6 +753,9 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                 f"{name} is a later slice of the port")
     out = []
     scoring = pathdp.PathScoring(max_intron=max(max_intron, MIN_INTRON))
+    known_dev = (known_to_device(known, index.device) if known is not None
+                 else None)
+    splicing_on = novelsplicing or known is not None
     # one (B, L) shape for the whole run; runs smaller than one batch use
     # the small buckets
     run_L = pad_to_bucket(max((len(r.sequence) for r in records),
@@ -752,8 +774,8 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
         r_chain = min(max(8192, B // 2), B)
         dev = ladder.align_batch_full(
             index, _to_device(batch, index.device), config, run_L, scoring,
-            novelsplicing, novelsplicing and use_localdb, r_chain,
-            min(max(2048, B // 8), r_chain), min(2048, B))
+            splicing_on, novelsplicing and use_localdb, r_chain,
+            min(max(2048, B // 8), r_chain), min(2048, B), known=known_dev)
         return chunk, batch, ladder.start_fetch(dev)
 
     starts = list(range(0, len(records), batch_size))
@@ -775,7 +797,8 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
         amb_result = {}
         dp_result, splice_result = refine_unsolved(
             db, batch, res, config, novelsplicing, max_intron, run_L,
-            max_insertions, max_deletions, indel_endlength, amb_result)
+            max_insertions, max_deletions, indel_endlength, amb_result,
+            known=known)
         sec_map = {}
         if npaths > 1:
             for r in np.nonzero(res["sec_sel"])[0].tolist():
@@ -789,10 +812,10 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
         mix = None
         if sink is not None and not show_method:
             mix = _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides,
-                                    config)
+                                    config, known)
         if mix is None and not show_method:
             bulk = _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides,
-                                    config)
+                                    config, known)
         if bulk is not None:
             bulk_lines, bulk_flags, bulk_methods = bulk
 
@@ -863,7 +886,7 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                     _emit(sam.path_record(
                         db, rec.accession, rec.sequence, rec.quality,
                         s["segs"], s["q_start"], s["q_end"], s["strand"],
-                        int(mapq[i]), min_intron=MIN_INTRON),
+                        int(mapq[i]), min_intron=MIN_INTRON, known=known),
                         "splice" if len(s["segs"]) > 1 else "sub")
                     continue
             if i in dp_result:
@@ -955,7 +978,9 @@ def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(prog="tpumap_torch-gsnap")
     ap.add_argument("-D", "--dir", required=True, help="database directory")
-    ap.add_argument("reads", help="FASTA/FASTQ file")
+    ap.add_argument("reads", help="FASTA/FASTQ file (mate 1 when paired)")
+    ap.add_argument("mates", nargs="?",
+                    help="FASTA/FASTQ file of mate 2: paired-end run")
     ap.add_argument("--batch-size", type=int, default=1024)
     ap.add_argument("--device", default="cuda",
                     help="torch device of the index and the ladder "
@@ -964,19 +989,45 @@ def main(argv=None):
                     default=0, help="look for novel splice junctions")
     ap.add_argument("-w", "--max-intron", type=int, default=200_000,
                     help="longest novel intron (bp)")
+    ap.add_argument("-s", "--use-splicing", dest="use_splicing",
+                    help="known splice sites/introns map (.iit from "
+                         "iit_store, or .npz from --splices-dump)")
+    ap.add_argument("--pairmax", type=int, default=2000,
+                    help="longest concordant insert (paired end)")
+    ap.add_argument("--orientation", default="FR", choices=["FR", "RF", "FF"],
+                    help="paired-end orientation")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("tpumap_torch-gsnap: no CUDA device (pass "
                          "--device cpu to run the plain versions)")
     db = GenomeDB.load(args.dir)
+    known = None
+    if args.use_splicing:
+        from tpumap.gsnap.knownsplicing import KnownSplicing
+        if args.use_splicing.endswith(".npz"):
+            known = KnownSplicing.load(args.use_splicing)
+        else:
+            from tpumap.io.iit import IIT
+            known = KnownSplicing.from_splicing_iit(
+                IIT.read(args.use_splicing), db)
     index = DeviceIndex.from_host(db, device)
     records = list(read_seqs(args.reads))
+    kw = dict(batch_size=args.batch_size,
+              novelsplicing=bool(args.novelsplicing),
+              max_intron=args.max_intron, known=known)
     sys.stdout.write(sam.header(db, " ".join(argv or sys.argv)))
-    for r in align_records(db, index, records, batch_size=args.batch_size,
-                           novelsplicing=bool(args.novelsplicing),
-                           max_intron=args.max_intron):
-        sys.stdout.write(r.lines())
+    if args.mates is None:
+        for r in align_records(db, index, records, **kw):
+            sys.stdout.write(r.lines())
+        return
+    from tpumap_torch.gsnap.paired import align_paired_records
+    pairs = list(zip(records, read_seqs(args.mates)))
+    for r1, r2 in align_paired_records(db, index, pairs,
+                                       pairmax=args.pairmax,
+                                       orientation=args.orientation, **kw):
+        sys.stdout.write(r1.lines())
+        sys.stdout.write(r2.lines())
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
-"""Fused device ladder (port of tpumap/gsnap/ladder.py, single end,
-novel splicing): cascade -> chain stage (compaction, candidate lists,
-chain DP pass 1, kernel K5) -> salvage (residual-clip compaction, the
+"""Fused device ladder (port of tpumap/gsnap/ladder.py): cascade ->
+chain stage (compaction, candidate lists, with known splicing the
+partner diagonals of the known junction table, chain DP pass 1, kernel
+K5) -> salvage (residual-clip compaction, the
 read-end run scans K6c and middle-exon fragment scans K6a, dinucleotide
 anchors, chain DP pass 2) -> acceptance -> indel stage gated on splice
 failure (banded DP K2, traceback K3) -> ambiguous splice-end review
 (task construction, exact-site scan K6b) -> secondary-candidate
-compaction -> one result dict.
+compaction -> one result dict. `align_pair_full` is the paired
+program: the same ladder over interleaved mates, keeping the candidate
+lists for the concordance reduction (gsnap/paired.py).
 
 All compaction sizes are fixed (top-k), so a batch is one asynchronous
 chain of launches. `start_fetch`/`fetch_result` bring the dict to the
@@ -38,6 +41,7 @@ from tpumap_torch.ops.u32 import (INT32_MIN, INVALID, MASK32, stable_topk,
 SALVAGE_W = 65536         # localdb region scale (src/localdb-write.c)
 SALVAGE_F = 16
 MIN_FRAG = 6
+N_PARTNER = 3             # known-junction partner diagonals per side
 
 # wire dtypes (tpumap/utils/fetch.py): uint16 fields travel as int16 bit
 # patterns and are reinterpreted on the host
@@ -109,22 +113,57 @@ def narrow_result(d: dict) -> dict:
 def align_batch_full(index, pbatch, config: AlignConfig, L: int,
                      scoring: pathdp.PathScoring, splicing: bool,
                      salvage: bool, r_chain: int, r_salv: int,
-                     r_indel: int):
+                     r_indel: int, known=None):
     """One batch through the fused ladder; a flat dict of device
     tensors: cascade fields, ch_* chain solutions of the r_chain
     compacted rows (splicing), in_* indel solutions, amb_* splice-end
     review hits (splicing), sec_* secondary candidates and the overflow
-    counters. Compaction sizes as tpumap's driver passes them."""
-    if config.mode != "standard" or config.snp_tolerant:
-        raise NotImplementedError("only standard, non-SNP mode is ported")
+    counters. Compaction sizes as tpumap's driver passes them. With
+    known (a dict of knownsplicing.known_to_device) this is tpumap's
+    align_batch_full_known."""
+    _standard_only(config)
     res = align_batch_cascaded_packed(index, pbatch, config, L)
     return narrow_result(refine_full(index, pbatch, res, config, L, scoring,
                                      splicing, salvage, r_chain, r_salv,
-                                     r_indel))
+                                     r_indel, known=known))
+
+
+def _standard_only(config: AlignConfig) -> None:
+    if config.mode != "standard" or config.snp_tolerant:
+        raise NotImplementedError("only standard, non-SNP mode is ported")
+
+
+def _partners(known, adiag, li, max_intron: int):
+    """Partner diagonals int64[R, 2 * N_PARTNER] implied by the known
+    junction-pair table (ladder.py:211-239): a junction whose left
+    boundary lies inside the read anchored at adiag gives adiag + intron,
+    one whose right boundary lies inside gives adiag - intron; uint32
+    wrap arithmetic throughout."""
+    offs = torch.arange(N_PARTNER, device=adiag.device)[None, :]
+    a = adiag[:, None]
+    hi = (a + li.to(torch.int64)[:, None]) & MASK32
+
+    def side(coords, introns, sign):
+        pos = torch.searchsorted(coords, (adiag + 1) & MASK32)
+        ji = torch.clamp(pos[:, None] + offs, 0, coords.shape[0] - 1)
+        c = coords[ji]
+        n = introns[ji]
+        ok = (c > a) & (c < hi) & (n > 0) & (n <= max_intron)
+        nu = n.to(torch.int64) & MASK32
+        if sign > 0:
+            part = (a + nu) & MASK32
+        else:
+            part = (a - nu) & MASK32
+            ok &= a >= nu
+        return torch.where(ok, part, INVALID)
+
+    return torch.cat([side(known["jleft"], known["jleft_intron"], 1),
+                      side(known["jright"], known["jright_intron"], -1)],
+                     dim=1)
 
 
 def _chain_stage(index, pbatch, res, L, sc, r_chain, r_salv, salvage,
-                 trim_nmm, clip):
+                 trim_nmm, clip, known):
     """Chain compaction, pass 1, optional salvage and pass 2. Returns
     (idx, sel, c1) for the compacted rows."""
     lengths = pbatch["lengths"]
@@ -144,6 +183,9 @@ def _chain_stage(index, pbatch, res, L, sc, r_chain, r_salv, salvage,
     # candidates: the cascade's ranked lists, same strand, deduplicated
     cands = torch.where(res["cand_strands"][idx] == st[:, None],
                         res["cand_diags"][idx], INVALID)
+    if known is not None:
+        cands = torch.cat([cands, _partners(known, adiag, li,
+                                            sc.max_intron)], dim=1)
     cands = _dedup_keep_first(cands)
     quals = None
     if "quals" in pbatch:
@@ -153,15 +195,16 @@ def _chain_stage(index, pbatch, res, L, sc, r_chain, r_salv, salvage,
                           0, L - 1)
         quals = torch.where((st == 1)[:, None], torch.gather(q, 1, rev), q)
     c1 = pathdp.chain_solve(index, codes, nmask, li, cands, scoring=sc,
-                            with_quals=quals is not None, quals=quals)
+                            with_quals=quals is not None, quals=quals,
+                            known=known)
     if salvage:
         _salvage(index, codes, nmask, li, quals, cands, adiag, sel, c1, sc,
-                 min(r_salv, rc), L)
+                 min(r_salv, rc), L, known)
     return idx, sel, c1
 
 
 def _salvage(index, codes, nmask, li, quals, cands, adiag, sel, c1, sc,
-             rs: int, L: int):
+             rs: int, L: int, known):
     """Pass 2 on rows whose pass-1 path leaves a residual clip: window
     scans for the missing exon, 8 rebuilt candidate lanes, and the
     better solution scattered into c1 (in place)."""
@@ -252,7 +295,7 @@ def _salvage(index, codes, nmask, li, quals, cands, adiag, sel, c1, sc,
     s_quals = quals[sidx] if quals is not None else None
     c2 = pathdp.chain_solve(index, s_codes, nmask[sidx], s_li, new_cands,
                             scoring=sc, with_quals=s_quals is not None,
-                            quals=s_quals)
+                            quals=s_quals, known=known)
     c1_sc, c1_ns = c1["score"][sidx], c1["nsegs"][sidx]
     # ties prefer the solution with more segments (more of the read
     # explained at equal score)
@@ -267,10 +310,12 @@ def _salvage(index, codes, nmask, li, quals, cands, adiag, sel, c1, sc,
 
 def refine_full(index, pbatch, res, config: AlignConfig, L: int,
                 scoring: pathdp.PathScoring, splicing: bool, salvage: bool,
-                r_chain: int, r_salv: int, r_indel: int):
+                r_chain: int, r_salv: int, r_indel: int,
+                keep_cands: bool = False, known=None):
     """The post-cascade half: chain stage (splicing), the indel stage on
     rows the splices did not solve, the ambiguous splice-end review
-    (splicing) and the secondary-candidate compaction."""
+    (splicing) and the secondary-candidate compaction; keep_cands (the
+    paired program) skips that compaction and keeps the cand_* lists."""
     lengths = pbatch["lengths"]
     B = lengths.shape[0]
     dev = lengths.device
@@ -292,7 +337,7 @@ def refine_full(index, pbatch, res, config: AlignConfig, L: int,
     splice_accept_b = torch.zeros(B, dtype=torch.bool, device=dev)
     if splicing:
         idx, sel, c1 = _chain_stage(index, pbatch, res, L, sc, r_chain,
-                                    r_salv, salvage, trim_nmm, clip)
+                                    r_salv, salvage, trim_nmm, clip, known)
         # acceptance: strictly better than the trimmed/full substitution
         # alternative, all segments on one chromosome
         if "trim_score" in res:
@@ -368,6 +413,8 @@ def refine_full(index, pbatch, res, config: AlignConfig, L: int,
                                trim_nmm, splice_accept_b, indel_b, idx,
                                accept & sel, c1))
 
+    if keep_cands:
+        return out
     # multimapping rows keep their ranked lists through a small
     # compaction (-n/--npaths > 1); the full [B, K] lists stay on device
     r_sec = min(max(256, B // 64), B)
@@ -542,6 +589,43 @@ def _amb_review(index, pbatch, res, config, L, sc, tqs, tqe, trim_nmm,
     out["amb_pos"] = pos_a
     out["amb_count"] = count_a.to(torch.int16)
     return out
+
+
+def align_pair_full(index, pbatch, config: AlignConfig, L: int,
+                    scoring: pathdp.PathScoring, splicing: bool,
+                    salvage: bool, r_chain: int, r_salv: int, r_indel: int,
+                    pairmax: int, orientation: str, pairexpect: int,
+                    pairdev: int, known=None):
+    """The fused paired program (ladder.py:767-814): the ladder over the
+    interleaved batch (read 1 of pair p at row 2p, read 2 at 2p + 1),
+    then the concordance reduction over the mates' candidate lists.
+    Extra keys: pe_ci, pe_cj (chosen candidate per end), pe_valid,
+    pe_insert and the chosen candidates' pe_cd*, pe_cs*, pe_cn*; no
+    cand_* or sec_* keys."""
+    from tpumap_torch.gsnap.paired import concordance_device
+    _standard_only(config)
+    res = align_batch_cascaded_packed(index, pbatch, config, L)
+    out = refine_full(index, pbatch, res, config, L, scoring, splicing,
+                      salvage, r_chain, r_salv, r_indel, keep_cands=True,
+                      known=known)
+    lengths = pbatch["lengths"]
+    cd, cs, cn = (out.pop("cand_diags"), out.pop("cand_strands"),
+                  out.pop("cand_nmm"))
+    d1, d2 = cd[0::2], cd[1::2]
+    s1, s2 = cs[0::2], cs[1::2]
+    n1, n2 = cn[0::2], cn[1::2]
+    ci, cj, valid, insert = concordance_device(
+        d1, s1, n1, lengths[0::2], d2, s2, n2, lengths[1::2], pairmax,
+        orientation, pairexpect, pairdev)
+    out["pe_ci"] = ci
+    out["pe_cj"] = cj
+    out["pe_valid"] = valid
+    out["pe_insert"] = insert
+    for key, arr, i in (("pe_cd1", d1, ci), ("pe_cs1", s1, ci),
+                        ("pe_cn1", n1, ci), ("pe_cd2", d2, cj),
+                        ("pe_cs2", s2, cj), ("pe_cn2", n2, cj)):
+        out[key] = torch.gather(arr, 1, i[:, None])[:, 0]
+    return narrow_result(out)
 
 
 # result fields held as int16 bit patterns of uint16 values

@@ -8,7 +8,7 @@ the segments. It runs in two parts:
 
 - `chain_inputs`, plain torch: sorted diagonals, the per-base score s,
   the donor and acceptor dinucleotides, the mismatch mask and the
-  known-site bits (none yet), each [R, K, L];
+  known-site bits (known splicing, -s), each [R, K, L];
 - the DP and its traceback: `chain_dp` launches kernel K5
   (csrc/chain.cu) for CUDA tensors; `chain_dp_plain` beside it, which
   runs for CPU tensors, is tpumap's two lax.scans as Python loops over
@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import torch
 
 from tpumap_torch import kernels
+from tpumap_torch.gsnap.knownsplicing import coords_in_set
 from tpumap_torch.ops import verify
 from tpumap_torch.ops.u32 import INT32_MIN, INVALID, MASK32, take_along
 
@@ -66,12 +67,15 @@ def quality_mismatch_cost(quals: torch.Tensor) -> torch.Tensor:
 
 
 def chain_inputs(index, codes, nmask, lengths, diags,
-                 scoring: PathScoring = PathScoring(), quals=None) -> dict:
+                 scoring: PathScoring = PathScoring(), quals=None,
+                 known=None) -> dict:
     """The DP's inputs (pathdp.py:137-215): diags int64[R, K] sorted
     (INVALID last); s int32[R, K, L] per-base score (0 past the read or
     on an INVALID lane); don and acc int32[R, K, L] dinucleotides (the
     pair at q, and the pair ending before q, 16 for q < 2); mm
-    bool[R, K, L] mismatches; known None (no known sites)."""
+    bool[R, K, L] mismatches; known uint8[R, K, L] site bits (KNOWN_*)
+    of the genome position d + q, or None without known sites (a dict
+    of knownsplicing.known_to_device)."""
     R, L = codes.shape
     dev = codes.device
     ds = torch.sort(diags, dim=1).values
@@ -93,8 +97,18 @@ def chain_inputs(index, codes, nmask, lengths, diags,
     don = g[..., :L] * 4 + g[..., 1:L + 1]
     acc = torch.cat([torch.full((R, ds.shape[1], 2), 16, dtype=torch.int32,
                                 device=dev), don[..., :L - 2]], dim=-1)
+    kbits = None
+    if known is not None:
+        site = (d0[..., None] + torch.arange(L, device=dev)) & MASK32
+        kbits = torch.zeros(site.shape, dtype=torch.uint8, device=dev)
+        for name, bit in (("donor", KNOWN_DONOR),
+                          ("acceptor", KNOWN_ACCEPTOR),
+                          ("antidonor", KNOWN_ANTIDONOR),
+                          ("antiacceptor", KNOWN_ANTIACCEPTOR)):
+            kbits |= torch.where(coords_in_set(known[name], site), bit,
+                                 0).to(torch.uint8)
     return {"diags": ds, "s": s, "don": don, "acc": acc, "mm": mm,
-            "known": None}
+            "known": kbits}
 
 
 def _pair_tables(ds: torch.Tensor, sc: PathScoring):
@@ -258,7 +272,8 @@ def chain_dp(inp: dict, lengths: torch.Tensor,
              scoring: PathScoring = PathScoring()) -> dict:
     """chain_dp_plain for CPU tensors; kernel K5 for CUDA. The kernel
     reads its [R, K, L] inputs time-major ([L, K, R], one thread per
-    row, neighbouring rows on neighbouring addresses)."""
+    row, neighbouring rows on neighbouring addresses); K is 8 lanes, or
+    14 with known splicing's partner diagonals."""
     s = inp["s"]
     if s.device.type == "cpu":
         return chain_dp_plain(inp, lengths, scoring)
@@ -273,8 +288,8 @@ def chain_dp(inp: dict, lengths: torch.Tensor,
                        (inp["acc"], torch.int32, (R, K, L)),
                        (inp["mm"], torch.bool, (R, K, L)),
                        (lengths, torch.int32, (R,)))
-    if K > 8 or not 0 <= sc.max_insert <= 8 or L < 2:
-        raise ValueError("chain_dp: needs K <= 8 candidates, "
+    if K > 16 or not 0 <= sc.max_insert <= 8 or L < 2:
+        raise ValueError("chain_dp: needs K <= 16 candidates, "
                          "max_insert <= 8 and L >= 2")
 
     def tmajor(x):
@@ -310,12 +325,11 @@ def chain_solve(index, codes, nmask, lengths, diags,
                 with_quals: bool = False, quals=None, known=None) -> dict:
     """Solve each read (codes uint8[R, L] in the aligned orientation,
     nmask bool[R, L], lengths int32[R]) against its candidate diagonals
-    int64[R, K] (INVALID-padded, any order). Returns the dict of
-    chain_dp_plain."""
-    if known is not None:
-        raise NotImplementedError("known splicing is a later slice")
+    int64[R, K] (INVALID-padded, any order), with the known-site bonus
+    where known (a dict of knownsplicing.known_to_device) is given.
+    Returns the dict of chain_dp_plain."""
     inp = chain_inputs(index, codes, nmask, lengths, diags, scoring,
-                       quals if with_quals else None)
+                       quals if with_quals else None, known)
     return chain_dp(inp, lengths, scoring)
 
 
