@@ -4,8 +4,9 @@
 Runs the port's main paths through the fused ladder and the native SAM
 emitter — single-end DNA at the repo's headline DNA size, single-end RNA
 with novel splicing and with known splicing (-s) at the bench's RNA
-size, paired-end DNA at the bench's PE size, and paired RNA through the
-mate repair — and fails (exit code != 0) if any phase fails:
+size, paired-end DNA at the bench's PE size, paired RNA through the
+mate repair, and bisulfite (cmet) and SNP-tolerant DNA at the DNA size
+— and fails (exit code != 0) if any phase fails:
 
 1. card name and power limit; build the CUDA kernels from csrc/;
 2. the chr21-scale bench genome (46.7 Mbp, tools/bench_data.py) and
@@ -41,10 +42,31 @@ mate repair — and fails (exit code != 0) if any phase fails:
    novelsplicing=True, pairmax 2,000; the rescue and the repair must
    have run (K1 at [512, 2000], K6a at W = 2,000, K5), and all seven
    kernels launched;
-9. the first 2,048 DNA reads, the first 512 RNA reads (novel, and with
-   known splicing), the first 2,048 PE pairs and the 512 repair pairs
-   through the port on the CPU (plain versions) and on the GPU with the
-   same batching: byte-identical SAM.
+9. bisulfite (cmet) end to end on a second index, the k=14 db with its
+   ct and ga tables and a SNP index of ~155,000 SNPs (one per 300 bp,
+   the density of a common-SNP catalogue), cached under
+   .bench_data/db_k14_modes/: the 50,000 DNA reads with every C turned
+   into T unless a G follows it (a directional library, CpGs
+   methylated), mode cmet-stranded, max_occ 32, batch 32,768, one
+   warm-up call, then the timed run; reads/s, aligned fraction and
+   within 10 bp of truth (>= 0.274 and 0.270: tpumap's semantics, see
+   check_cmet); K1 must have launched;
+10. SNP-tolerant end to end on that index: the 50,000 DNA reads of the
+   plan regenerated with every SNP they cover set to its alt allele;
+   reads/s, aligned fraction, within 10 bp (>= 0.99 each), and the sum
+   of XV:i: over the primary lines against the alt alleles in the reads
+   (>= 0.95); K1 must have launched;
+11. the first 2,048 DNA reads, the first 512 RNA reads (novel, and with
+   known splicing), the first 2,048 PE pairs, the 512 repair pairs, the
+   first 2,048 cmet and SNP reads, the first 512 RNA reads as cmet with
+   novel splicing and 512 PE pairs as cmet (both mates C->T) through the
+   port on the CPU (plain versions) and on the GPU with the same
+   batching: byte-identical SAM.
+
+Phase 3 also holds K1 against its plain version on the mode index: in
+each base space at the mode rung's [32,768, 8] x 8, ref-OR-alt at the
+SNP standard path's [65,536, 8] x 3, and cmet with SNPs at [32,768, 8]
+x 8.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. JAX is blocked: the port must run
@@ -54,6 +76,7 @@ checkout. Usage: python3 chip_smoke.py
 import io
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -73,6 +96,8 @@ PB = 8192               # pairs per PE batch (bench.py's PE leg)
 PAIRMAX = 1000
 N_CPU_PE = 2048
 N_REPAIR = 512          # paired RNA pairs through the mate repair
+SNP_EVERY = 300         # bp per SNP of the SNP index
+CMET = "cmet-stranded"
 DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
 SOURCES = {
     "verify_diagonals": ("tpumap_torch/csrc/verify.cu",
@@ -109,6 +134,15 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def kernel_name(mangled: str) -> str:
+    """verify_kernel<1, 0> for a mangled kernel template instance."""
+    m = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[a-z]\d+E)+)E)?", mangled)
+    if m is None:
+        return mangled
+    args = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+
+
 def max_abs_err(got, want) -> float:
     if isinstance(got, dict):
         return max(max_abs_err(got[k], want[k]) for k in want)
@@ -137,7 +171,111 @@ def load_index(smi):
     return bench_data, db, rfa
 
 
-def kernel_phase(index, gpu, known):
+def load_mode_index(bench_data, db, smi):
+    """The bench db with its ct and ga tables and a SNP index (cached
+    under .bench_data/db_k14_modes/); returns (db, snp coords, alts).
+    The SNPs (one per SNP_EVERY bp, none on the planted GT/AG intron
+    bases) come from a seeded generator, each alt = ref + 1..3 mod 4."""
+    from tpumap.index.build import GenomeDB
+    from tpumap_torch.ops.mode import add_mode_index
+    rng = np.random.default_rng(300)
+    glen = bench_data.GENOME_LEN
+    coords = np.sort(rng.choice(glen, glen // SNP_EVERY, replace=False))
+    planted = [p for exons in bench_data.gene_table()
+               for (a, n), (b, _m) in zip(exons, exons[1:])
+               for p in (a + n, a + n + 1, b - 2, b - 1)]
+    coords = coords[~np.isin(coords, planted)]
+    ref = db.get_codes(0, glen)[coords]
+    alts = ((ref + rng.integers(1, 4, len(coords))) % 4).astype(np.uint8)
+    t0 = time.perf_counter()
+    dbdir = bench_data.ROOT / "db_k14_modes"
+    if (dbdir / "meta.json").exists():
+        mdb = GenomeDB.load(str(dbdir))
+    else:
+        mdb = GenomeDB.load(str(bench_data.ROOT / "db_k14"))
+        for space in ("ct", "ga"):
+            add_mode_index(mdb, space)
+        mdb.add_snp_index(coords, alts)
+        mdb.save(str(dbdir))
+    log(f"mode db (ct, ga, {len(coords)} SNPs) ready in "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    return mdb, coords, alts
+
+
+def snp_reads(bench_data, coords, alts):
+    """The DNA reads of bench_data.read_plan() from the genome with the
+    alt alleles in, substitutions and strand flip after, as
+    _write_dna_reads makes them; and the alt alleles left in them."""
+    from tpumap.io.fasta import Record
+    codes = bench_data.genome_codes()
+    codes[coords] = alts
+    starts, strands, subs = bench_data.read_plan()
+    L = bench_data.READ_LEN
+    lo = np.searchsorted(coords, starts)
+    hi = np.searchsorted(coords, starts + L)
+    reads, n_alt = [], 0
+    for i in range(len(starts)):
+        s = codes[starts[i]:starts[i] + L].copy()
+        for j, b in subs[i]:
+            s[j] = b
+        at = coords[lo[i]:hi[i]]
+        n_alt += int((s[at - starts[i]] == alts[lo[i]:hi[i]]).sum())
+        if strands[i]:
+            s = 3 - s[::-1]
+        reads.append(Record(f"r{i}", "", bench_data._codes_to_str(s)))
+    return reads, n_alt
+
+
+def cmet(text: str, cpg: bool = True) -> str:
+    """A read text as a directional bisulfite library reads it: C->T,
+    except a C before a G with cpg (a methylated CpG)."""
+    return re.sub("C(?!G)" if cpg else "C", "T", text)
+
+
+def mode_kernel_rows(mindex, rng, reads_at):
+    """K1 on the mode index: each base space at the mode rung's shape
+    ([32,768, 8] x 8 per strand, reads with the space's conversions),
+    ref-OR-alt at the SNP standard path's [65,536, 8] x 3 and cmet with
+    SNPs at [32,768, 8] x 8 (reads cut from the alternate genome)."""
+    from tpumap_torch.gsnap.engine import ENDS_K, ENDS_VERIFY_K
+    from tpumap_torch.ops import pack, verify
+    dev = mindex.device
+    rows = []
+    # the base each space converts: ct C->T, ga G->A, ag A->G, tc T->C
+    cases = [("ct", False, B, ENDS_K, 1), ("ga", False, B, ENDS_K, 2),
+             ("ag", False, B, ENDS_K, 0), ("tc", False, B, ENDS_K, 3),
+             (None, True, 2 * B, ENDS_VERIFY_K, None),
+             ("ct", True, B, ENDS_K, 1)]
+    for space, snp, n, C, conv in cases:
+        d, codes = reads_at(n)
+        if snp:
+            codes = verify.extract_codes_window(
+                mindex.genomealt_packed, torch.from_numpy(d).to(dev),
+                128).cpu().numpy()
+            codes[:, 100:] = 0
+        if conv is not None:
+            hit = (codes == conv) & (rng.random(codes.shape) < 0.8)
+            codes[hit] = (conv + 2) % 4
+        diags = np.stack([d + rng.integers(-2, 3, n) * (c > 0)
+                          for c in range(C)], 1)
+        diags[rng.random(diags.shape) < 0.1] = 0xFFFFFFFF
+        packed = pack.pack_reads(torch.from_numpy(codes).to(dev))
+        lengths = torch.full((n,), 100, dtype=torch.int32, device=dev)
+        args = (mindex, packed, torch.zeros_like(packed), lengths,
+                torch.from_numpy(diags).to(dev), False, True)
+        kw = dict(space=space, snp=snp)
+        label = {(None, True): "snp", ("ct", True): "ct + snp"}.get(
+            (space, snp), space)
+        rows.append(("verify_diagonals", f"[{n}, 8] x {C} ({label})",
+                     max_abs_err(verify.verify_diagonals(*args, **kw),
+                                 verify.verify_diagonals_plain(*args, **kw)),
+                     cuda_ms(lambda: verify.verify_diagonals(*args, **kw), 50),
+                     cuda_ms(lambda: verify.verify_diagonals_plain(*args, **kw),
+                             10)))
+    return rows
+
+
+def kernel_phase(index, gpu, known, mindex):
     """Each kernel at its main-path shapes vs its plain version."""
     from tpumap.gsnap.params import INDEL_BAND, INDEL_MARGIN
     from tpumap_torch.gsnap.engine import ENDS_VERIFY_K
@@ -212,6 +350,7 @@ def kernel_phase(index, gpu, known):
                  cuda_ms(lambda: dp.traceback_plain(*targs), 3)))
     rows += rna_kernel_rows(index, rng, reads_at)
     rows += pe_known_kernel_rows(index, rng, reads_at, known)
+    rows += mode_kernel_rows(mindex, rng, reads_at)
     for name, shape, err, ms, plain_ms in rows:
         log(f"kernel {name:17s} {shape:34s} max_abs_err={err:g} "
             f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{gpu}]")
@@ -469,7 +608,7 @@ def main():
     gpu = torch.cuda.get_device_name(0)
     log(smi)
 
-    from tpumap.io.fasta import read_fasta
+    from tpumap.io.fasta import Record, read_fasta
     from tpumap_torch import kernels
     from tpumap_torch.gsnap.driver import align_records
     from tpumap_torch.gsnap.engine import AlignConfig
@@ -479,8 +618,11 @@ def main():
     t0 = time.perf_counter()
     kernels.build()
     log(f"kernel build {time.perf_counter() - t0:.1f} s [{smi}]")
-    log("\n".join(ln for ln in kernels.build_log.splitlines()
-                  if "registers" in ln or "spill" in ln))
+    for ln in kernels.build_log.splitlines():      # ptxas -v per kernel
+        if "entry function" in ln:
+            log("  " + kernel_name(ln.split("'")[1]))
+        elif "registers" in ln or "spill" in ln:
+            log(ln)
 
     bench_data, db, rfa = load_index(smi)
     torch.cuda.synchronize()
@@ -490,20 +632,29 @@ def main():
     log(f"index upload {time.perf_counter() - t0:.2f} s, "
         f"{index.nbytes() / 1e9:.3f} GB on the device [{smi}]")
     known = gene_known(bench_data)
+    mdb, snp_coords, snp_alts = load_mode_index(bench_data, db, smi)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mindex = DeviceIndex.from_host(mdb, "cuda")
+    torch.cuda.synchronize()
+    log(f"mode index upload {time.perf_counter() - t0:.2f} s, "
+        f"{mindex.nbytes() / 1e9:.3f} GB on the device [{smi}]")
 
-    rows = kernel_phase(index, smi, known)
+    rows = kernel_phase(index, smi, known, mindex)
 
     config = AlignConfig(top_k=4, max_occ=4)
+    cmet_config = AlignConfig(mode=CMET, top_k=4, max_occ=32)
+    snp_config = AlignConfig(snp_tolerant=True, top_k=4, max_occ=4)
 
-    def single(**kw):
+    def single(cfg=config, gdb=db, **kw):
         def run(idx, items, batch, sink, stats=None):
-            align_records(db, idx, items, config, batch_size=batch,
+            align_records(gdb, idx, items, cfg, batch_size=batch,
                           sink=sink, stats=stats, **kw)
         return run
 
-    def paired(**kw):
+    def paired(cfg=config, gdb=db, **kw):
         def run(idx, items, batch, sink, stats=None):
-            align_paired_records(db, idx, items, config, batch_size=batch,
+            align_paired_records(gdb, idx, items, cfg, batch_size=batch,
                                  sink=sink, stats=stats, **kw)
         return run
 
@@ -544,25 +695,50 @@ def main():
     if missing:
         raise AssertionError(f"PE RNA repair: never launched: {missing}")
 
-    # GPU vs CPU (plain versions) on the first reads, same batching
-    subsets = [("DNA", reads[:N_CPU], single()),
-               ("RNA", rna_reads[:N_CPU_RNA], single(novelsplicing=True)),
+    cmet_reads = [Record(r.accession, "", cmet(r.sequence)) for r in reads]
+    cmet_run = single(cmet_config, mdb)
+    cmet_launches = run_e2e("cmet", cmet_reads, B, smi, mindex, cmet_run,
+                            lambda buf: check_cmet(buf, bench_data),
+                            ("verify_diagonals",))
+    s_reads, n_alt = snp_reads(bench_data, snp_coords, snp_alts)
+    snp_run = single(snp_config, mdb)
+    snp_launches = run_e2e("SNP", s_reads, B, smi, mindex, snp_run,
+                           lambda buf: check_snp(buf, bench_data, n_alt),
+                           ("verify_diagonals",))
+
+    # GPU vs CPU (plain versions) on the first reads, same batching; the
+    # last four on the mode index
+    cmet_rna = [Record(r.accession, "", cmet(r.sequence))
+                for r in rna_reads[:N_CPU_RNA]]
+    cmet_pairs = [(Record(a.accession, "", cmet(a.sequence, cpg=False)),
+                   Record(b.accession, "", cmet(b.sequence, cpg=False)))
+                  for a, b in pe_pairs[:N_CPU_RNA]]
+    subsets = [("DNA", reads[:N_CPU], single(), False),
+               ("RNA", rna_reads[:N_CPU_RNA], single(novelsplicing=True),
+                False),
                ("RNA -s", rna_reads[:N_CPU_RNA],
-                single(novelsplicing=True, known=known)),
-               ("PE", pe_pairs[:N_CPU_PE], paired(pairmax=PAIRMAX)),
-               ("PE RNA repair", rep_pairs, rep_run)]
+                single(novelsplicing=True, known=known), False),
+               ("PE", pe_pairs[:N_CPU_PE], paired(pairmax=PAIRMAX), False),
+               ("PE RNA repair", rep_pairs, rep_run, False),
+               ("cmet", cmet_reads[:N_CPU], cmet_run, True),
+               ("SNP", s_reads[:N_CPU], snp_run, True),
+               ("cmet RNA", cmet_rna,
+                single(cmet_config, mdb, novelsplicing=True), True),
+               ("cmet PE", cmet_pairs,
+                paired(cmet_config, mdb, pairmax=PAIRMAX), True)]
     gpu_sam = []
-    for _name, sub, run in subsets:
+    for _name, sub, run, modes in subsets:
         gbuf = io.BytesIO()
-        run(index, sub, len(sub), gbuf.write)
+        run(mindex if modes else index, sub, len(sub), gbuf.write)
         gpu_sam.append(gbuf.getvalue())
-    del index
+    del index, mindex
     torch.cuda.empty_cache()
     cpu_index = DeviceIndex.from_host(db, "cpu")
-    for (name, sub, run), want in zip(subsets, gpu_sam):
+    cpu_mindex = DeviceIndex.from_host(mdb, "cpu")
+    for (name, sub, run, modes), want in zip(subsets, gpu_sam):
         t0 = time.perf_counter()
         cbuf = io.BytesIO()
-        run(cpu_index, sub, len(sub), cbuf.write)
+        run(cpu_mindex if modes else cpu_index, sub, len(sub), cbuf.write)
         same = cbuf.getvalue() == want
         log(f"{name}: CPU plain run of {len(sub)} items in "
             f"{time.perf_counter() - t0:.1f} s: SAM byte-identical to the "
@@ -572,9 +748,9 @@ def main():
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("JAX was imported")
 
-    # one entry per kernel, at its first (largest) main-path shape;
-    # launches from the RNA run, which drives all seven, and each other
-    # phase's launches beside them
+    # one entry per kernel, at its first (largest) main-path shape, with
+    # all its rows; launches from the RNA run, which drives all seven,
+    # and each other phase's launches beside them
     table, seen = [], set()
     for name, shape, err, ms, plain_ms in rows:
         if name in seen:
@@ -585,9 +761,12 @@ def main():
             "replaces": SOURCES[name][1], "launches": rna_launches[name],
             "max_abs_err": max(r[2] for r in rows if r[0] == name),
             "ms": ms, "plain_ms": plain_ms, "shape": shape,
+            "rows": [{"shape": r[1], "max_abs_err": r[2], "ms": r[3],
+                      "plain_ms": r[4]} for r in rows if r[0] == name],
             "phase_launches": {
                 "dna": dna_launches[name], "rna_known": known_launches[name],
-                "pe": pe_launches[name], "pe_repair": rep_launches[name]}})
+                "pe": pe_launches[name], "pe_repair": rep_launches[name],
+                "cmet": cmet_launches[name], "snp": snp_launches[name]}})
     log(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu,
@@ -664,6 +843,37 @@ def check_pe(sam_bytes, bench_data):
            f"{near:.5f}")
     if conc < 0.99 or near < 0.99:
         raise AssertionError(f"PE accuracy below 0.99: {msg}")
+    return msg
+
+
+def check_cmet(sam_bytes, bench_data):
+    """Floors 0.01 under the measured 0.28422 aligned and 0.28084 within
+    10 bp, tpumap's own figures: in the ct/ga space at max_occ 32 the
+    ends rung keeps the 8 smallest of up to 192 candidate diagonals, so
+    most reads miss their true one, and the prevalent rung takes only
+    512 of a batch's 32,768 rows (the port's CPU run matches tpumap's SAM
+    byte for byte on such reads)."""
+    aligned, near = grade(sam_bytes, bench_data)
+    msg = f"aligned_frac={aligned:.5f}, within 10 bp of truth={near:.5f}"
+    if aligned < 0.274 or near < 0.270:
+        raise AssertionError(f"cmet accuracy below its floor: {msg}")
+    return msg
+
+
+def check_snp(sam_bytes, bench_data, n_alt):
+    """grade() and the alt alleles the primary lines report in XV:i:
+    against those in the reads."""
+    aligned, near = grade(sam_bytes, bench_data)
+    xv = 0
+    for line in sam_bytes.decode().splitlines():
+        f = line.split("\t")
+        if not int(f[1]) & 0x904:
+            xv += sum(int(t[5:]) for t in f[11:] if t.startswith("XV:i:"))
+    frac = xv / max(n_alt, 1)
+    msg = (f"aligned_frac={aligned:.5f}, within 10 bp of truth={near:.5f}, "
+           f"XV alt alleles {xv} of {n_alt} in the reads = {frac:.5f}")
+    if aligned < 0.99 or near < 0.99 or frac < 0.95:
+        raise AssertionError(f"SNP accuracy below its floor: {msg}")
     return msg
 
 

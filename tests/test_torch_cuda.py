@@ -24,7 +24,8 @@ from tpumap_torch.gsnap.knownsplicing import known_to_device
 from tpumap_torch.gsnap.paired import align_paired_records, rescue_mate
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops import dp, localscan, pack, pathdp, verify
-from torch_workloads import mixed_workload, sam_text, stream_pairs
+from torch_workloads import (mixed_workload, mode_pairs, mode_reads,
+                             mode_world, sam_text, stream_pairs)
 
 DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
 
@@ -352,3 +353,84 @@ def test_paired_and_known_on_gpu_match_cpu(dev, tmp_path):
                                   batch_size=32))
     assert sam_text(align_records(db, gpu, reads, cfg, known=ks,
                                   batch_size=32)) == want
+
+
+@pytest.mark.parametrize("alt", [False, True])
+@pytest.mark.parametrize("space", [None, "ct", "ga", "ag", "tc"])
+def test_verify_kernel_spaces_match_plain(dev, space, alt):
+    """K1 in each base space, with and without the alternate genome (a
+    base counts only where it mismatches both), with Ns in reads and
+    genome, both N semantics, and diagonals near and past the genome end.
+    Reads are cut from the genome or the alternate genome, with the
+    mode conversions and substitutions planted."""
+    rng = np.random.default_rng(7 + 2 * len(space or "") + alt)
+    glen, B, W, C = 200_000, 900, 8, 6
+    idx = random_index(rng, glen, dev, 0.01)
+    g = idx.genome_packed.cpu().numpy().view(np.uint32)
+    sparse = (rng.integers(0, 2 ** 32, (3, len(g)), dtype=np.uint64)
+              .astype(np.uint32))
+    galt = g ^ (sparse[0] & sparse[1] & sparse[2])
+    if alt:
+        idx = dataclasses.replace(idx, genomealt_packed=torch.from_numpy(
+            galt.view(np.int32)).to(dev))
+    d = rng.integers(0, glen, B).astype(np.int64)
+    src = idx.genomealt_packed if alt else idx.genome_packed
+    codes = verify.extract_codes_window(src, torch.from_numpy(d).to(dev),
+                                        16 * W).cpu().numpy()
+    codes = np.where(rng.random(codes.shape) < 0.15, (codes + 2) % 4, codes)
+    sub = rng.random(codes.shape) < 0.02
+    codes[sub] = rng.integers(0, 4, int(sub.sum()))
+    nmask = rng.random(codes.shape) < 0.03
+    lengths = rng.integers(1, 16 * W + 1, B).astype(np.int32)
+    lengths[:300] = 100
+    diags = np.stack([d + rng.integers(-2, 3, B) * (c > 0)
+                      for c in range(C)], 1)
+    diags[rng.random(diags.shape) < 0.15] = 0xFFFFFFFF
+    diags[:4, 1] = [glen - 50, glen + 5, glen + 900, 0]
+    ct, nt, lt, dt = to(dev, codes, nmask.astype(np.uint8), lengths, diags)
+    pk, nm2 = pack.pack_reads(ct), pack.pack_reads(nt)
+    for qunk, gunk in ((False, True), (True, False)):
+        args = (idx, pk, nm2, lt, dt, qunk, gunk)
+        got = verify.verify_diagonals(*args, space=space, snp=alt)
+        want = verify.verify_diagonals_plain(*args, space=space, snp=alt)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (qunk, gunk)
+        if alt:
+            ref = verify.verify_diagonals_plain(*args, space=space)
+            assert bool((want <= ref).all()) and bool((want < ref).any())
+
+
+@pytest.mark.parametrize("run", ["cmet", "atoi", "snp", "cmet_snp",
+                                 "cmet_novel", "cmet_pairs", "snp_pairs"])
+def test_modes_on_gpu_match_cpu(dev, tmp_path, run):
+    """The alignment modes and SNP tolerance on the small worlds of
+    tests/test_torch_modes.py (all four spaces, a dense SNP cluster)
+    through the kernels give the plain CPU run's SAM, and K1 launched."""
+    db, seq, coords, alts = mode_world(tmp_path)
+    mode = {"cmet": "cmet-stranded", "atoi": "atoi-stranded"}.get(
+        run.split("_")[0])
+    snp = "snp" in run
+    cfg = AlignConfig(mode=mode or "standard", snp_tolerant=snp, top_k=4,
+                      max_occ=8)
+    cpu, gpu = DeviceIndex.from_host(db, "cpu"), DeviceIndex.from_host(db, dev)
+    if run.endswith("pairs"):
+        items = mode_pairs(seq, mode, 24, 41)
+
+        def sam(index):
+            return b"".join((a.lines() + b.lines()).encode()
+                            for a, b in align_paired_records(
+                                db, index, items, cfg, batch_size=16,
+                                pairmax=1000))
+    else:
+        items = (mode_reads(seq, mode, 40, 11)
+                 + mode_reads(seq, mode, 16, 12, snps=(coords, alts),
+                              name="s"))
+
+        def sam(index):
+            return sam_text(align_records(
+                db, index, items, cfg, batch_size=32,
+                novelsplicing=run == "cmet_novel"))
+    want = sam(cpu)
+    kernels.reset_launches()
+    assert sam(gpu) == want
+    assert kernels.LAUNCHES["verify_diagonals"] > 0, kernels.LAUNCHES

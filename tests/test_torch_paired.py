@@ -432,14 +432,21 @@ def test_main_paired_refuses_missing_card(world, tmp_path, monkeypatch):
 @pytest.mark.parametrize("option", ["tr", "known_indels", "device_ctx",
                                     "mode", "snp_tolerant"])
 def test_unported_paired_options_raise(world, option):
+    """Options of later slices raise NotImplementedError. The alignment
+    mode and SNP tolerance are ported: the port accepts them and gives
+    tpumap's SAM on the same pairs (no mode or SNP tables here, so both
+    fall back to the standard ones, as in tpumap)."""
     db, pairs, _owner, _ks, _want, _dicts = world
-    kw, cfg = {}, engine.AlignConfig()
+    ti = DeviceIndex.from_host(db)
     if option in ("tr", "known_indels", "device_ctx"):
-        kw[option] = object()
-    elif option == "mode":
-        cfg = engine.AlignConfig(mode="cmet-stranded")
-    else:
-        cfg = engine.AlignConfig(snp_tolerant=True)
-    with pytest.raises(NotImplementedError):
-        paired.align_paired_records(db, DeviceIndex.from_host(db), pairs[:2],
-                                    cfg, **kw)
+        with pytest.raises(NotImplementedError):
+            paired.align_paired_records(db, ti, pairs[:2],
+                                        engine.AlignConfig(),
+                                        **{option: object()})
+        return
+    kw = ({"mode": "cmet-stranded"} if option == "mode"
+          else {"snp_tolerant": True})
+    want = pair_text(jpaired.align_paired_records(
+        db, JaxIndex.from_host(db), pairs[:2], jengine.AlignConfig(**kw)))
+    assert pair_text(paired.align_paired_records(
+        db, ti, pairs[:2], engine.AlignConfig(**kw))) == want

@@ -5,6 +5,7 @@ import numpy as np
 from tpumap.index import build_db
 from tpumap.io.fasta import Record
 from tpumap.utils import dna
+from tpumap_torch.ops.mode import add_mode_index
 
 
 def write_fasta(path, seq):
@@ -70,3 +71,80 @@ def stream_pairs(db):
 
 def sam_text(recs) -> bytes:
     return "".join(r.lines() for r in recs).encode()
+
+
+def mode_world(root):
+    """tests/test_modes.py's world (30 kbp, k=12) with the tables of all
+    four base spaces, and tests/test_snps.py's dense SNP cluster on it
+    (an alt allele every 20 bp in [5000, 5240), alt = ref + 1).
+    Returns (db, seq, snp coords, alt codes)."""
+    rng = np.random.default_rng(33)
+    seq = "".join("ACGT"[i] for i in rng.integers(0, 4, 30000))
+    db = build_db(write_fasta(root / "g.fa", seq), name="g", k=12, interval=3)
+    for space in ("ct", "ga", "ag", "tc"):
+        add_mode_index(db, space)
+    coords = np.arange(5000, 5240, 20, dtype=np.int64)
+    alts = ((db.get_codes(0, db.genome_length)[coords] + 1) % 4).astype(
+        np.uint8)
+    db.add_snp_index(coords, alts)
+    return db, seq, coords, alts
+
+
+# the conversion of each stranded library in the read's own text
+CONVERSIONS = {"cmet-stranded": ("C", "T"), "atoi-stranded": ("A", "G"),
+               "ttoc-stranded": ("T", "C")}
+
+
+def convert(s: str, mode: str, cpg: bool = False) -> str:
+    """A read text as the mode's library reads it; with cpg, a C before a
+    G stays (methylated CpG)."""
+    a, b = CONVERSIONS[mode]
+    if not cpg:
+        return s.replace(a, b)
+    return "".join(b if c == a and s[i + 1:i + 2] != "G" else c
+                   for i, c in enumerate(s))
+
+
+def mode_reads(seq, mode, n, seed, snps=None, name="m"):
+    """n 100-bp reads of seq from a stranded library of `mode` (None: no
+    conversion), every other one reverse-complemented before conversion;
+    every fourth with two substitutions and the sixth with an N. With
+    snps = (coords, alts), reads start inside the SNP cluster and carry
+    the alt alleles they cover."""
+    rng = np.random.default_rng(seed)
+    g = list(seq)
+    if snps is not None:
+        for c, a in zip(*snps):
+            g[int(c)] = "ACGT"[int(a)]
+    reads = []
+    for r in range(n):
+        p = (int(rng.integers(4900, 5200)) if snps is not None
+             else int(rng.integers(0, len(seq) - 100)))
+        s = list(g[p:p + 100])
+        if r % 4 == 3:
+            for j in rng.integers(0, 100, 2):
+                s[j] = "ACGT"[("ACGT".index(s[j]) + 1) % 4]
+        s = "".join(s)
+        if r % 2:
+            s = dna.revcomp(s)
+        if mode is not None:
+            s = convert(s, mode)
+        if r == 5:
+            s = s[:40] + "N" + s[41:]
+        reads.append(Record(f"{name}{r}", "", s))
+    return reads
+
+
+def mode_pairs(seq, mode, n, seed):
+    """n FR pairs, inserts 250-500, each mate converted in its own text
+    (tests/test_modes.py's convention)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for r in range(n):
+        p = int(rng.integers(0, len(seq) - 600))
+        ins = int(rng.integers(250, 500))
+        m1, m2 = seq[p:p + 100], dna.revcomp(seq[p + ins - 100:p + ins])
+        if mode is not None:
+            m1, m2 = convert(m1, mode), convert(m2, mode)
+        out.append((Record(f"p{r}/1", "", m1), Record(f"p{r}/2", "", m2)))
+    return out

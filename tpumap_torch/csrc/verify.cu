@@ -2,8 +2,9 @@
 //
 // Replaces: tools/pallas_verify_experiment.py:verify_pallas (its body
 // make_kernel) and its production twin tpumap/ops/verify.py:
-// verify_diagonals, with the genome N-mask window and the
-// query_unk/genome_unk flags the Pallas experiment lacks.
+// verify_diagonals, with the genome N-mask window, the
+// query_unk/genome_unk flags, the reduced base spaces of the alignment
+// modes and the SNP-tolerant ref-OR-alt comparison.
 //
 // Bound on the H100: latency of small random gathers. Each (read, lane)
 // fetches W+1 genome words and W/2+2 N-bitmap words (36 + 24 bytes at
@@ -17,6 +18,15 @@
 // read-only path). Each thread walks the W words itself: shift-align,
 // XOR, fold base pairs, apply the N masks and the length mask, __popc.
 // Gather indices clamp to the array, as JAX's mode="clip" takes do.
+//
+// Modes and SNPs: SPACE (0 none, 1-4 ct/ga/ag/tc, ops/mode.py) transforms
+// the read word and the genome word inline with one bit trick each; with
+// ALT the thread also fetches the same window of the alternate genome,
+// transforms it, and a base counts only where both the reference and the
+// alt comparison mismatch. (a|m)&(b|m) == (a&b)|m and likewise for &~m,
+// so the two folded words are ANDed before the N masks are applied once.
+// Both are template parameters: the standard instance <0, false> is the
+// kernel of the standard path unchanged.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -47,10 +57,26 @@ __device__ __forceinline__ uint32_t aligned_word(const uint32_t* a,
   return lo | hi;
 }
 
+template <int SPACE>
+__device__ __forceinline__ uint32_t to_space(uint32_t w) {
+  if (SPACE == 1) return w | ((w & kLowPairs) << 1);              // ct
+  if (SPACE == 2) return w & ~((~w & kLowPairs) << 1);            // ga
+  if (SPACE == 3) return w | ((~(w | (w >> 1)) & kLowPairs) << 1);  // ag
+  if (SPACE == 4) return w & ~(((w & (w >> 1)) & kLowPairs) << 1);  // tc
+  return w;
+}
+
+__device__ __forceinline__ uint32_t fold(uint32_t x) {
+  return (x | (x >> 1)) & kLowPairs;
+}
+
+template <int SPACE, bool ALT>
 __global__ void verify_kernel(const uint32_t* __restrict__ genome,
                               long long gwords,
                               const uint32_t* __restrict__ gnmask,
                               long long nwords,
+                              const uint32_t* __restrict__ galt,
+                              long long awords,
                               const uint32_t* __restrict__ reads,
                               const uint32_t* __restrict__ rnmask,
                               const int32_t* __restrict__ lengths,
@@ -75,9 +101,11 @@ __global__ void verify_kernel(const uint32_t* __restrict__ genome,
   const uint32_t* qn = rnmask + (long long)b * W;
   int count = 0;
   for (int j = 0; j < W; ++j) {
-    uint32_t g = aligned_word(genome, gwords, w0 + j, s2);
-    uint32_t x = __ldg(q + j) ^ g;
-    uint32_t mm = (x | (x >> 1)) & kLowPairs;
+    uint32_t r = to_space<SPACE>(__ldg(q + j));
+    uint32_t mm =
+        fold(r ^ to_space<SPACE>(aligned_word(genome, gwords, w0 + j, s2)));
+    if (ALT)
+      mm &= fold(r ^ to_space<SPACE>(aligned_word(galt, awords, w0 + j, s2)));
     uint32_t qm = __ldg(qn + j);
     mm = query_unk ? (mm | qm) : (mm & ~qm);
     if (has_n) {
@@ -94,22 +122,66 @@ __global__ void verify_kernel(const uint32_t* __restrict__ genome,
   out[t] = count;
 }
 
-}  // namespace
-
-extern "C" int tt_verify_diagonals(const void* genome, long long gwords,
-                                   const void* gnmask, long long nwords,
-                                   const void* reads, const void* rnmask,
-                                   const void* lengths, const void* diags,
-                                   int B, int W, int C, int has_n,
-                                   int query_unk, int genome_unk, void* out,
-                                   void* stream) {
+template <int SPACE, bool ALT>
+void launch(const void* genome, long long gwords, const void* gnmask,
+            long long nwords, const void* galt, long long awords,
+            const void* reads, const void* rnmask, const void* lengths,
+            const void* diags, int B, int W, int C, int has_n,
+            int query_unk, int genome_unk, void* out, cudaStream_t stream) {
   long long n = (long long)B * C;
   int threads = 256;
   unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  verify_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  verify_kernel<SPACE, ALT><<<blocks, threads, 0, stream>>>(
       (const uint32_t*)genome, gwords, (const uint32_t*)gnmask, nwords,
-      (const uint32_t*)reads, (const uint32_t*)rnmask,
-      (const int32_t*)lengths, (const long long*)diags, B, W, C, has_n,
-      query_unk, genome_unk, (int32_t*)out);
+      (const uint32_t*)galt, awords, (const uint32_t*)reads,
+      (const uint32_t*)rnmask, (const int32_t*)lengths,
+      (const long long*)diags, B, W, C, has_n, query_unk, genome_unk,
+      (int32_t*)out);
+}
+
+template <bool ALT>
+bool launch_space(int space, const void* genome, long long gwords,
+                  const void* gnmask, long long nwords, const void* galt,
+                  long long awords, const void* reads, const void* rnmask,
+                  const void* lengths, const void* diags, int B, int W,
+                  int C, int has_n, int query_unk, int genome_unk, void* out,
+                  cudaStream_t stream) {
+#define TT_VERIFY_ARGS                                                    \
+  genome, gwords, gnmask, nwords, galt, awords, reads, rnmask, lengths, \
+      diags, B, W, C, has_n, query_unk, genome_unk, out, stream
+  switch (space) {
+    case 0: launch<0, ALT>(TT_VERIFY_ARGS); return true;
+    case 1: launch<1, ALT>(TT_VERIFY_ARGS); return true;
+    case 2: launch<2, ALT>(TT_VERIFY_ARGS); return true;
+    case 3: launch<3, ALT>(TT_VERIFY_ARGS); return true;
+    case 4: launch<4, ALT>(TT_VERIFY_ARGS); return true;
+  }
+#undef TT_VERIFY_ARGS
+  return false;
+}
+
+}  // namespace
+
+// galt may be null (no SNP comparison); space is 0 (standard) or 1-4
+// (ct, ga, ag, tc). Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for an unknown space.
+extern "C" int tt_verify_diagonals(const void* genome, long long gwords,
+                                   const void* gnmask, long long nwords,
+                                   const void* galt, long long awords,
+                                   const void* reads, const void* rnmask,
+                                   const void* lengths, const void* diags,
+                                   int B, int W, int C, int has_n,
+                                   int query_unk, int genome_unk, int space,
+                                   void* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  bool ok = galt ? launch_space<true>(space, genome, gwords, gnmask, nwords,
+                                      galt, awords, reads, rnmask, lengths,
+                                      diags, B, W, C, has_n, query_unk,
+                                      genome_unk, out, st)
+                 : launch_space<false>(space, genome, gwords, gnmask, nwords,
+                                       galt, awords, reads, rnmask, lengths,
+                                       diags, B, W, C, has_n, query_unk,
+                                       genome_unk, out, st);
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -12,10 +12,12 @@ overlap.
 
 Known splicing (-s) runs on the same fused ladder: partner diagonals
 from the known junction table and the known-site bonus on the device,
-every chain row through the Python path_record for its XS tag.
-Transcriptome-guided runs, fusions, known indels, device meshes,
-non-standard modes and SNP tolerance are later slices of the port and
-raise NotImplementedError.
+every chain row through the Python path_record for its XS tag. The
+alignment modes (--mode) and SNP tolerance (-v) change the cascade; as
+in tpumap they turn the native emitters off, and the Python records
+count NM/MD in the strand's base space (XW/XV with -v).
+Transcriptome-guided runs, fusions, known indels and device meshes are
+later slices of the port and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from tpumap_torch.gsnap.engine import AlignConfig, mapq_from_scores
 from tpumap_torch.gsnap.knownsplicing import known_to_device
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops import dp as dp_ops
+from tpumap_torch.ops.mode import MODE_SPACES
 from tpumap_torch.ops import pathdp
 from tpumap_torch.ops.pack import words_for
 
@@ -744,9 +747,7 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
     unported = {"tr": tr is not None,
                 "find_fusions": find_fusions,
                 "known_indels": known_indels is not None,
-                "device_ctx": device_ctx is not None,
-                "mode": config.mode != "standard",
-                "snp_tolerant": config.snp_tolerant}
+                "device_ctx": device_ctx is not None}
     for name, on in unported.items():
         if on:
             raise NotImplementedError(
@@ -761,6 +762,10 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
     run_L = pad_to_bucket(max((len(r.sequence) for r in records),
                               default=1))
     pad_tail = len(records) >= batch_size
+    spaces = MODE_SPACES[config.mode]
+    # the native emitters know no base space or alternate genome
+    can_bulk = (not show_method and not config.snp_tolerant
+                and spaces == (None, None))
 
     def _dispatch(start):
         """Encode one batch and enqueue its device work and result
@@ -810,10 +815,10 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
         overrides = (splice_result, dp_result, amb_result, sec_map)
         bulk = None
         mix = None
-        if sink is not None and not show_method:
+        if sink is not None and can_bulk:
             mix = _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides,
                                     config, known)
-        if mix is None and not show_method:
+        if mix is None and can_bulk:
             bulk = _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides,
                                     config, known)
         if bulk is not None:
@@ -907,21 +912,24 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                        and alen >= max(20, int(li * config.min_coverage))
                        and int(res["trim_nmm"][i])
                        <= max(1, int(alen * config.max_mismatch_frac)))
+            space = spaces[int(res["strand"][i])]
             if res["mapped"][i] and not trimmed:
                 _emit(sam.ungapped_record(
                     db, rec.accession, rec.sequence, rec.quality,
                     int(res["diag"][i]), int(res["strand"][i]),
-                    int(mapq[i]), int(res["nmismatch"][i])), "sub",
+                    int(mapq[i]), int(res["nmismatch"][i]), space=space,
+                    snp=config.snp_tolerant), "sub",
                     nh=int(res["n_best"][i]))
                 if npaths > 1 and i in sec_map:
                     out[-1].secondaries = _secondaries(
-                        db, rec, res, i, sec_map[i], int(mapq[i]), npaths)
+                        db, rec, res, i, sec_map[i], int(mapq[i]), npaths,
+                        spaces)
             elif trim_ok:
                 _emit(sam.ungapped_record(
                     db, rec.accession, rec.sequence, rec.quality,
                     int(res["diag"][i]), int(res["strand"][i]),
-                    int(mapq[i]), int(res["trim_nmm"][i]),
-                    q_start=tqs, q_end=tqe), "sub",
+                    int(mapq[i]), int(res["trim_nmm"][i]), space=space,
+                    snp=config.snp_tolerant, q_start=tqs, q_end=tqe), "sub",
                     nh=int(res["n_best"][i]))
             else:
                 _emit(sam.unmapped_record(rec.accession, rec.sequence,
@@ -950,10 +958,11 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
     return out
 
 
-def _secondaries(db, rec, res, i, sec, mapq: int, npaths: int):
+def _secondaries(db, rec, res, i, sec, mapq: int, npaths: int, spaces):
     """Secondary alignments (gsnap -n): further co-optimal candidates,
     flagged 0x100, attached to the primary record; None if there are
-    none."""
+    none. spaces: the mode's (plus, minus) base spaces; as in tpumap,
+    secondaries get the space and no SNP tags."""
     sd, ss, sn = sec
     seen = {(int(res["diag"][i]), int(res["strand"][i]))}
     secs = []
@@ -965,7 +974,8 @@ def _secondaries(db, rec, res, i, sec, mapq: int, npaths: int):
             continue
         seen.add((dg, st))
         s = sam.ungapped_record(db, rec.accession, rec.sequence,
-                                rec.quality, dg, st, mapq, nm)
+                                rec.quality, dg, st, mapq, nm,
+                                space=spaces[st])
         s.flag |= 0x100
         s.tags.append(f"NH:i:{max(1, int(res['n_best'][i]))}")
         s.tags.append(f"HI:i:{len(secs) + 2}")
@@ -996,12 +1006,23 @@ def main(argv=None):
                     help="longest concordant insert (paired end)")
     ap.add_argument("--orientation", default="FR", choices=["FR", "RF", "FF"],
                     help="paired-end orientation")
+    ap.add_argument("--mode", default="standard", choices=list(MODE_SPACES),
+                    help="alignment mode (cmet: bisulfite, atoi/ttoc: RNA "
+                         "editing; the db needs tpumap-cmetindex or "
+                         "tpumap-atoiindex)")
+    ap.add_argument("-v", "--use-snps", dest="use_snps", action="store_true",
+                    help="SNP-tolerant alignment (db must be prepared with "
+                         "tpumap-snpindex)")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("tpumap_torch-gsnap: no CUDA device (pass "
                          "--device cpu to run the plain versions)")
     db = GenomeDB.load(args.dir)
+    if args.use_snps and "snp" not in (db.mode_indexes or {}):
+        sys.stderr.write("error: -v requires a SNP-tolerant database "
+                         "(run tpumap-snpindex first)\n")
+        return 2
     known = None
     if args.use_splicing:
         from tpumap.gsnap.knownsplicing import KnownSplicing
@@ -1013,14 +1034,16 @@ def main(argv=None):
                 IIT.read(args.use_splicing), db)
     index = DeviceIndex.from_host(db, device)
     records = list(read_seqs(args.reads))
-    kw = dict(batch_size=args.batch_size,
+    kw = dict(config=AlignConfig(mode=args.mode,
+                                 snp_tolerant=args.use_snps),
+              batch_size=args.batch_size,
               novelsplicing=bool(args.novelsplicing),
               max_intron=args.max_intron, known=known)
     sys.stdout.write(sam.header(db, " ".join(argv or sys.argv)))
     if args.mates is None:
         for r in align_records(db, index, records, **kw):
             sys.stdout.write(r.lines())
-        return
+        return 0
     from tpumap_torch.gsnap.paired import align_paired_records
     pairs = list(zip(records, read_seqs(args.mates)))
     for r1, r2 in align_paired_records(db, index, pairs,
@@ -1028,7 +1051,8 @@ def main(argv=None):
                                        orientation=args.orientation, **kw):
         sys.stdout.write(r1.lines())
         sys.stdout.write(r2.lines())
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -1,9 +1,12 @@
-"""Batched GSNAP cascade (port of tpumap/gsnap/engine.py, standard mode).
+"""Batched GSNAP cascade (port of tpumap/gsnap/engine.py).
 
 The whole [B] read batch flows through seed -> verify -> select under
 masks: the ends rung (end k-mers, 8 deduplicated lanes, a 16-base probe
 keeping 3, full verify) for every read, then the prevalent-diagonal rung
 on a fixed-size top-k compaction of the unsolved rows, then end trimming.
+The alignment modes (cmet, atoi, ttoc) seed and verify each strand in
+its reduced base space (ops/mode.py) and take the ends rung without the
+probe; SNP tolerance seeds from the SNP index and verifies ref-OR-alt.
 Row compactions are fixed-size top-k, so one batch is one asynchronous
 chain of launches with no host synchronisation.
 
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from tpumap_torch.ops import dp, pack, pathdp, seed, verify
+from tpumap_torch.ops.mode import MODE_SPACES, map_codes
 from tpumap_torch.ops.u32 import INVALID, MASK32, popcount32, stable_topk, u32
 
 ENDS_K = 8          # unique candidate lanes kept per strand in the ends rung
@@ -30,7 +34,9 @@ class AlignConfig:
     max_occ: int = 32          # per-oligo occurrence cap (overabundance)
     top_k: int = 8             # candidate diagonals per strand
     qinterval: int = 1         # query oligo stride of the prevalent rung
-    mode: str = "standard"     # only standard mode is ported
+    # standard | cmet-stranded | atoi-stranded | ttoc-stranded
+    mode: str = "standard"
+    # seed from the SNP index, count a base matching ref or alt as a match
     snp_tolerant: bool = False
     max_mismatch_frac: float = 0.10   # unaligned if worse
     # N semantics: True = N counts as a mismatch, False = N matches
@@ -50,29 +56,36 @@ def _strand_cols(B: int, K: int, device) -> torch.Tensor:
                      dim=1)
 
 
+def _rc_rows(codes, nmask, lengths):
+    """Reverse-complemented codes and reversed N flags (through the same
+    gather: N -> 0 -> revcomp 3)."""
+    rc_nmask = pack.revcomp_codes(
+        torch.where(nmask, 0, 3).to(torch.uint8), lengths) == 3
+    return pack.revcomp_codes(codes, lengths), rc_nmask
+
+
 def align_batch(index, batch, config: AlignConfig):
     """The prevalent-diagonal rung: per-position seeds, both strands,
     verify of the top_k diagonals per strand, select_best."""
     codes, nmask, lengths = batch["codes"], batch["nmask"], batch["lengths"]
     B = codes.shape[0]
-    rc_codes = pack.revcomp_codes(codes, lengths)
-    # reverse the N flags through the same gather (N -> 0 -> revcomp 3)
-    rc_nmask = pack.revcomp_codes(
-        torch.where(nmask, 0, 3).to(torch.uint8), lengths) == 3
+    rc_codes, rc_nmask = _rc_rows(codes, nmask, lengths)
+    space_fwd, space_rc = MODE_SPACES[config.mode]
+    snp = config.snp_tolerant
 
-    def one_strand(c, m):
-        diags, _counts = seed.seed_reads(index, c, m, lengths,
-                                         max_occ=config.max_occ,
-                                         top_k=config.top_k,
-                                         qinterval=config.qinterval)
+    def one_strand(c, m, space):
+        diags, _counts = seed.seed_reads(
+            index, c, m, lengths, max_occ=config.max_occ,
+            top_k=config.top_k, qinterval=config.qinterval, space=space,
+            index_space="snp" if snp else None)
         nmm = verify.verify_diagonals(
             index, pack.pack_reads(c), pack.pack_reads(m.to(torch.uint8)),
             lengths, diags, config.query_unk_mismatch,
-            config.genome_unk_mismatch)
+            config.genome_unk_mismatch, space=space, snp=snp)
         return diags, nmm
 
-    fdiags, fnmm = one_strand(codes, nmask)
-    rdiags, rnmm = one_strand(rc_codes, rc_nmask)
+    fdiags, fnmm = one_strand(codes, nmask, space_fwd)
+    rdiags, rnmm = one_strand(rc_codes, rc_nmask, space_rc)
     return select_best(torch.cat([fdiags, rdiags], 1),
                        torch.cat([fnmm, rnmm], 1),
                        _strand_cols(B, fdiags.shape[1], codes.device),
@@ -131,14 +144,85 @@ def _end_qpos(index, lengths):
             + [torch.clamp(qlast - j, min=0) for j in range(iv - 1, -1, -1)])
 
 
-def _ends_standard(index, codes, nmask, lengths, config: AlignConfig):
-    """Standard-mode ends rung: end-anchored candidates, no code gathers."""
+def _end_diags(offsets, positions, oligos, qpos, occ: int, ok_rows):
+    """Up to occ positions of each end oligo int64[B, NE] (table
+    offsets/positions) as diagonals at qpos, flattened to [B, NE * occ];
+    INVALID where the oligo is overabundant, the lane empty, the row not
+    ok_rows [B, 1, 1] or the diagonal before the genome start."""
+    B, NE = oligos.shape
+    lane = torch.arange(occ, dtype=torch.int64,
+                        device=oligos.device)[None, None, :]
+    start = seed._take_clip(offsets, oligos)
+    count = seed._take_clip(offsets, oligos + 1) - start
+    pos = seed._take_clip(positions, start[..., None] + lane)
+    ok = (lane < count[..., None]) & (count <= occ)[..., None] & ok_rows
+    qp = qpos[..., None]
+    bad = ~ok | (pos < qp)
+    return torch.where(bad, INVALID, pos - qp).reshape(B, NE * occ)
+
+
+def align_batch_ends(index, batch, config: AlignConfig):
+    """The ends rung: candidates from the end k-mers only, both strands.
+    Standard mode takes the gather-free _ends_standard; the modes take
+    _ends_mode."""
+    codes, nmask, lengths = batch["codes"], batch["nmask"], batch["lengths"]
+    if MODE_SPACES[config.mode] == (None, None):
+        return _ends_standard(index, codes, nmask, lengths, config)
+    return _ends_mode(index, codes, nmask, lengths, config)
+
+
+def _ends_mode(index, codes, nmask, lengths, config: AlignConfig):
+    """The ends rung of the alignment modes (engine.py:183-258): each
+    strand's end oligos rolled from its space-mapped codes (the rc strand
+    from the reverse-complemented read), all ENDS_K lanes verified with
+    no probe, one verify per strand in its space. The N flags do not
+    gate the oligos, and with SNP tolerance the seeds come from the SNP
+    index whatever the space, as in tpumap."""
     B, L = codes.shape
     k = index.k
-    occ = config.max_occ
     dev = codes.device
+    space_fwd, space_rc = MODE_SPACES[config.mode]
+    snp = config.snp_tolerant
+    rc_codes, rc_nmask = _rc_rows(codes, nmask, lengths)
+    qpos = torch.stack(_end_qpos(index, lengths), dim=1).to(torch.int64)
+    long_enough = (lengths >= k)[:, None, None]
+
+    def end_candidates(c, space):
+        c = map_codes(c, space).to(torch.int64)
+        offsets, positions = index.mode_index("snp" if snp else space)
+        o = torch.zeros(qpos.shape, dtype=torch.int64, device=dev)
+        for j in range(k):
+            o = ((o << 2) & MASK32) | torch.gather(
+                c, 1, torch.clamp(qpos + j, max=L - 1))
+        return _dedup_lanes(_end_diags(offsets, positions, o, qpos,
+                                       config.max_occ, long_enough), ENDS_K)
+
+    fcands = end_candidates(codes, space_fwd)
+    rcands = end_candidates(rc_codes, space_rc)
+
+    def strand_nmm(c, m, cands, space):
+        return verify.verify_diagonals(
+            index, pack.pack_reads(c), pack.pack_reads(m.to(torch.uint8)),
+            lengths, cands, config.query_unk_mismatch,
+            config.genome_unk_mismatch, space=space, snp=snp)
+
+    fnmm = strand_nmm(codes, nmask, fcands, space_fwd)
+    rnmm = strand_nmm(rc_codes, rc_nmask, rcands, space_rc)
+    return select_best(torch.cat([fcands, rcands], 1),
+                       torch.cat([fnmm, rnmm], 1),
+                       _strand_cols(B, fcands.shape[1], dev), lengths, config)
+
+
+def _ends_standard(index, codes, nmask, lengths, config: AlignConfig):
+    """Standard-mode ends rung: end-anchored candidates, no code gathers
+    (with SNP tolerance seeded from the SNP index and verified ref-OR-alt;
+    the probe reads the reference genome only)."""
+    B, L = codes.shape
+    k = index.k
+    dev = codes.device
+    offsets, positions = index.mode_index(
+        "snp" if config.snp_tolerant else None)
     fwd_qpos = torch.stack(_end_qpos(index, lengths), dim=1).to(torch.int64)
-    NE = fwd_qpos.shape[1]
     # rolling k-mers over the whole read, then one take at the ends
     acc = torch.zeros((B, L), dtype=torch.int64, device=dev)
     for j in range(k):
@@ -150,21 +234,11 @@ def _ends_standard(index, codes, nmask, lengths, config: AlignConfig):
     rc_oligos = pack.revcomp_kmer(fwd_oligos, k)
     rc_qpos = torch.clamp(lengths.to(torch.int64)[:, None] - k - fwd_qpos,
                           min=0)
-    lane = torch.arange(occ, dtype=torch.int64, device=dev)[None, None, :]
     long_enough = (lengths >= k)[:, None, None]
-
-    def gather_diags(oligos, qpos):
-        start = seed._take_clip(index.offsets, oligos)
-        count = seed._take_clip(index.offsets, oligos + 1) - start
-        pos = seed._take_clip(index.positions, start[..., None] + lane)
-        ok = (lane < count[..., None]) & (count <= occ)[..., None] \
-            & long_enough
-        qp = qpos[..., None]
-        bad = ~ok | (pos < qp)
-        return torch.where(bad, INVALID, pos - qp).reshape(B, NE * occ)
-
-    fcands = _dedup_lanes(gather_diags(fwd_oligos, fwd_qpos), ENDS_K)
-    rcands = _dedup_lanes(gather_diags(rc_oligos, rc_qpos), ENDS_K)
+    fcands, rcands = (
+        _dedup_lanes(_end_diags(offsets, positions, o, q, config.max_occ,
+                                long_enough), ENDS_K)
+        for o, q in ((fwd_oligos, fwd_qpos), (rc_oligos, rc_qpos)))
 
     packed = pack.pack_reads(codes)
     nmask2 = pack.pack_reads(nmask.to(torch.uint8))
@@ -178,7 +252,8 @@ def _ends_standard(index, codes, nmask, lengths, config: AlignConfig):
                              ENDS_VERIFY_K)
     stacked = verify.verify_diagonals(
         index, packed2, nmask22, lengths2, cands2,
-        config.query_unk_mismatch, config.genome_unk_mismatch)
+        config.query_unk_mismatch, config.genome_unk_mismatch,
+        snp=config.snp_tolerant)
     K = cands2.shape[1]
     return select_best(torch.cat([cands2[:B], cands2[B:]], 1),
                        torch.cat([stacked[:B], stacked[B:]], 1),
@@ -207,7 +282,7 @@ def _dedup_lanes(cands: torch.Tensor, keep: int) -> torch.Tensor:
     dup = torch.cat([torch.zeros_like(s[:, :1], dtype=torch.bool),
                      s[:, 1:] == s[:, :-1]], dim=1)
     s = torch.sort(torch.where(dup, INVALID, s), dim=1).values
-    return s[:, :keep]
+    return s[:, :keep].contiguous()      # K1 takes contiguous diagonals
 
 
 def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -224,7 +299,7 @@ def align_batch_cascaded(index, batch, config: AlignConfig,
     codes, nmask, lengths = batch["codes"], batch["nmask"], batch["lengths"]
     B, L = codes.shape
     S = min(stage2_rows, B)
-    res = _ends_standard(index, codes, nmask, lengths, config)
+    res = align_batch_ends(index, batch, config)
 
     unsolved = res["nmismatch"] > solved_nmm
     prio = torch.where(unsolved, res["nmismatch"], -1)
@@ -269,9 +344,17 @@ def _trim_stage(index, codes, nmask, lengths, res, config: AlignConfig,
     sel_p = torch.where(is_rc, pack.revcomp_packed(packed, lengths), packed)
     sel_n = torch.where(is_rc, pack.revcomp_packed(nmask2, lengths,
                                                    complement=False), nmask2)
-    mm = verify.mismatch_mask_single(
-        index, sel_p, sel_n, lengths, res["diag"], L,
-        config.query_unk_mismatch, config.genome_unk_mismatch)
+    space_fwd, space_rc = MODE_SPACES[config.mode]
+
+    def mask(space):
+        return verify.mismatch_mask_single(
+            index, sel_p, sel_n, lengths, res["diag"], L,
+            config.query_unk_mismatch, config.genome_unk_mismatch,
+            space=space, snp=config.snp_tolerant)
+
+    # the modes: one mask per space, each row's by its strand
+    mm = (mask(space_fwd) if space_fwd == space_rc
+          else torch.where(is_rc, mask(space_rc), mask(space_fwd)))
     qs, qe, score, nmm_in = pathdp.trim_ends(mm, lengths)
     out = {"trim_qstart": qs, "trim_qend": qe, "trim_score": score,
            "trim_nmm": nmm_in}

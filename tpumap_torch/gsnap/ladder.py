@@ -121,16 +121,10 @@ def align_batch_full(index, pbatch, config: AlignConfig, L: int,
     counters. Compaction sizes as tpumap's driver passes them. With
     known (a dict of knownsplicing.known_to_device) this is tpumap's
     align_batch_full_known."""
-    _standard_only(config)
     res = align_batch_cascaded_packed(index, pbatch, config, L)
     return narrow_result(refine_full(index, pbatch, res, config, L, scoring,
                                      splicing, salvage, r_chain, r_salv,
                                      r_indel, known=known))
-
-
-def _standard_only(config: AlignConfig) -> None:
-    if config.mode != "standard" or config.snp_tolerant:
-        raise NotImplementedError("only standard, non-SNP mode is ported")
 
 
 def _partners(known, adiag, li, max_intron: int):
@@ -603,7 +597,6 @@ def align_pair_full(index, pbatch, config: AlignConfig, L: int,
     pe_insert and the chosen candidates' pe_cd*, pe_cs*, pe_cn*; no
     cand_* or sec_* keys."""
     from tpumap_torch.gsnap.paired import concordance_device
-    _standard_only(config)
     res = align_batch_cascaded_packed(index, pbatch, config, L)
     out = refine_full(index, pbatch, res, config, L, scoring, splicing,
                       salvage, r_chain, r_salv, r_indel, keep_cands=True,

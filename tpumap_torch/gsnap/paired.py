@@ -14,8 +14,11 @@ chain solve), lets the mate arbitrate ambiguous splice ends, and emits
 the pairs: plain pairs through one native bulk call with every mate
 field computed vectorised, the rest through the Python records.
 
-Transcriptome-guided runs, known indels, device meshes, non-standard
-modes and SNP tolerance raise NotImplementedError.
+The alignment modes and SNP tolerance change the cascade only; as in
+tpumap, the rescue verifies in standard space and the pair emitters
+count NM/MD without the mode's space (a cmet conversion counts as a
+mismatch there, unlike single-end). Transcriptome-guided runs, known
+indels and device meshes raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -132,9 +135,7 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
     mates repaired."""
     unported = {"tr": tr is not None,
                 "known_indels": known_indels is not None,
-                "device_ctx": device_ctx is not None,
-                "mode": config.mode != "standard",
-                "snp_tolerant": config.snp_tolerant}
+                "device_ctx": device_ctx is not None}
     for name, on in unported.items():
         if on:
             raise NotImplementedError(

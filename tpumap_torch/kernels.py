@@ -32,8 +32,8 @@ _SCAN_ARGS = [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
 # (tensors are passed as pointers)
 _ENTRY = {
     "verify_diagonals": ("tt_verify_diagonals",
-                         [_P, _L, _P, _L, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _P]),
+                         [_P, _L, _P, _L, _P, _L, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _P]),
     "banded_align": ("tt_banded_align",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _I, _P, _P, _P, _P]),

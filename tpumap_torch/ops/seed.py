@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from tpumap_torch.ops.mode import map_codes
 from tpumap_torch.ops.u32 import INVALID, MASK32, stable_topk, u32
 
 
@@ -73,13 +74,20 @@ def prevalent_diagonals(diags: torch.Tensor, top_k: int):
 
 
 def seed_reads(index, codes, nmask, lengths, max_occ: int = 32,
-               top_k: int = 8, qinterval: int = 1):
-    """Full seed stage: codes -> top-k candidate univdiagonals per read."""
+               top_k: int = 8, qinterval: int = 1, space=None,
+               index_space=None):
+    """Full seed stage: codes -> top-k candidate univdiagonals per read.
+    With `space` the codes are mapped to the reduced base space and the
+    space's table is used; index_space picks the table without mapping
+    the codes ("snp": the SNP index). The N mask stays as it is."""
+    codes = map_codes(codes, space)
+    offsets, positions = index.mode_index(
+        index_space if index_space is not None else space)
     oligos, valid = query_oligos(codes, nmask, lengths, index.k)
     NQ = oligos.shape[1]
     qpos = torch.arange(0, NQ, qinterval, dtype=torch.int64,
                         device=codes.device)
-    diags = lookup_diagonals(index.offsets, index.positions,
+    diags = lookup_diagonals(offsets, positions,
                              oligos[:, ::qinterval], valid[:, ::qinterval],
                              qpos, max_occ)
     return prevalent_diagonals(diags.reshape(diags.shape[0], -1), top_k)

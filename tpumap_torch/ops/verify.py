@@ -1,9 +1,14 @@
-"""Mismatch verification (port of tpumap/ops/verify.py, standard path).
+"""Mismatch verification (port of tpumap/ops/verify.py).
 
 XOR/popcount comparison of 2-bit packed reads against genome windows at
 candidate univdiagonals. `verify_diagonals` is the wrapper of the CUDA
 kernel K1 (csrc/verify.cu); `verify_diagonals_plain` beside it is the
 plain version, and the one that runs for CPU tensors.
+
+With `space` (ops/mode.py) the read and genome words are both
+transformed to the reduced base space first; with `snp` and an index
+that has an alternate genome, a base counts only if it mismatches both
+the reference and the alt window, under the same N masks.
 
 Gathers clamp their indices, as JAX's mode="clip" takes do (a faulting
 index on CUDA would kill the context). Window values are int64 in
@@ -15,6 +20,7 @@ import torch
 
 from tpumap_torch import kernels
 from tpumap_torch.index.device import SAFE_PAD_WORDS
+from tpumap_torch.ops.mode import SPACE_CODES, transform_packed
 from tpumap_torch.ops.u32 import INVALID, MASK32, popcount32, shl32, u32
 
 LOW_PAIRS = 0x55555555
@@ -126,60 +132,76 @@ def mismatch_base_mask(mm_words: torch.Tensor, L: int) -> torch.Tensor:
     return bits.reshape(*mm_words.shape[:-1], W * 16)[..., :L].to(torch.bool)
 
 
+def _mismatch_windows(index, read_words, read_nmask2, starts, W: int,
+                      space, snp: bool, query_unk: bool, genome_unk: bool):
+    """Mismatch words of read words (int64, already broadcast against
+    the windows) against the genome windows at starts: ref-OR-alt with
+    snp and an alternate genome, both sides in `space`."""
+    gwin = extract_packed_window(index.genome_packed, starts, W)
+    gn2 = (extract_bit_window(index.genome_nmask, starts, W)
+           if index.genome_has_n else None)
+    read_words = transform_packed(read_words, space)
+    mm = mismatch_words(read_words, transform_packed(gwin, space),
+                        read_nmask2, gn2, query_unk, genome_unk)
+    if snp and index.genomealt_packed is not None:
+        galt = extract_packed_window(index.genomealt_packed, starts, W)
+        mm = mm & mismatch_words(read_words, transform_packed(galt, space),
+                                 read_nmask2, gn2, query_unk, genome_unk)
+    return mm
+
+
 def mismatch_mask_single(index, read_packed, read_nmask2, lengths, diag,
                          L: int, query_unk: bool = True,
-                         genome_unk: bool = True) -> torch.Tensor:
+                         genome_unk: bool = True, *, space=None,
+                         snp: bool = False) -> torch.Tensor:
     """Per-base mismatch mask bool[B, L] of each read (int32 packed words,
     aligned orientation) against one diagonal; INVALID rows are all
     mismatch."""
     B, W = read_packed.shape
     valid = diag != INVALID
     starts = torch.where(valid, diag, torch.zeros_like(diag))
-    gwin = extract_packed_window(index.genome_packed, starts, W)
-    gn2 = (extract_bit_window(index.genome_nmask, starts, W)
-           if index.genome_has_n else None)
-    mm = mismatch_words(u32(read_packed), gwin, u32(read_nmask2), gn2,
-                        query_unk=query_unk, genome_unk=genome_unk)
+    mm = _mismatch_windows(index, u32(read_packed), u32(read_nmask2), starts,
+                           W, space, snp, query_unk, genome_unk)
     mask = mismatch_base_mask(mm, L)
     return torch.where(valid[:, None], mask, torch.ones_like(mask))
 
 
 def verify_diagonals_plain(index, read_packed, read_nmask2, lengths,
                            diagonals, query_unk: bool = True,
-                           genome_unk: bool = True) -> torch.Tensor:
+                           genome_unk: bool = True, *, space=None,
+                           snp: bool = False) -> torch.Tensor:
     """Mismatch counts int32[B, C] of each read against each candidate
     univdiagonal (int64[B, C]); INVALID lanes return the read length."""
     B, W = read_packed.shape
     valid = diagonals != INVALID
     starts = torch.where(valid, diagonals, torch.zeros_like(diagonals))
-    gwin = extract_packed_window(index.genome_packed, starts, W)
-    gn2 = (extract_bit_window(index.genome_nmask, starts, W)
-           if index.genome_has_n else None)
-    mm = mismatch_words(u32(read_packed)[:, None, :], gwin,
-                        u32(read_nmask2)[:, None, :], gn2,
-                        query_unk=query_unk, genome_unk=genome_unk)
+    mm = _mismatch_windows(index, u32(read_packed)[:, None, :],
+                           u32(read_nmask2)[:, None, :], starts, W, space,
+                           snp, query_unk, genome_unk)
     counts = count_mismatches(mm, length_mask_words(lengths, W)[:, None, :])
     return torch.where(valid, counts,
                        lengths[:, None].to(torch.int32).expand_as(counts))
 
 
 def verify_diagonals(index, read_packed, read_nmask2, lengths, diagonals,
-                     query_unk: bool = True,
-                     genome_unk: bool = True) -> torch.Tensor:
+                     query_unk: bool = True, genome_unk: bool = True, *,
+                     space=None, snp: bool = False) -> torch.Tensor:
     """verify_diagonals_plain for CPU tensors; the K1 kernel for CUDA."""
     if read_packed.device.type == "cpu":
         return verify_diagonals_plain(index, read_packed, read_nmask2,
                                       lengths, diagonals, query_unk,
-                                      genome_unk)
+                                      genome_unk, space=space, snp=snp)
     B, W = read_packed.shape
     C = diagonals.shape[1]
+    galt = index.genomealt_packed if snp else None
     kernels.check_args("verify_diagonals", read_packed.device,
                        (index.genome_packed, torch.int32, None),
                        (index.genome_nmask, torch.int32, None),
                        (read_packed, torch.int32, (B, W)),
                        (read_nmask2, torch.int32, (B, W)),
                        (lengths, torch.int32, (B,)),
-                       (diagonals, torch.int64, (B, C)))
+                       (diagonals, torch.int64, (B, C)),
+                       *(() if galt is None else ((galt, torch.int32, None),)))
     out = torch.empty((B, C), dtype=torch.int32, device=read_packed.device)
     if out.numel() == 0:
         return out
@@ -187,6 +209,8 @@ def verify_diagonals(index, read_packed, read_nmask2, lengths, diagonals,
         "verify_diagonals", read_packed.device,
         index.genome_packed, index.genome_packed.shape[0],
         index.genome_nmask, index.genome_nmask.shape[0],
+        galt, 0 if galt is None else galt.shape[0],
         read_packed, read_nmask2, lengths, diagonals, B, W, C,
-        int(index.genome_has_n), int(query_unk), int(genome_unk), out)
+        int(index.genome_has_n), int(query_unk), int(genome_unk),
+        SPACE_CODES[space], out)
     return out
