@@ -8,13 +8,18 @@ size, paired-end DNA at the bench's PE size, paired RNA through the
 mate repair, and bisulfite (cmet) and SNP-tolerant DNA at the DNA size
 — and fails (exit code != 0) if any phase fails:
 
-1. card name and power limit; build the CUDA kernels from csrc/;
+1. card name and power limit; build the CUDA kernels from csrc/ (each
+   K5 instance's ptxas registers, stack and spills; K5 must have no
+   stack frame and no spills); the port's native host library must load;
 2. the chr21-scale bench genome (46.7 Mbp, tools/bench_data.py) and
    its k=14, interval-3 index, uploaded to the card;
 3. every kernel at its main-path shapes against its plain PyTorch
-   version on the same CUDA tensors: exact equality, both median times
-   (with the mate rescue's K1 at [512, 1000], K5 with known-site masks
-   at R = 8,192 and 14 lanes, K6a at the mate repair's W = 1,024);
+   version on the same CUDA tensors: exact equality, the wrapper's and
+   the plain version's median time per call, the kernel's device time
+   per launch, and the bound of the work (the larger of its bytes over
+   the HBM rate and its integer operations over the int32 ALU rate; with the
+   mate rescue's K1 at [512, 1000], K5 with known-site masks at R =
+   8,192 and 14 lanes, K6a at the mate repair's W = 1,024);
 4. DNA end to end: one warm-up call, then align_records over all 50,000
    100-bp reads at batch size 32,768 with launch counters reset just
    before; reads/s, aligned fraction and agreement with the generator's
@@ -68,10 +73,15 @@ each base space at the mode rung's [32,768, 8] x 8, ref-OR-alt at the
 SNP standard path's [65,536, 8] x 3, and cmet with SNPs at [32,768, 8]
 x 8.
 
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}. JAX is blocked: the port must run
-without it. Bench data and the index go under .bench_data/ in the
-checkout. Usage: python3 chip_smoke.py
+Every profile waits until the timed runs and the GPU half of 11 are
+over: each kernel row's device time per launch (torch.profiler), and one
+batch of phases 4-7, 9 and 10 (its device time and K5's part against the
+timed run's wall time per batch). After the runs: each kernel's launches
+per batch on each path (from kernels.LAUNCHES). The line before the
+last is the kernel table as JSON; the last line is {"ok": true,
+"device": {...}}. JAX and tpumap are blocked: the port must run without
+either. Bench data and the index go under .bench_data/ in the checkout.
+Usage: python3 chip_smoke.py
 """
 import io
 import json
@@ -81,8 +91,10 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 sys.modules["jax"] = None          # any JAX import now raises
+sys.modules["tpumap"] = None       # and any import of tpumap or tpumap.*
 
 import numpy as np
 import torch
@@ -98,19 +110,31 @@ N_CPU_PE = 2048
 N_REPAIR = 512          # paired RNA pairs through the mate repair
 SNP_EVERY = 300         # bp per SNP of the SNP index
 CMET = "cmet-stranded"
+INVALID = 0xFFFFFFFF
+# the H100 SXM's peak rates for the bound of a kernel's work: HBM3 at
+# 3.35 TB/s (NVIDIA's H100 data sheet) and int32 ALU operations at 132
+# SMs x 64 INT32 lanes x 1.98 GHz boost (NVIDIA's Hopper white paper)
+HBM_BPS = 3.35e12
+INT_OPS = 132 * 64 * 1.98e9
 DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
+# each kernel's source, the TPU function it replaces, and the name of
+# its __global__ function (for its device time in the profile)
 SOURCES = {
     "verify_diagonals": ("tpumap_torch/csrc/verify.cu",
-                         "tools/pallas_verify_experiment.py:100"),
-    "banded_align": ("tpumap_torch/csrc/dp.cu", "tpumap/ops/dp.py:53"),
-    "traceback": ("tpumap_torch/csrc/traceback.cu", "tpumap/ops/dp.py:154"),
-    "chain_dp": ("tpumap_torch/csrc/chain.cu", "tpumap/ops/pathdp.py:217"),
+                         "tools/pallas_verify_experiment.py:100",
+                         "verify_kernel"),
+    "banded_align": ("tpumap_torch/csrc/dp.cu", "tpumap/ops/dp.py:53",
+                     "banded_kernel"),
+    "traceback": ("tpumap_torch/csrc/traceback.cu", "tpumap/ops/dp.py:154",
+                  "traceback_kernel"),
+    "chain_dp": ("tpumap_torch/csrc/chain.cu", "tpumap/ops/pathdp.py:110",
+                 "chain_kernel"),
     "scan_fragment": ("tpumap_torch/csrc/localscan.cu",
-                      "tpumap/ops/localscan.py:68"),
+                      "tpumap/ops/localscan.py:68", "localscan_kernel"),
     "scan_exact_sites": ("tpumap_torch/csrc/localscan.cu",
-                         "tpumap/ops/localscan.py:118"),
+                         "tpumap/ops/localscan.py:118", "localscan_kernel"),
     "scan_fragment_runs": ("tpumap_torch/csrc/localscan.cu",
-                           "tpumap/ops/localscan.py:148"),
+                           "tpumap/ops/localscan.py:148", "localscan_kernel"),
 }
 
 
@@ -118,20 +142,20 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of fn() over reps runs, timed with CUDA
-    events after one warm-up run."""
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+def ptxas_report(build_log: str) -> dict:
+    """{kernel instance: (registers, stack bytes, spill store bytes, spill
+    load bytes)} from nvcc's -Xptxas -v output."""
+    out, cur = {}, None
+    for ln in build_log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = kernel_name(ln.split("'")[1])
+            out[cur] = [0, 0, 0, 0]
+        elif cur and "bytes stack frame" in ln:
+            n = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out[cur][1:] = n[:3]
+        elif cur and "Used" in ln and "registers" in ln:
+            out[cur][0] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def kernel_name(mangled: str) -> str:
@@ -154,9 +178,129 @@ def max_abs_err(got, want) -> float:
     return float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def tensor_bytes(x) -> int:
+    if isinstance(x, dict):
+        return sum(tensor_bytes(v) for v in x.values())
+    if isinstance(x, (tuple, list)):
+        return sum(tensor_bytes(v) for v in x)
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return 0
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median milliseconds of fn() over reps runs, timed with CUDA
+    events after one warm-up run: what a caller pays per call, the
+    wrapper's host work included."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def profile_ms(fn, reps: int = 1) -> dict:
+    """{kernel name: device ms} over reps runs of fn() under
+    torch.profiler: each device-side event (kernels, copies, memsets)
+    counted once, with its number of launches under ("n", name)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3
+            out[("n", e.key)] = out.get(("n", e.key), 0) + e.count
+    return out
+
+
+def device_ms(fn, reps: int, symbol: str):
+    """Device milliseconds per launch of the kernels whose name holds
+    symbol, over reps runs of fn() after one warm-up run (their device
+    time over the launches the profile holds); None if three profiles in
+    a row hold none (the profiler drops a kernel's events at times)."""
+    fn()
+    for _ in range(3):
+        prof = profile_ms(fn, reps)
+        names = [k for k in prof if isinstance(k, str) and symbol in k]
+        n = sum(prof[("n", k)] for k in names)
+        if n:
+            return sum(prof[k] for k in names) / n
+    return None
+
+
+def measure(name, shape, fn, plain_fn, reps, plain_reps, in_bytes, nops):
+    """One kernel row: the kernel against its plain version on the same
+    inputs (max |difference|); the median time per call of the kernel's
+    wrapper ("ms") and of the plain version ("plain_ms"), CUDA events
+    around each call, host work included; and the bound of the work: the
+    larger of the bytes it must move (in_bytes read once, its outputs
+    written once) over HBM_BPS and its nops over INT_OPS. The kernel's
+    device time per launch ("device_ms") comes later, from
+    profile_rows, with every other profile after the timed runs."""
+    got = fn()
+    err = max_abs_err(got, plain_fn())
+    t_bytes = (in_bytes + tensor_bytes(got)) / HBM_BPS * 1e3
+    t_ops = nops / INT_OPS * 1e3
+    return {"name": name, "shape": shape, "max_abs_err": err,
+            "ms": cuda_ms(fn, reps),
+            "plain_ms": cuda_ms(plain_fn, plain_reps),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "fn": fn, "reps": reps}
+
+
+def verify_work(index, packed, diags, snp=False):
+    """K1's bytes read (reads, N masks, lengths, diagonals, and each valid
+    lane's genome window, N-bit window and, with SNPs, alt window) and
+    its operations (~8 per lane word: align, xor, fold, mask, popcount,
+    add)."""
+    n, W = packed.shape
+    lanes = int((diags != INVALID).sum())
+    win = lanes * (W + 1) * 4 * (2 if snp else 1)
+    if index.genome_has_n:
+        win += lanes * (W // 2 + 1) * 4
+    return tensor_bytes((packed, packed, diags)) + 4 * n + win, lanes * W * 8
+
+
+def chain_work(inp, lengths):
+    """K5's bytes read (all of chain_inputs' tensors and the lengths) and
+    the operations this run's rows need: per active step, ~6 per
+    transition between valid lanes (the jump sum, its compare, the best
+    and its argument, the transition's select and bonus) and ~6 per
+    valid lane (extend/open/jump choice, H, the row maximum)."""
+    R, K, L = inp["s"].shape
+    valid = (inp["diags"] != INVALID).sum(1)
+    steps = torch.clamp(lengths, 0, L).to(torch.int64)
+    ops = 6 * int((steps * valid * (valid + 1)).sum())
+    return tensor_bytes(inp) + tensor_bytes(lengths), ops
+
+
+def scan_work(ws, frag, flen, window, per_pos):
+    """K6's bytes read (each active row's window words, its start,
+    fragment and length) and per_pos operations per window position of
+    each active row (rows with an empty fragment scan nothing)."""
+    R = ws.shape[0]
+    active = R if flen is None else int((flen > 0).sum())
+    return (active * (window // 16 + 2) * 4
+            + tensor_bytes((ws, frag, flen))), active * window * per_pos
+
+
 def load_index(smi):
     from tools import bench_data
-    from tpumap.index.build import GenomeDB, build_db
+    from tpumap_torch.index.build import GenomeDB, build_db
     bench_data.ROOT = ROOT / ".bench_data"
     t0 = time.perf_counter()
     gfa, rfa = bench_data.ensure_files()
@@ -176,7 +320,7 @@ def load_mode_index(bench_data, db, smi):
     under .bench_data/db_k14_modes/); returns (db, snp coords, alts).
     The SNPs (one per SNP_EVERY bp, none on the planted GT/AG intron
     bases) come from a seeded generator, each alt = ref + 1..3 mod 4."""
-    from tpumap.index.build import GenomeDB
+    from tpumap_torch.index.build import GenomeDB
     from tpumap_torch.ops.mode import add_mode_index
     rng = np.random.default_rng(300)
     glen = bench_data.GENOME_LEN
@@ -206,7 +350,7 @@ def snp_reads(bench_data, coords, alts):
     """The DNA reads of bench_data.read_plan() from the genome with the
     alt alleles in, substitutions and strand flip after, as
     _write_dna_reads makes them; and the alt alleles left in them."""
-    from tpumap.io.fasta import Record
+    from tpumap_torch.io.fasta import Record
     codes = bench_data.genome_codes()
     codes[coords] = alts
     starts, strands, subs = bench_data.read_plan()
@@ -266,19 +410,18 @@ def mode_kernel_rows(mindex, rng, reads_at):
         kw = dict(space=space, snp=snp)
         label = {(None, True): "snp", ("ct", True): "ct + snp"}.get(
             (space, snp), space)
-        rows.append(("verify_diagonals", f"[{n}, 8] x {C} ({label})",
-                     max_abs_err(verify.verify_diagonals(*args, **kw),
-                                 verify.verify_diagonals_plain(*args, **kw)),
-                     cuda_ms(lambda: verify.verify_diagonals(*args, **kw), 50),
-                     cuda_ms(lambda: verify.verify_diagonals_plain(*args, **kw),
-                             10)))
+        rows.append(measure(
+            "verify_diagonals", f"[{n}, 8] x {C} ({label})",
+            partial(verify.verify_diagonals, *args, **kw),
+            partial(verify.verify_diagonals_plain, *args, **kw), 50, 10,
+            *verify_work(mindex, packed, args[4], snp)))
     return rows
 
 
 def kernel_phase(index, gpu, known, mindex):
     """Each kernel at its main-path shapes vs its plain version."""
-    from tpumap.gsnap.params import INDEL_BAND, INDEL_MARGIN
     from tpumap_torch.gsnap.engine import ENDS_VERIFY_K
+    from tpumap_torch.gsnap.params import INDEL_BAND, INDEL_MARGIN
     from tpumap_torch.ops import dp, pack, verify
 
     rng = np.random.default_rng(2024)
@@ -307,13 +450,11 @@ def kernel_phase(index, gpu, known, mindex):
         lengths = torch.full((n,), 100, dtype=torch.int32, device=dev)
         dt = torch.from_numpy(diags).to(dev)
         args = (index, packed, nmask, lengths, dt, False, True)
-        got = verify.verify_diagonals(*args)
-        want = verify.verify_diagonals_plain(*args)
-        rows.append(("verify_diagonals", f"[{n}, 8] x {C}",
-                     max_abs_err(got, want),
-                     cuda_ms(lambda: verify.verify_diagonals(*args), 50),
-                     cuda_ms(lambda: verify.verify_diagonals_plain(*args),
-                             10)))
+        rows.append(measure(
+            "verify_diagonals", f"[{n}, 8] x {C}",
+            partial(verify.verify_diagonals, *args),
+            partial(verify.verify_diagonals_plain, *args), 50, 10,
+            *verify_work(index, packed, dt)))
 
     R = 2048
     d, codes = reads_at(R)
@@ -332,31 +473,65 @@ def kernel_phase(index, gpu, known, mindex):
                                          128 + INDEL_BAND + INDEL_MARGIN)
     glens = torch.full((R,), gcodes.shape[1], dtype=torch.int32, device=dev)
     bargs = (ct, li, gcodes, glens, INDEL_BAND)
-    got = dp.banded_align(*bargs)
-    want = dp.banded_align_plain(*bargs)
-    rows.append(("banded_align", f"R={R}, Lq=128, Lg={gcodes.shape[1]}, "
-                 f"band={INDEL_BAND}", max_abs_err(got, want),
-                 cuda_ms(lambda: dp.banded_align(*bargs), 20),
-                 cuda_ms(lambda: dp.banded_align_plain(*bargs), 3)))
+    # ~12 int ops per cell of the band: the affine-gap recurrences (two
+    # gap maxima, the diagonal score, the cell maximum) and the
+    # direction bits
+    W = 2 * INDEL_BAND + 1
+    rows.append(measure(
+        "banded_align", f"R={R}, Lq=128, Lg={gcodes.shape[1]}, "
+        f"band={INDEL_BAND}", partial(dp.banded_align, *bargs),
+        partial(dp.banded_align_plain, *bargs), 20, 3,
+        tensor_bytes(bargs[:4]), int(li.sum()) * W * 12))
 
+    got = dp.banded_align(*bargs)
     Rt = 256
     targs = (got["dirs"][:Rt].contiguous(), li[:Rt],
              got["end_k"][:Rt].contiguous(), INDEL_BAND)
-    tb = dp.traceback(*targs)
-    tbp = dp.traceback_plain(*targs)
-    rows.append(("traceback", f"R={Rt}, S=192, 12 runs",
-                 max_abs_err(tb, tbp),
-                 cuda_ms(lambda: dp.traceback(*targs), 50),
-                 cuda_ms(lambda: dp.traceback_plain(*targs), 3)))
+    S = dp.traceback(*targs)[0].shape[1]
+    # the walk reads one direction byte per step of each row's S steps
+    # (~6 int ops a step: decode, move, run-length) and its row's length
+    # and end
+    rows.append(measure(
+        "traceback", f"R={Rt}, S={S}, 12 runs",
+        partial(dp.traceback, *targs), partial(dp.traceback_plain, *targs),
+        50, 3, Rt * S + tensor_bytes(targs[1:3]), Rt * S * 6))
     rows += rna_kernel_rows(index, rng, reads_at)
     rows += pe_known_kernel_rows(index, rng, reads_at, known)
     rows += mode_kernel_rows(mindex, rng, reads_at)
-    for name, shape, err, ms, plain_ms in rows:
-        log(f"kernel {name:17s} {shape:34s} max_abs_err={err:g} "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{gpu}]")
-        if err != 0:
-            raise AssertionError(f"{name} disagrees with its plain version")
+    for r in rows:
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{r['name']} disagrees with its plain "
+                                 f"version at {r['shape']}")
     return rows
+
+
+def profile_rows(rows, gpu):
+    """Each kernel row's device time per launch, then its log line."""
+    for r in rows:
+        dev = r["device_ms"] = device_ms(r.pop("fn"), r.pop("reps"),
+                                         SOURCES[r["name"]][2])
+        log(f"kernel {r['name']:17s} {r['shape']:34s} "
+            f"max_abs_err={r['max_abs_err']:g} kernel {r['ms']:.4f} ms "
+            f"per call ("
+            + ("device time not measured" if dev is None else
+               f"{dev:.4f} on the device") +
+            f")  plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), share of bound "
+            f"{r['bound_ms'] / (dev or r['ms']):.3f}  [{gpu}]")
+
+
+def profile_batch(name, one_batch, wall, smi):
+    """The device time of one batch (every kernel, copy and memset) and
+    K5's part, against the timed run's wall time per batch."""
+    prof = profile_ms(one_batch)
+    dev = sum(v for k, v in prof.items() if isinstance(k, str))
+    k5 = sum(v for k, v in prof.items()
+             if isinstance(k, str) and "chain_kernel" in k)
+    log(f"{name} device time of one batch "
+        + (f"{dev:.3f} ms (K5 {k5:.3f}) against {wall:.1f} ms of wall per "
+           f"batch in the timed run: idle {1 - dev / wall:.3f}" if dev else
+           "not measured (the profile holds no device events)")
+        + f" [{smi}]")
 
 
 def rna_kernel_rows(index, rng, reads_at):
@@ -391,11 +566,11 @@ def rna_kernel_rows(index, rng, reads_at):
                                   torch.zeros(codes.shape, dtype=torch.bool,
                                               device=dev),
                                   lengths, ints(cands), pathdp.PathScoring())
-        got = pathdp.chain_dp(inp, lengths)
-        want = pathdp.chain_dp_plain(inp, lengths)
-        rows.append(("chain_dp", f"R={R}, K=8, L=128", max_abs_err(got, want),
-                     cuda_ms(lambda: pathdp.chain_dp(inp, lengths), 20),
-                     cuda_ms(lambda: pathdp.chain_dp_plain(inp, lengths), 2)))
+        rows.append(measure(
+            "chain_dp", f"R={R}, K=8, L=128",
+            partial(pathdp.chain_dp, inp, lengths),
+            partial(pathdp.chain_dp_plain, inp, lengths), 20, 2,
+            *chain_work(inp, lengths)))
 
     W = 65536
 
@@ -407,31 +582,33 @@ def rna_kernel_rows(index, rng, reads_at):
         flen = rng.integers(0, F + 1, R).astype(np.int32)
         return ints(ws), frag.contiguous(), ints(flen)
 
+    # int ops per window position: ~8 for the fragment's mismatch count
+    # and its top-k (align two words, xor, fold, mask, popcount, compare),
+    # ~6 for an exact match and for a run length (xor, fold, bit scan)
     g = index.genome_packed
     ws, frag, flen = scan_inputs(2048, 16)
     args = (g, ws, frag, flen, W, 16, 4)
-    rows.append(("scan_fragment", "R=2048, W=65536, F=16, top 4",
-                 max_abs_err(localscan.scan_fragment(*args),
-                             localscan.scan_fragment_plain(*args)),
-                 cuda_ms(lambda: localscan.scan_fragment(*args), 20),
-                 cuda_ms(lambda: localscan.scan_fragment_plain(*args), 2)))
+    rows.append(measure(
+        "scan_fragment", "R=2048, W=65536, F=16, top 4",
+        partial(localscan.scan_fragment, *args),
+        partial(localscan.scan_fragment_plain, *args), 20, 2,
+        *scan_work(ws, frag, flen, W, 8)))
     ws, frag, flen = scan_inputs(1536, 10)
     args = (g, ws, frag, flen, W, 10, 8)
-    rows.append(("scan_exact_sites", "R=1536, W=65536, F=10, top 8",
-                 max_abs_err(localscan.scan_exact_sites(*args),
-                             localscan.scan_exact_sites_plain(*args)),
-                 cuda_ms(lambda: localscan.scan_exact_sites(*args), 20),
-                 cuda_ms(lambda: localscan.scan_exact_sites_plain(*args), 2)))
+    rows.append(measure(
+        "scan_exact_sites", "R=1536, W=65536, F=10, top 8",
+        partial(localscan.scan_exact_sites, *args),
+        partial(localscan.scan_exact_sites_plain, *args), 20, 2,
+        *scan_work(ws, frag, flen, W, 6)))
     ws, frag, _ = scan_inputs(2048, 16)
     for suffix in (True, False):
         args = (g, ws, frag, W, 8, suffix)
-        rows.append((
+        rows.append(measure(
             "scan_fragment_runs",
             f"R=2048, W=65536, top 8, {'suffix' if suffix else 'prefix'}",
-            max_abs_err(localscan.scan_fragment_runs(*args),
-                        localscan.scan_fragment_runs_plain(*args)),
-            cuda_ms(lambda: localscan.scan_fragment_runs(*args), 20),
-            cuda_ms(lambda: localscan.scan_fragment_runs_plain(*args), 2)))
+            partial(localscan.scan_fragment_runs, *args),
+            partial(localscan.scan_fragment_runs_plain, *args), 20, 2,
+            *scan_work(ws, frag, None, W, 6)))
     return rows
 
 
@@ -459,11 +636,11 @@ def pe_known_kernel_rows(index, rng, reads_at, known):
     lengths = torch.full((R,), 100, dtype=torch.int32, device=dev)
     diags = (ints(base)[:, None] + torch.arange(W, device=dev)) & 0xFFFFFFFF
     args = (index, packed, torch.zeros_like(packed), lengths, diags)
-    rows.append(("verify_diagonals", f"[{R}, 8] x {W} (rescue)",
-                 max_abs_err(verify.verify_diagonals(*args),
-                             verify.verify_diagonals_plain(*args)),
-                 cuda_ms(lambda: verify.verify_diagonals(*args), 50),
-                 cuda_ms(lambda: verify.verify_diagonals_plain(*args), 10)))
+    rows.append(measure(
+        "verify_diagonals", f"[{R}, 8] x {W} (rescue)",
+        partial(verify.verify_diagonals, *args),
+        partial(verify.verify_diagonals_plain, *args), 50, 10,
+        *verify_work(index, packed, diags)))
 
     R, K, L = 8192, 14, 128
     jn = np.asarray(known.junctions, np.int64)
@@ -486,11 +663,11 @@ def pe_known_kernel_rows(index, rng, reads_at, known):
                               known=known_to_device(known, dev))
     if not bool((inp["known"] != 0).flatten(1).any(dim=1).all()):
         raise AssertionError("K5 known rows without a site bit")
-    rows.append(("chain_dp", f"R={R}, K={K}, L={L}, known sites",
-                 max_abs_err(pathdp.chain_dp(inp, lengths),
-                             pathdp.chain_dp_plain(inp, lengths)),
-                 cuda_ms(lambda: pathdp.chain_dp(inp, lengths), 20),
-                 cuda_ms(lambda: pathdp.chain_dp_plain(inp, lengths), 2)))
+    rows.append(measure(
+        "chain_dp", f"R={R}, K={K}, L={L}, known sites",
+        partial(pathdp.chain_dp, inp, lengths),
+        partial(pathdp.chain_dp_plain, inp, lengths), 20, 2,
+        *chain_work(inp, lengths)))
 
     R, W = 512, 1024
     ws = rng.integers(0, glen, R).astype(np.int64)
@@ -499,11 +676,11 @@ def pe_known_kernel_rows(index, rng, reads_at, known):
     frag = verify.extract_codes_window(index.genome_packed, ints(at), 16)
     flen = ints(np.where(rng.random(R) < 0.9, 16, 0).astype(np.int32))
     args = (index.genome_packed, ints(ws), frag.contiguous(), flen, W, 16, 4)
-    rows.append(("scan_fragment", f"R={R}, W={W}, F=16, top 4 (repair)",
-                 max_abs_err(localscan.scan_fragment(*args),
-                             localscan.scan_fragment_plain(*args)),
-                 cuda_ms(lambda: localscan.scan_fragment(*args), 20),
-                 cuda_ms(lambda: localscan.scan_fragment_plain(*args), 5)))
+    rows.append(measure(
+        "scan_fragment", f"R={R}, W={W}, F=16, top 4 (repair)",
+        partial(localscan.scan_fragment, *args),
+        partial(localscan.scan_fragment_plain, *args), 20, 5,
+        *scan_work(args[1], args[2], flen, W, 8)))
     return rows
 
 
@@ -511,7 +688,7 @@ def gene_known(bench_data):
     """The bench genes' junctions as a KnownSplicing: donor = exon start +
     exon length, acceptor = the next exon's start, sense +1 (the bench
     genome is one chromosome, so these are univcoords)."""
-    from tpumap.gsnap.knownsplicing import KnownSplicing
+    from tpumap_torch.gsnap.knownsplicing import KnownSplicing
     don, acc = [], []
     for exons in bench_data.gene_table():
         for (s0, n0), (s1, _n1) in zip(exons, exons[1:]):
@@ -524,8 +701,8 @@ def repair_pairs(bench_data, db, n):
     """n FR pairs from the bench genes whose third intron is 200 or
     1,000 bp: mate 1 is 100 bp forward inside the third exon, mate 2 the
     reverse complement of a 100-bp read across that exon's junction."""
-    from tpumap.io.fasta import Record
-    from tpumap.utils import dna
+    from tpumap_torch.io.fasta import Record
+    from tpumap_torch.utils import dna
     rng = np.random.default_rng(17)
     genes = [g for g in bench_data.gene_table()
              if g[3][0] - (g[2][0] + g[2][1]) in (200, 1000)]
@@ -608,21 +785,28 @@ def main():
     gpu = torch.cuda.get_device_name(0)
     log(smi)
 
-    from tpumap.io.fasta import Record, read_fasta
-    from tpumap_torch import kernels
+    from tpumap_torch import kernels, native
     from tpumap_torch.gsnap.driver import align_records
     from tpumap_torch.gsnap.engine import AlignConfig
     from tpumap_torch.gsnap.paired import align_paired_records
     from tpumap_torch.index.device import DeviceIndex
+    from tpumap_torch.io.fasta import Record, read_fasta
 
     t0 = time.perf_counter()
     kernels.build()
     log(f"kernel build {time.perf_counter() - t0:.1f} s [{smi}]")
-    for ln in kernels.build_log.splitlines():      # ptxas -v per kernel
-        if "entry function" in ln:
-            log("  " + kernel_name(ln.split("'")[1]))
-        elif "registers" in ln or "spill" in ln:
-            log(ln)
+    ptxas = ptxas_report(kernels.build_log)
+    for name, (regs, stack, st, ld) in ptxas.items():
+        log(f"  ptxas {name}: {regs} registers, {stack} bytes stack, "
+            f"{st} + {ld} bytes spill stores + loads")
+    chain = {k: v for k, v in ptxas.items() if k.startswith("chain_kernel")}
+    if not chain:
+        raise AssertionError("no ptxas report of K5 in the build log")
+    if any(v[1] or v[2] or v[3] for v in chain.values()):
+        raise AssertionError(f"K5 instances with stack or spills: {chain}")
+    if native.get_lib() is None:
+        raise AssertionError("the port's native host library is not loaded")
+    log("native host library loaded")
 
     bench_data, db, rfa = load_index(smi)
     torch.cuda.synchronize()
@@ -658,26 +842,30 @@ def main():
                                  sink=sink, stats=stats, **kw)
         return run
 
+    # every profile (kernel device times, one batch of each phase) waits
+    # until the timed runs are over, so none of them runs after one
+    jobs = []
     reads = list(read_fasta(rfa))
     dna_launches = run_e2e("DNA", reads, B, smi, index, single(),
                            lambda buf: check_dna(buf, bench_data),
-                           DNA_KERNELS)
+                           DNA_KERNELS, jobs)
     _gfa, rna_rfa = bench_data.ensure_rna_files()
     rna_reads = list(read_fasta(rna_rfa))
     truth = bench_data.rna_truth()
     rna_launches = run_e2e("RNA", rna_reads, RB, smi, index,
                            single(novelsplicing=True),
-                           lambda buf: check_rna(buf, truth), tuple(SOURCES))
+                           lambda buf: check_rna(buf, truth), tuple(SOURCES),
+                           jobs)
     known_launches = run_e2e("RNA -s", rna_reads, RB, smi, index,
                              single(novelsplicing=True, known=known),
                              lambda buf: check_rna(buf, truth),
-                             tuple(SOURCES))
+                             tuple(SOURCES), jobs)
     f1, f2 = bench_data.ensure_pe_files()
     pe_pairs = list(zip(read_fasta(f1), read_fasta(f2)))
     pe_launches = run_e2e("PE", pe_pairs, PB, smi, index,
                           paired(pairmax=PAIRMAX),
                           lambda buf: check_pe(buf, bench_data),
-                          DNA_KERNELS, reads_per_item=2)
+                          DNA_KERNELS, jobs, reads_per_item=2)
     rep_pairs = repair_pairs(bench_data, db, N_REPAIR)
     rep_run = paired(novelsplicing=True, pairmax=2000)
     kernels.reset_launches()
@@ -699,12 +887,12 @@ def main():
     cmet_run = single(cmet_config, mdb)
     cmet_launches = run_e2e("cmet", cmet_reads, B, smi, mindex, cmet_run,
                             lambda buf: check_cmet(buf, bench_data),
-                            ("verify_diagonals",))
+                            ("verify_diagonals",), jobs)
     s_reads, n_alt = snp_reads(bench_data, snp_coords, snp_alts)
     snp_run = single(snp_config, mdb)
     snp_launches = run_e2e("SNP", s_reads, B, smi, mindex, snp_run,
                            lambda buf: check_snp(buf, bench_data, n_alt),
-                           ("verify_diagonals",))
+                           ("verify_diagonals",), jobs)
 
     # GPU vs CPU (plain versions) on the first reads, same batching; the
     # last four on the mode index
@@ -731,7 +919,10 @@ def main():
         gbuf = io.BytesIO()
         run(mindex if modes else index, sub, len(sub), gbuf.write)
         gpu_sam.append(gbuf.getvalue())
-    del index, mindex
+    profile_rows(rows, smi)
+    for job in jobs:
+        profile_batch(*job, smi)
+    del index, mindex, jobs
     torch.cuda.empty_cache()
     cpu_index = DeviceIndex.from_host(db, "cpu")
     cpu_mindex = DeviceIndex.from_host(mdb, "cpu")
@@ -747,26 +938,53 @@ def main():
             raise AssertionError(f"{name}: CPU and GPU SAM differ")
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("JAX was imported")
+    loaded = [m for m in sys.modules if m.split(".")[0] == "tpumap"
+              and sys.modules[m] is not None]
+    if loaded:
+        raise AssertionError(f"tpumap was imported: {loaded}")
+
+    phases = {"dna": dna_launches, "rna": rna_launches,
+              "rna_known": known_launches, "pe": pe_launches,
+              "pe_repair": rep_launches, "cmet": cmet_launches,
+              "snp": snp_launches}
+    n_batches = {"dna": -(-len(reads) // B), "rna": -(-len(rna_reads) // RB),
+                 "rna_known": -(-len(rna_reads) // RB),
+                 "pe": -(-len(pe_pairs) // PB), "pe_repair": 1,
+                 "cmet": -(-len(cmet_reads) // B),
+                 "snp": -(-len(s_reads) // B)}
+    per_batch = {name: {ph: launches[name] / n_batches[ph]
+                        for ph, launches in phases.items()}
+                 for name in SOURCES}
+    log("launches per batch (" + ", ".join(
+        f"{ph} {n}" for ph, n in n_batches.items()) + " batches):")
+    for name, pb in per_batch.items():
+        log(f"  {name:18s} " + "  ".join(f"{ph} {v:g}"
+                                         for ph, v in pb.items()))
 
     # one entry per kernel, at its first (largest) main-path shape, with
     # all its rows; launches from the RNA run, which drives all seven,
-    # and each other phase's launches beside them
+    # and each phase's launches per batch beside them. No single PyTorch
+    # call computes any of these functions, so library_ms is null.
     table, seen = [], set()
-    for name, shape, err, ms, plain_ms in rows:
+    for r in rows:
+        name = r["name"]
         if name in seen:
             continue
         seen.add(name)
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": rna_launches[name],
-            "max_abs_err": max(r[2] for r in rows if r[0] == name),
-            "ms": ms, "plain_ms": plain_ms, "shape": shape,
-            "rows": [{"shape": r[1], "max_abs_err": r[2], "ms": r[3],
-                      "plain_ms": r[4]} for r in rows if r[0] == name],
-            "phase_launches": {
-                "dna": dna_launches[name], "rna_known": known_launches[name],
-                "pe": pe_launches[name], "pe_repair": rep_launches[name],
-                "cmet": cmet_launches[name], "snp": snp_launches[name]}})
+            "max_abs_err": max(x["max_abs_err"] for x in rows
+                               if x["name"] == name),
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "shape": r["shape"],
+            "rows": [{k: x[k] for k in ("shape", "max_abs_err", "ms",
+                                        "device_ms", "plain_ms", "bound_ms",
+                                        "bound_by")}
+                     for x in rows if x["name"] == name],
+            "launches_per_batch": per_batch[name]})
     log(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu,
@@ -774,11 +992,13 @@ def main():
     return 0
 
 
-def run_e2e(name, items, batch, smi, index, run, check, must_launch,
+def run_e2e(name, items, batch, smi, index, run, check, must_launch, jobs,
             reads_per_item=1):
     """One warm-up batch, then all items (reads or pairs) with the launch
     counters reset just before; check(sam bytes) -> a log string (raises
-    on failure). Returns the launch counts of the timed run."""
+    on failure). Returns the launch counts of the timed run, and
+    appends to jobs what profile_batch needs later (the phase, a run of
+    one batch, the timed run's wall ms per batch)."""
     from tpumap_torch import kernels
     t0 = time.perf_counter()
     run(index, items[:batch], batch, io.BytesIO().write)
@@ -797,6 +1017,9 @@ def run_e2e(name, items, batch, smi, index, run, check, must_launch,
         f"{dt:.3f} s = {nreads / dt:.1f} reads/s, "
         f"{check(buf.getvalue())}, launches={launches}, stats={stats} "
         f"[{smi}]")
+    jobs.append((name, lambda: run(index, items[:batch], batch,
+                                   io.BytesIO().write),
+                 dt * 1e3 / -(-len(items) // batch)))
     missing = [k for k in must_launch if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{name}: kernels never launched: {missing}")

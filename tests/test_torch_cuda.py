@@ -1,7 +1,8 @@
 """CUDA kernels of tpumap_torch against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU and nvcc; without them they skip. They
-need no JAX, so on the GPU machine run them without tests/conftest.py
+need neither JAX nor tpumap (the workloads are built with the port's own
+host modules), so on the GPU machine run them without tests/conftest.py
 (which sets JAX up for the CPU):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -15,17 +16,16 @@ import numpy as np
 import pytest
 import torch
 
-from tpumap.gsnap.knownsplicing import KnownSplicing
-from tpumap.utils import dna
 from tpumap_torch import kernels
 from tpumap_torch.gsnap.driver import align_records
 from tpumap_torch.gsnap.engine import AlignConfig
-from tpumap_torch.gsnap.knownsplicing import known_to_device
+from tpumap_torch.gsnap.knownsplicing import KnownSplicing, known_to_device
 from tpumap_torch.gsnap.paired import align_paired_records, rescue_mate
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops import dp, localscan, pack, pathdp, verify
+from tpumap_torch.utils import dna
 from torch_workloads import (mixed_workload, mode_pairs, mode_reads,
-                             mode_world, sam_text, stream_pairs)
+                             mode_world, sam_text, stream_pairs, tie_rows)
 
 DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
 
@@ -135,7 +135,7 @@ def test_launch_counters_count_launches(dev):
 def test_slice_on_gpu_matches_cpu(dev, tmp_path, sink):
     """The stream workload (indels, clips, unmapped, N, quals) through the
     kernels gives the plain CPU run's SAM, and every kernel launched."""
-    db, reads, _gfa = mixed_workload(tmp_path)
+    db, reads, _gfa = mixed_workload(tmp_path, port=True)
     cfg = AlignConfig(top_k=4, max_occ=8)
     want = sam_text(align_records(db, DeviceIndex.from_host(db, "cpu"),
                                   reads, cfg, batch_size=32))
@@ -154,46 +154,147 @@ def test_slice_on_gpu_matches_cpu(dev, tmp_path, sink):
         kernels.LAUNCHES
 
 
-@pytest.mark.parametrize("R,L,quals,known", [
-    (300, 128, False, False), (97, 100, True, False), (64, 37, False, True),
-    (2048, 128, False, False),
+# ACGT repeated, as one packed genome word (int32 bit pattern)
+ACGT_WORD = int(np.uint32(0xE4E4E4E4).view(np.int32))
+# candidate offsets from the read's diagonal, taken in order for K
+# lanes (None: a random diagonal): insertion jumps up to 8, deletions,
+# the 9-base intron floor, introns and one past max_intron
+CHAIN_OFFSETS = [0, 3, -2, -5, 7, 500, 20_000, None, -8, 1, -1, 9, 8, 30,
+                 200_001, None]
+
+
+@pytest.mark.parametrize("R,L,K,quals,known,max_insert,ties", [
+    (300, 128, 8, False, False, 6, False),
+    (97, 100, 8, True, False, 6, False),
+    (64, 37, 8, False, True, 6, False),
+    (2048, 128, 8, False, False, 6, False),
+    (1, 128, 1, False, False, 6, False),
+    (31, 128, 3, False, True, 0, False),
+    (8193, 128, 8, False, False, 8, False),
+    (31, 64, 9, True, True, 8, False),
+    (8193, 128, 14, False, True, 6, False),
+    (8193, 128, 16, False, False, 0, False),
+    (31, 100, 16, False, True, 8, True),
+    (33, 37, 14, False, True, 8, False),
+    (33, 62, 16, True, False, 0, True),
+    (257, 128, 8, False, False, 6, True),
+    (8193, 128, 14, False, True, 6, True),
 ])
-def test_chain_kernel_matches_plain(dev, R, L, quals, known):
-    """K5 on reads cut from the genome against candidate sets with a
-    deletion, an insertion jump, an intron and INVALID lanes, and rows
-    with no valid candidate."""
-    rng = np.random.default_rng(R + L)
+def test_chain_kernel_matches_plain(dev, R, L, K, quals, known, max_insert,
+                                    ties):
+    """K5 on reads cut from the genome against candidate sets with
+    deletions, insertion jumps, introns and INVALID lanes, rows with no
+    valid candidate, rows of length 0 and L; with ties, a genome of ACGT
+    repeated and reads that switch phase, so the lanes of one phase
+    score alike and the row maximum recurs at several q
+    (torch_workloads.tie_rows)."""
+    rng = np.random.default_rng(R + L + K)
     glen = 300_000
-    idx = random_index(rng, glen, dev, 0.001)
-    d = rng.integers(1000, glen - 5000, R).astype(np.int64)
-    codes = verify.extract_codes_window(
-        idx.genome_packed, torch.from_numpy(d).to(dev), L).cpu().numpy()
-    lengths = rng.integers(L // 2, L + 1, R).astype(np.int32)
-    for r in range(R):                  # splice two genome pieces together
-        q = int(rng.integers(10, L - 10))
-        jump = int(rng.choice([-2, -5, 3, 7, 500, 20_000]))
-        codes[r, q:] = verify.extract_codes_window(
-            idx.genome_packed, torch.tensor([d[r] + jump + q], device=dev),
-            L - q)[0].cpu().numpy()
-        mut = rng.random(L) < 0.03
-        codes[r, mut] = rng.integers(0, 4, int(mut.sum()))
-        codes[r, lengths[r]:] = 0
-    cands = np.stack([d, d + 3, d - 2, d - 5, d + 7, d + 500, d + 20_000,
-                      rng.integers(0, glen, R)], 1)
-    cands[rng.random(cands.shape) < 0.2] = 0xFFFFFFFF
-    cands[:5] = 0xFFFFFFFF              # no valid candidate
-    nmask = rng.random((R, L)) < 0.01
+    idx = random_index(rng, glen, dev, 0.0 if ties else 0.001)
+    sc = pathdp.PathScoring(max_insert=max_insert)
+    d = rng.integers(1000, glen - 25_000, R).astype(np.int64)
+    if ties:
+        idx = dataclasses.replace(idx, genome_packed=torch.full_like(
+            idx.genome_packed, ACGT_WORD))
+        codes, lengths, cands = tie_rows(rng, d // 4 * 4, K, L)
+    else:
+        codes = verify.extract_codes_window(
+            idx.genome_packed, torch.from_numpy(d).to(dev), L).cpu().numpy()
+        lengths = rng.integers(L // 2, L + 1, R).astype(np.int32)
+        for r in range(R):              # splice two genome pieces together
+            q = int(rng.integers(10, L - 10))
+            jump = int(rng.choice([-2, -5, -8, 3, 7, 500, 20_000]))
+            codes[r, q:] = verify.extract_codes_window(
+                idx.genome_packed,
+                torch.tensor([d[r] + jump + q], device=dev),
+                L - q)[0].cpu().numpy()
+            mut = rng.random(L) < 0.03
+            codes[r, mut] = rng.integers(0, 4, int(mut.sum()))
+        cands = np.stack([d + o if o is not None else rng.integers(0, glen, R)
+                          for o in CHAIN_OFFSETS[:K]], 1)
+        cands[rng.random(cands.shape) < 0.2] = 0xFFFFFFFF
+        cands[2:5] = 0xFFFFFFFF         # no valid candidate
+    lengths[-1] = L
+    lengths[0] = 0 if R > 1 else L
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    nmask = rng.random((R, L)) < (0.0 if ties else 0.01)
     q = (rng.integers(0, 41, (R, L)).astype(np.uint8) if quals else None)
     ct, nt, lt, cdt = to(dev, codes, nmask, lengths, cands)
-    inp = pathdp.chain_inputs(idx, ct, nt, lt, cdt, pathdp.PathScoring(),
+    inp = pathdp.chain_inputs(idx, ct, nt, lt, cdt, sc,
                               None if q is None else to(dev, q)[0])
     if known:
         inp["known"] = torch.from_numpy(
             rng.integers(0, 16, inp["s"].shape).astype(np.uint8)).to(dev)
+    got = pathdp.chain_dp(inp, lt, sc)
+    want = pathdp.chain_dp_plain(inp, lt, sc)
+    torch.cuda.synchronize()
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    if R > 31 and K >= 8:
+        assert (want["nsegs"] >= 2).any()
+
+
+def chain_rows(dev, idx, rng, R, L, K):
+    """chain_inputs for R reads cut from idx's genome, each with a 7-bp
+    deletion in the middle third of the query, against K >= 5 candidates of
+    CHAIN_OFFSETS; the lengths run from L down to 0."""
+    glen = idx.genome_length
+    d = rng.integers(1000, glen - L - 25_000, R).astype(np.int64)
+    codes = verify.extract_codes_window(
+        idx.genome_packed, torch.from_numpy(d).to(dev), L).cpu().numpy()
+    for r in range(R):
+        q = int(rng.integers(L // 3, 2 * L // 3))
+        codes[r, q:] = verify.extract_codes_window(
+            idx.genome_packed, torch.tensor([d[r] + 7 + q], device=dev),
+            L - q)[0].cpu().numpy()
+    cands = np.stack([d + o if o is not None else rng.integers(0, glen, R)
+                      for o in CHAIN_OFFSETS[:K]], 1)
+    lengths = np.linspace(L, 0, R).astype(np.int32)
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    ct, lt, cdt = to(dev, codes, lengths, cands)
+    nt = torch.zeros(ct.shape, dtype=torch.bool, device=dev)
+    return pathdp.chain_inputs(idx, ct, nt, lt, cdt, pathdp.PathScoring()), lt
+
+
+@pytest.mark.parametrize("K", [8, 16])
+def test_chain_kernel_longest_rows(dev, K):
+    """K5 at its longest rows, chain_max_len(K) steps (the choice table
+    fills the shared memory of a block), against the plain version; one
+    step more raises ValueError."""
+    L = pathdp.chain_max_len(K)
+    rng = np.random.default_rng(L)
+    idx = random_index(rng, L + 60_000, dev)
+    inp, lt = chain_rows(dev, idx, rng, 3, L + 1, K)
+    with pytest.raises(ValueError, match="L <="):
+        pathdp.chain_dp(inp, lt)
+    inp = {k: v[..., :L].contiguous() if k != "diags" and v is not None
+           else v for k, v in inp.items()}
+    lt = torch.clamp(lt, max=L)
     got = pathdp.chain_dp(inp, lt)
     want = pathdp.chain_dp_plain(inp, lt)
     torch.cuda.synchronize()
-    assert sorted(got) == sorted(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert int(want["nsegs"][0]) >= 2
+
+
+@pytest.mark.parametrize("L", [128, 61])
+def test_chain_kernel_unaligned_inputs(dev, L):
+    """K5 on inputs that start one element past an aligned address (the
+    loads of one step at a time) against the plain version."""
+    rng = np.random.default_rng(L)
+    idx = random_index(rng, 300_000, dev)
+    inp, lt = chain_rows(dev, idx, rng, 65, L, 8)
+    for k in ("s", "don", "acc", "mm"):
+        flat = torch.empty(inp[k].numel() + 1, dtype=inp[k].dtype,
+                           device=dev)
+        flat[1:] = inp[k].flatten()
+        inp[k] = flat[1:].view(inp[k].shape)
+    assert inp["s"].data_ptr() % 16 and inp["mm"].data_ptr() % 4
+    got = pathdp.chain_dp(inp, lt)
+    want = pathdp.chain_dp_plain(inp, lt)
+    torch.cuda.synchronize()
     for key in want:
         assert torch.equal(got[key], want[key]), key
     assert (want["nsegs"] >= 2).any()
@@ -244,7 +345,7 @@ def test_scan_kernels_match_plain(dev, scan, window, top_k):
 def test_rna_on_gpu_matches_cpu(dev, tmp_path):
     """The stream workload with novel splicing through every kernel
     gives the plain CPU run's SAM."""
-    db, reads, _gfa = mixed_workload(tmp_path)
+    db, reads, _gfa = mixed_workload(tmp_path, port=True)
     cfg = AlignConfig(top_k=4, max_occ=8)
     want = sam_text(align_records(db, DeviceIndex.from_host(db, "cpu"),
                                   reads, cfg, novelsplicing=True,
@@ -335,10 +436,10 @@ def test_paired_and_known_on_gpu_match_cpu(dev, tmp_path):
     """The stream workload's pairs with novel splicing, and its reads
     with known splicing, through the kernels give the plain CPU runs'
     SAM."""
-    db, reads, _gfa = mixed_workload(tmp_path)
+    db, reads, _gfa = mixed_workload(tmp_path, port=True)
     cfg = AlignConfig(top_k=4, max_occ=8)
     cpu, gpu = DeviceIndex.from_host(db, "cpu"), DeviceIndex.from_host(db, dev)
-    pairs = stream_pairs(db)
+    pairs = stream_pairs(db, port=True)
     kw = dict(batch_size=16, pairmax=1000, novelsplicing=True)
 
     def pair_sam(index):
@@ -406,7 +507,7 @@ def test_modes_on_gpu_match_cpu(dev, tmp_path, run):
     """The alignment modes and SNP tolerance on the small worlds of
     tests/test_torch_modes.py (all four spaces, a dense SNP cluster)
     through the kernels give the plain CPU run's SAM, and K1 launched."""
-    db, seq, coords, alts = mode_world(tmp_path)
+    db, seq, coords, alts = mode_world(tmp_path, port=True)
     mode = {"cmet": "cmet-stranded", "atoi": "atoi-stranded"}.get(
         run.split("_")[0])
     snp = "snp" in run
@@ -414,7 +515,7 @@ def test_modes_on_gpu_match_cpu(dev, tmp_path, run):
                       max_occ=8)
     cpu, gpu = DeviceIndex.from_host(db, "cpu"), DeviceIndex.from_host(db, dev)
     if run.endswith("pairs"):
-        items = mode_pairs(seq, mode, 24, 41)
+        items = mode_pairs(seq, mode, 24, 41, port=True)
 
         def sam(index):
             return b"".join((a.lines() + b.lines()).encode()
@@ -422,9 +523,9 @@ def test_modes_on_gpu_match_cpu(dev, tmp_path, run):
                                 db, index, items, cfg, batch_size=16,
                                 pairmax=1000))
     else:
-        items = (mode_reads(seq, mode, 40, 11)
+        items = (mode_reads(seq, mode, 40, 11, port=True)
                  + mode_reads(seq, mode, 16, 12, snps=(coords, alts),
-                              name="s"))
+                              name="s", port=True))
 
         def sam(index):
             return sam_text(align_records(

@@ -159,7 +159,7 @@ def chain_world(tmp_path_factory):
     diags[:, 8:11] = np.where(diags[:, :3] != INVALID,
                               diags[:, :3] + 300, INVALID)
     nmask = np.zeros((R, L), bool)
-    ji, ti = JaxIndex.from_host(db), DeviceIndex.from_host(db)
+    ji, ti = JaxIndex.from_host(db), DeviceIndex.from_host(db, "cpu")
     kd_j, kd_t = ks.to_device(), known_to_device(ks, "cpu")
     out = {}
     for K in (8, 14):
@@ -264,7 +264,7 @@ def test_align_batch_full_known_dict_matches(kworld, novel):
     align_batch_full(known=...)."""
     db, _ji, _reads, ks, batch, _want, dicts = kworld
     B, L = 64, 128
-    ti = DeviceIndex.from_host(db)
+    ti = DeviceIndex.from_host(db, "cpu")
     got = ladder.fetch_result(ladder.align_batch_full(
         ti, driver._to_device(batch, "cpu"), engine.AlignConfig(), L,
         pathdp.PathScoring(), True, novel, B, B, B,
@@ -287,7 +287,7 @@ def test_refine_full_partners_wrap(kworld):
     cfg = jengine.AlignConfig()
     jres = jengine.align_batch_cascaded_packed(ji, jdriver._pack_batch(batch),
                                                cfg, L)
-    ti = DeviceIndex.from_host(db)
+    ti = DeviceIndex.from_host(db, "cpu")
     pb = driver._to_device(batch, "cpu")
     tres = engine.align_batch_cascaded_packed(ti, pb, engine.AlignConfig(), L)
     # the spliced reads (chain-triggered rows) re-anchored near the ends
@@ -317,7 +317,7 @@ def test_refine_full_partners_wrap(kworld):
 @pytest.mark.parametrize("novel", [False, True])
 def test_known_world_sam(kworld, novel, sink):
     db, _ji, reads, ks, _batch, want, _dicts = kworld
-    ti = DeviceIndex.from_host(db)
+    ti = DeviceIndex.from_host(db, "cpu")
     kw = dict(novelsplicing=novel, known=ks, batch_size=64)
     if sink:
         chunks = []
@@ -365,6 +365,6 @@ def test_main_known_splicing_cpu(kworld, tmp_path):
                                         ks.junctions[:, 1],
                                         np.ones(len(ks.junctions)))
     want = sam_text(driver.align_records(
-        db, DeviceIndex.from_host(db), reads, known=plus,
+        db, DeviceIndex.from_host(db, "cpu"), reads, known=plus,
         batch_size=64)).decode().splitlines()
     assert body == want and any("XS:A:+" in ln for ln in body)

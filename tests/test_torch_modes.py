@@ -53,7 +53,7 @@ def same(want, got):
 def world(tmp_path_factory):
     db, seq, coords, alts = mode_world(tmp_path_factory.mktemp("tmodes"))
     return db, seq, coords, alts, JaxIndex.from_host(db), \
-        DeviceIndex.from_host(db)
+        DeviceIndex.from_host(db, "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +81,7 @@ def n_world(world):
                                for s, v in alt["alt_offsets"].items()},
                   alt_positions={s: jnp.asarray(v)
                                  for s, v in alt["alt_positions"].items()})
-    return jn, DeviceIndex.from_jax_arrays(dict(arrays, **alt))
+    return jn, DeviceIndex.from_jax_arrays(dict(arrays, **alt), "cpu")
 
 
 # ------------------------------------------------------ transforms, index
@@ -128,7 +128,8 @@ def test_mode_tables(world):
         | {"alt_offsets": {s: np.asarray(v)
                            for s, v in ji.alt_offsets.items()},
            "alt_positions": {s: np.asarray(v)
-                             for s, v in ji.alt_positions.items()}})
+                             for s, v in ji.alt_positions.items()}},
+        "cpu")
     for s in (*SPACES, "snp", "xx"):
         for a, b, c in zip(ji.mode_index(s), ti.mode_index(s),
                            fj.mode_index(s)):
@@ -142,7 +143,7 @@ def test_mode_tables(world):
             *ji.alt_positions.values())) + 8 * len(db.chrom_offsets)
     plain = DeviceIndex.from_host(
         type(db)(**{**db.__dict__, "mode_indexes": None,
-                    "genomealt_packed": None}))
+                    "genomealt_packed": None}), "cpu")
     assert plain.alt_offsets is None and plain.genomealt_packed is None
     assert plain.mode_index("ct")[1] is plain.positions
 

@@ -78,7 +78,7 @@ def modes(tmp_path_factory):
     want["snp_pairs"] = tpumap_sam(db, ji, snp_pairs,
                                    dict(snp_tolerant=True), pairs=True,
                                    pairmax=1000)
-    return db, DeviceIndex.from_host(db), reads, prs, snp_pairs, want
+    return db, DeviceIndex.from_host(db, "cpu"), reads, prs, snp_pairs, want
 
 
 @pytest.mark.parametrize("sink", [False, True])
@@ -135,7 +135,7 @@ def repeats(tmp_path_factory):
 @pytest.mark.parametrize("sink", [False, True])
 def test_cmet_secondaries_sam(repeats, sink):
     db, reads, cfg, want, _root = repeats
-    got = port_sam(db, DeviceIndex.from_host(db), reads, cfg, sink, npaths=3,
+    got = port_sam(db, DeviceIndex.from_host(db, "cpu"), reads, cfg, sink, npaths=3,
                    batch_size=32)
     assert got == want and b"HI:i:2" in got
 
@@ -172,7 +172,7 @@ def snps(tmp_path_factory):
 @pytest.mark.parametrize("tol", [False, True])
 def test_snp_world_sam(snps, tol, sink):
     db, recs, want, _root = snps
-    got = port_sam(db, DeviceIndex.from_host(db), recs,
+    got = port_sam(db, DeviceIndex.from_host(db, "cpu"), recs,
                    dict(snp_tolerant=tol), sink)
     assert got == want[tol]
     first = got.decode().splitlines()[0]
@@ -191,7 +191,7 @@ def test_cmet_novel_splicing_sam(tmp_path):
     cfg = dict(mode="cmet-stranded", top_k=4, max_occ=8)
     want = tpumap_sam(db, JaxIndex.from_host(db), recs, cfg,
                       novelsplicing=True, batch_size=32)
-    ti = DeviceIndex.from_host(db)
+    ti = DeviceIndex.from_host(db, "cpu")
     for sink in (False, True):
         assert port_sam(db, ti, recs, cfg, sink, novelsplicing=True,
                         batch_size=32) == want

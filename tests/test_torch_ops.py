@@ -52,7 +52,7 @@ def genome(tmp_path_factory):
     fa = tmp_path_factory.mktemp("tops") / "g.fa"
     fa.write_text(">chr1\n" + seq + "\n")
     db = build_db(fa, name="g", k=12, interval=3)
-    return seq, db, JaxIndex.from_host(db), DeviceIndex.from_host(db)
+    return seq, db, JaxIndex.from_host(db), DeviceIndex.from_host(db, "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -94,7 +94,7 @@ def test_index_arrays_match(genome):
         {f: np.asarray(getattr(ji, f)) for f in
          ("genome_packed", "genome_nmask", "offsets", "positions",
           "chrom_offsets", "genome_length", "k", "genome_has_n",
-          "interval")})
+          "interval")}, "cpu")
     assert torch.equal(from_j.positions, ti.positions)
 
 

@@ -39,7 +39,7 @@ from tpumap_torch.gsnap import driver, engine, ladder, paired
 from tpumap_torch.gsnap.knownsplicing import known_to_device
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops import pathdp
-from torch_workloads import mixed_workload, stream_pairs
+from torch_workloads import NO_TPUMAP, mixed_workload, stream_pairs
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -234,7 +234,7 @@ def world(tmp_path_factory):
 def port_pairs(db, pairs, ks, run, sink, **extra):
     kw = dict(RUNS[run], **extra)
     kw["known"] = ks if kw.get("known") else None
-    ti = DeviceIndex.from_host(db)
+    ti = DeviceIndex.from_host(db, "cpu")
     if not sink:
         return pair_text(paired.align_paired_records(
             db, ti, pairs, engine.AlignConfig(), **kw))
@@ -291,7 +291,7 @@ def test_align_pair_full_dict_matches(world, run):
     B, L = batch["codes"].shape
     novel = kw.get("novelsplicing", False)
     got = ladder.fetch_result(ladder.align_pair_full(
-        DeviceIndex.from_host(db), driver._to_device(batch, "cpu"),
+        DeviceIndex.from_host(db, "cpu"), driver._to_device(batch, "cpu"),
         engine.AlignConfig(), L,
         pathdp.PathScoring(max_intron=max(kw.get("max_intron", 200_000), 9)),
         novel or kw.get("known", False), novel, min(max(8192, B // 2), B),
@@ -330,7 +330,7 @@ def test_rescue_mate_matches(world, window):
     want = jpaired.rescue_mate(JaxIndex.from_host(db), jnp.asarray(codes),
                                jnp.asarray(lengths), window,
                                jnp.asarray(bases))
-    got = paired.rescue_mate(DeviceIndex.from_host(db), t(codes), t(lengths),
+    got = paired.rescue_mate(DeviceIndex.from_host(db, "cpu"), t(codes), t(lengths),
                              window, t(bases.astype(np.int64)))
     for a, b in zip(want, got):
         same(a, b)
@@ -352,7 +352,7 @@ def stream(tmp_path_factory):
 @pytest.mark.parametrize("sink", [False, True])
 def test_stream_paired_workload_sam(stream, sink):
     db, pairs, want = stream
-    ti = DeviceIndex.from_host(db)
+    ti = DeviceIndex.from_host(db, "cpu")
     cfg = engine.AlignConfig(top_k=4, max_occ=8)
     if sink:
         chunks = []
@@ -366,12 +366,11 @@ def test_stream_paired_workload_sam(stream, sink):
 
 
 def test_paired_runs_without_jax(stream, tmp_path):
-    """One paired batch of the port in a process where JAX cannot be
-    imported gives tpumap's SAM."""
+    """One paired batch of the port in a process where neither JAX
+    nor tpumap can be imported gives tpumap's SAM."""
     want = stream[2]
-    script = f"""
-import pathlib, sys
-sys.modules["jax"] = None
+    script = NO_TPUMAP + f"""
+import pathlib
 sys.path[:0] = [{str(REPO)!r}, {str(REPO / "tests")!r}]
 import torch
 torch.set_num_threads(1)
@@ -379,11 +378,13 @@ from torch_workloads import mixed_workload, stream_pairs
 from tpumap_torch.gsnap.paired import align_paired_records
 from tpumap_torch.gsnap.engine import AlignConfig
 from tpumap_torch.index.device import DeviceIndex
-db, _reads, _ = mixed_workload(pathlib.Path({str(tmp_path)!r}))
-align_paired_records(db, DeviceIndex.from_host(db), stream_pairs(db),
+db, _reads, _ = mixed_workload(pathlib.Path({str(tmp_path)!r}), port=True)
+align_paired_records(db, DeviceIndex.from_host(db, "cpu"),
+                     stream_pairs(db, port=True),
                      AlignConfig(top_k=4, max_occ=8), batch_size=16,
                      pairmax=1000, sink=sys.stdout.buffer.write)
 assert sys.modules["jax"] is None
+assert not [m for m in sys.modules if m.split(".")[0] == "tpumap"]
 """
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
                        timeout=300)
@@ -437,7 +438,7 @@ def test_unported_paired_options_raise(world, option):
     tpumap's SAM on the same pairs (no mode or SNP tables here, so both
     fall back to the standard ones, as in tpumap)."""
     db, pairs, _owner, _ks, _want, _dicts = world
-    ti = DeviceIndex.from_host(db)
+    ti = DeviceIndex.from_host(db, "cpu")
     if option in ("tr", "known_indels", "device_ctx"):
         with pytest.raises(NotImplementedError):
             paired.align_paired_records(db, ti, pairs[:2],

@@ -28,7 +28,7 @@ from tpumap.utils.fetch import device_fetch, widen_ints
 from tpumap_torch.gsnap import driver, engine, ladder
 from tpumap_torch.ops import pathdp
 from tpumap_torch.index.device import DeviceIndex
-from torch_workloads import mixed_workload, sam_text
+from torch_workloads import NO_TPUMAP, mixed_workload, sam_text
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -37,7 +37,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 @pytest.fixture(scope="module")
 def mixed(tmp_path_factory):
     db, reads, gfa = mixed_workload(tmp_path_factory.mktemp("tslice"))
-    return db, JaxIndex.from_host(db), DeviceIndex.from_host(db), reads, gfa
+    return db, JaxIndex.from_host(db), DeviceIndex.from_host(db, "cpu"), reads, gfa
 
 
 @pytest.fixture(scope="module")
@@ -74,7 +74,7 @@ def synthetic(tmp_path_factory):
         for j in (3, 96):
             d[j] = "ACGT"[("ACGT".index(d[j]) + 1) % 4]
         dirty.append(Record(f"d{r}", "", "".join(d)))
-    return (db, JaxIndex.from_host(db), DeviceIndex.from_host(db),
+    return (db, JaxIndex.from_host(db), DeviceIndex.from_host(db, "cpu"),
             {"reads": list(read_fasta(reads_fa)), "dirty_ends": dirty})
 
 
@@ -192,7 +192,7 @@ def repeats(tmp_path_factory):
     reads += [Record(f"uni{i}", "", base[25000 + 90 * i:25100 + 90 * i])
               for i in range(12)]
     db = build_db(gfa, name="g", k=12, interval=3)
-    return db, JaxIndex.from_host(db), DeviceIndex.from_host(db), reads
+    return db, JaxIndex.from_host(db), DeviceIndex.from_host(db, "cpu"), reads
 
 
 @pytest.mark.parametrize("npaths", [1, 3])
@@ -256,14 +256,13 @@ def test_no_jax_import_in_port():
 
 
 def test_slice_runs_without_jax(mixed, tmp_path):
-    """The port's align_records in a process where JAX cannot be
-    imported gives tpumap's SAM."""
+    """The port's align_records in a process where neither JAX
+    nor tpumap can be imported gives tpumap's SAM."""
     db, ji, _ti, reads, _gfa = mixed
     want = sam_text(jdriver.align_records(
         db, ji, reads, jengine.AlignConfig(**CFG), batch_size=32))
-    script = f"""
-import pathlib, sys
-sys.modules["jax"] = None
+    script = NO_TPUMAP + f"""
+import pathlib
 sys.path[:0] = [{str(REPO)!r}, {str(REPO / "tests")!r}]
 import torch
 torch.set_num_threads(1)
@@ -271,11 +270,12 @@ from torch_workloads import mixed_workload
 from tpumap_torch.gsnap.driver import align_records
 from tpumap_torch.gsnap.engine import AlignConfig
 from tpumap_torch.index.device import DeviceIndex
-db, reads, _ = mixed_workload(pathlib.Path({str(tmp_path)!r}))
-align_records(db, DeviceIndex.from_host(db), reads,
+db, reads, _ = mixed_workload(pathlib.Path({str(tmp_path)!r}), port=True)
+align_records(db, DeviceIndex.from_host(db, "cpu"), reads,
               AlignConfig(top_k=4, max_occ=8), batch_size=32,
               sink=sys.stdout.buffer.write)
 assert sys.modules["jax"] is None
+assert not [m for m in sys.modules if m.split(".")[0] == "tpumap"]
 """
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
                        timeout=300)

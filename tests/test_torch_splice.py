@@ -37,7 +37,8 @@ from tpumap.utils.fetch import device_fetch, widen_ints
 from tpumap_torch.gsnap import driver, engine, ladder
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops import localscan, pathdp, verify
-from torch_workloads import mixed_workload, sam_text, write_fasta
+from torch_workloads import (NO_TPUMAP, mixed_workload, sam_text, tie_rows,
+                             write_fasta)
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -149,13 +150,16 @@ def test_window_scans(genome, which):
 @pytest.fixture(scope="module")
 def chain_world(tmp_path_factory):
     """tests/test_pathdp.py's genome (two GT..AG introns) and its cases,
-    solved by both packages in one batch, with and without qualities."""
+    solved by both packages in one batch, with and without qualities;
+    plus tie-heavy rows (torch_workloads.tie_rows) on 1,000 bases of ACGT
+    repeated appended to the genome."""
     d = tmp_path_factory.mktemp("tchain")
     rng = np.random.default_rng(7)
     seq = "".join("ACGT"[i] for i in rng.integers(0, 4, 8000))
     seq = (seq[:2000] + "GT" + seq[2002:2298] + "AG"
            + seq[2300:3000] + "GT" + seq[3002:3498] + "AG" + seq[3500:])
-    db = build_db(write_fasta(d / "g.fa", seq), name="g", k=12, interval=3)
+    db = build_db(write_fasta(d / "g.fa", seq + "ACGT" * 250), name="g",
+                  k=12, interval=3)
     ins = "C" if seq[740] != "C" else "G"
     ins2 = "A" if seq[2330] != "A" else "T"
     tail = "".join("ACGT"[i] for i in np.random.default_rng(3).integers(
@@ -186,6 +190,10 @@ def chain_world(tmp_path_factory):
                         for _ in range(int(rng.integers(1, 5)) - 1)]
         rows.append((f"random{k}", dna.encode("".join(read))[0],
                      list(dict.fromkeys(ds))))
+    tcodes, tlens, tdiags = tie_rows(np.random.default_rng(13),
+                                     8000 + 4 * np.arange(2, 50, 6), 8, 128)
+    for i in range(len(tlens)):
+        rows.append((f"ties{i}", tcodes[i, :tlens[i]], tdiags[i].tolist()))
     # quality weighting: sparse low-quality tail mismatches
     c = dna.encode(seq[700:780])[0].copy()
     c[np.arange(70, 78, 3)] ^= 1
@@ -204,7 +212,7 @@ def chain_world(tmp_path_factory):
     quals = np.full((R, L), 30, np.uint8)
     quals[-2, np.arange(70, 78, 3)] = 2
     quals[7, :40] = rng.integers(0, 41, 40)
-    ji, ti = JaxIndex.from_host(db), DeviceIndex.from_host(db)
+    ji, ti = JaxIndex.from_host(db), DeviceIndex.from_host(db, "cpu")
     out = {}
     for with_quals in (False, True):
         q = quals if with_quals else None
@@ -223,7 +231,7 @@ def chain_world(tmp_path_factory):
 
 CHAIN_CASES = ["one_intron", "two_introns", "deletion", "soft_clip_tail",
                "middle_insertion", "intron_plus_insertion", "random",
-               "quality", "no_candidate"]
+               "quality", "no_candidate", "ties"]
 
 
 @pytest.mark.parametrize("with_quals", [False, True])
@@ -239,6 +247,9 @@ def test_chain_solve_matches(chain_world, case, with_quals):
         assert want["nsegs"][rows[0]] == 3
     if case == "quality":       # the low-quality tail is kept with quals
         assert want["q_end"][rows[0]] == (80 if with_quals else 70)
+    if case == "ties":          # switch junctions, and more than S segments
+        assert (want["nsegs"][rows] >= 2).all()
+        assert (want["nsegs"][rows] > 8).any()
 
 
 def test_path_scoring_fields_match():
@@ -258,7 +269,7 @@ def mixed(tmp_path_factory):
     want = sam_text(jdriver.align_records(
         db, ji, reads, jengine.AlignConfig(**CFG), novelsplicing=True,
         batch_size=32))
-    return db, ji, DeviceIndex.from_host(db), reads, want
+    return db, ji, DeviceIndex.from_host(db, "cpu"), reads, want
 
 
 def test_align_batch_full_splicing_dict_matches(mixed):
@@ -306,12 +317,11 @@ def test_stream_workload_novelsplicing_sam(mixed, sink):
 
 
 def test_rna_path_runs_without_jax(mixed, tmp_path):
-    """The port's RNA path in a process where JAX cannot be imported
-    gives tpumap's SAM."""
+    """The port's RNA path in a process where neither JAX nor
+    tpumap can be imported gives tpumap's SAM."""
     want = mixed[4]
-    script = f"""
-import pathlib, sys
-sys.modules["jax"] = None
+    script = NO_TPUMAP + f"""
+import pathlib
 sys.path[:0] = [{str(REPO)!r}, {str(REPO / "tests")!r}]
 import torch
 torch.set_num_threads(1)
@@ -319,11 +329,12 @@ from torch_workloads import mixed_workload
 from tpumap_torch.gsnap.driver import align_records
 from tpumap_torch.gsnap.engine import AlignConfig
 from tpumap_torch.index.device import DeviceIndex
-db, reads, _ = mixed_workload(pathlib.Path({str(tmp_path)!r}))
-align_records(db, DeviceIndex.from_host(db), reads,
+db, reads, _ = mixed_workload(pathlib.Path({str(tmp_path)!r}), port=True)
+align_records(db, DeviceIndex.from_host(db, "cpu"), reads,
               AlignConfig(top_k=4, max_occ=8), novelsplicing=True,
               batch_size=32, sink=sys.stdout.buffer.write)
 assert sys.modules["jax"] is None
+assert not [m for m in sys.modules if m.split(".")[0] == "tpumap"]
 """
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
                        timeout=300)

@@ -113,7 +113,7 @@ def runs(tmp_path_factory):
     kw = dict(novelsplicing=True, max_intron=MAX_INTRON, batch_size=64)
     want = sam_text(jdriver.align_records(db, JaxIndex.from_host(db), reads,
                                           jengine.AlignConfig(), **kw))
-    ti = DeviceIndex.from_host(db)
+    ti = DeviceIndex.from_host(db, "cpu")
     got = sam_text(driver.align_records(db, ti, reads, engine.AlignConfig(),
                                         **kw))
     chunks = []

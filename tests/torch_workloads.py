@@ -1,11 +1,45 @@
 """Read workloads shared by the tpumap_torch tests (no JAX imports, so
-the GPU tests can use them on a machine without JAX)."""
+the GPU tests can use them on a machine without JAX).
+
+Each workload builds its GenomeDB and Records with tpumap's host modules
+(for the JAX side of a parity test), or with port=True with the port's
+own copies, from the same generator (for runs where tpumap cannot be
+imported)."""
+import types
+
 import numpy as np
 
-from tpumap.index import build_db
-from tpumap.io.fasta import Record
-from tpumap.utils import dna
 from tpumap_torch.ops.mode import add_mode_index
+
+# the preamble of a test subprocess in which neither JAX nor tpumap can
+# be imported (sys.modules blocks JAX, a meta-path finder tpumap.*)
+NO_TPUMAP = """
+import sys
+sys.modules["jax"] = None
+
+
+class _RefuseTpumap:
+    def find_spec(self, name, path=None, target=None):
+        if name == "tpumap" or name.startswith("tpumap."):
+            raise ImportError(f"{name} is refused")
+        return None
+
+
+sys.meta_path.insert(0, _RefuseTpumap())
+"""
+
+
+def host(port: bool = False):
+    """build_db, Record and dna of tpumap, or of the port with port=True."""
+    if port:
+        from tpumap_torch.index.build import build_db
+        from tpumap_torch.io.fasta import Record
+        from tpumap_torch.utils import dna
+    else:
+        from tpumap.index import build_db
+        from tpumap.io.fasta import Record
+        from tpumap.utils import dna
+    return types.SimpleNamespace(build_db=build_db, Record=Record, dna=dna)
 
 
 def write_fasta(path, seq):
@@ -14,12 +48,14 @@ def write_fasta(path, seq):
     return path
 
 
-def mixed_workload(root):
+def mixed_workload(root, port=False):
     """tests/test_stream.py's workload from its generator: a 60 kbp genome
     with a GT..AG intron and reads with substitutions, splices (soft
     clipped with splicing off), 4-base deletions, 3-base insertions,
     random unmapped reads with qualities and an N read.
     Returns (db, reads, genome fasta path)."""
+    h = host(port)
+    Record = h.Record
     rng = np.random.default_rng(11)
     seq = "".join("ACGT"[i] for i in rng.integers(0, 4, 60000))
     don, acc = 30100, 31000
@@ -49,12 +85,14 @@ def mixed_workload(root):
         s = "".join("ACGT"[i] for i in rng.integers(0, 4, 100))
         reads.append(Record(f"unm{r}", "", s, "I" * 100))
     reads.append(Record("nn0", "", "ACGTN" * 20))
-    return build_db(gfa, name="g", k=12, interval=3), reads, gfa
+    return h.build_db(gfa, name="g", k=12, interval=3), reads, gfa
 
 
-def stream_pairs(db):
+def stream_pairs(db, port=False):
     """tests/test_stream.py's paired workload on mixed_workload's genome:
     25 FR pairs with qualities and one pair whose mate is random."""
+    h = host(port)
+    Record, dna = h.Record, h.dna
     rng = np.random.default_rng(3)
     g = db.get_seq(0, db.genome_length)
     pairs = []
@@ -73,14 +111,15 @@ def sam_text(recs) -> bytes:
     return "".join(r.lines() for r in recs).encode()
 
 
-def mode_world(root):
+def mode_world(root, port=False):
     """tests/test_modes.py's world (30 kbp, k=12) with the tables of all
     four base spaces, and tests/test_snps.py's dense SNP cluster on it
     (an alt allele every 20 bp in [5000, 5240), alt = ref + 1).
     Returns (db, seq, snp coords, alt codes)."""
     rng = np.random.default_rng(33)
     seq = "".join("ACGT"[i] for i in rng.integers(0, 4, 30000))
-    db = build_db(write_fasta(root / "g.fa", seq), name="g", k=12, interval=3)
+    db = host(port).build_db(write_fasta(root / "g.fa", seq), name="g", k=12,
+                             interval=3)
     for space in ("ct", "ga", "ag", "tc"):
         add_mode_index(db, space)
     coords = np.arange(5000, 5240, 20, dtype=np.int64)
@@ -105,12 +144,14 @@ def convert(s: str, mode: str, cpg: bool = False) -> str:
                    for i, c in enumerate(s))
 
 
-def mode_reads(seq, mode, n, seed, snps=None, name="m"):
+def mode_reads(seq, mode, n, seed, snps=None, name="m", port=False):
     """n 100-bp reads of seq from a stranded library of `mode` (None: no
     conversion), every other one reverse-complemented before conversion;
     every fourth with two substitutions and the sixth with an N. With
     snps = (coords, alts), reads start inside the SNP cluster and carry
     the alt alleles they cover."""
+    h = host(port)
+    Record, dna = h.Record, h.dna
     rng = np.random.default_rng(seed)
     g = list(seq)
     if snps is not None:
@@ -135,9 +176,11 @@ def mode_reads(seq, mode, n, seed, snps=None, name="m"):
     return reads
 
 
-def mode_pairs(seq, mode, n, seed):
+def mode_pairs(seq, mode, n, seed, port=False):
     """n FR pairs, inserts 250-500, each mate converted in its own text
     (tests/test_modes.py's convention)."""
+    h = host(port)
+    Record, dna = h.Record, h.dna
     rng = np.random.default_rng(seed)
     out = []
     for r in range(n):
@@ -148,3 +191,32 @@ def mode_pairs(seq, mode, n, seed):
             m1, m2 = convert(m1, mode), convert(m2, mode)
         out.append((Record(f"p{r}/1", "", m1), Record(f"p{r}/2", "", m2)))
     return out
+
+
+# candidate offsets of a tie row (s: the row's phase shift), in lane order
+def _tie_offsets(s):
+    return [0, s, 4, s + 4, -4, s - 4, 8, s + 400, -8, s + 20_000, 12,
+            s + 8, 400, s + 404, 16, s - 8]
+
+
+def tie_rows(rng, d, K, L):
+    """Tie-heavy chain DP rows on a genome that reads ACGT repeated from
+    every diagonal d (a multiple of 4): read r follows d to a switch point
+    and d + s (s in 1..3) after it, with a mismatch every fourth base
+    past the switch. The K candidates are diagonals of both phases, so
+    lanes of one phase score alike (equal H, equal jumps), and the row
+    maximum recurs every four bases. Returns (codes uint8[R, L], lengths
+    int32[R], diags int64[R, K])."""
+    R = len(d)
+    q = np.arange(L)
+    sw = rng.integers(20, 60, R)
+    shift = rng.integers(1, 4, R)
+    codes = ((q[None, :] + np.where(q[None, :] >= sw[:, None],
+                                    shift[:, None], 0)) % 4).astype(np.uint8)
+    lengths = rng.integers(L - 28, L + 1, R).astype(np.int32)
+    for r in range(R):
+        codes[r, sw[r] + 8 + r % 4:lengths[r]:4] ^= 1
+    codes[q[None, :] >= lengths[:, None]] = 0
+    diags = np.stack([d[r] + np.array(_tie_offsets(int(shift[r]))[:K])
+                      for r in range(R)]).astype(np.int64)
+    return codes, lengths, diags

@@ -6,15 +6,19 @@ for sm_90a at first use, see `kernels.py`); every kernel wrapper keeps a
 plain PyTorch version beside it, which is what runs for CPU tensors.
 
 Package layout:
-  tpumap_torch.index   DeviceIndex built from tpumap's host GenomeDB
+  tpumap_torch.index   GenomeDB (host build/load) and its DeviceIndex
   tpumap_torch.ops     pack / verify / seed / trim / banded DP / chain DP /
                        window scans
   tpumap_torch.gsnap   cascade, fused ladder, host driver (single and
                        paired end, novel and known splicing)
+  tpumap_torch.io      FASTA/FASTQ, IIT maps, SAM records and bulk emitters
+  tpumap_torch.native  the C++ tokenizer and SAM emitters (g++ at first use)
+  tpumap_torch.utils   DNA encoding, result-dict wire dtypes
 
-It imports torch and numpy, and of tpumap only the modules that load
-without JAX (index.build, io, native, utils.dna, utils.fetch,
-gsnap.params, gsnap.spliceends, gsnap.knownsplicing).
+It imports torch, numpy and the standard library, and nothing of tpumap:
+the host modules it shares with tpumap are copies that keep tpumap's
+names. Its entry points run on the card unless the caller asks for the
+CPU.
 """
 
 __version__ = "0.1.0"

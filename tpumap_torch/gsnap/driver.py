@@ -27,21 +27,23 @@ import sys
 import numpy as np
 import torch
 
-from tpumap.index.build import GenomeDB
-from tpumap.io import sam, sam_bulk
-from tpumap.io.fasta import Record, read_seqs
-from tpumap.gsnap.params import MIN_INTRON
-from tpumap.gsnap.spliceends import (AMB_MAX, NC_REVIEW_MAX,
-                                     pool_device_results, xa_tag)
-from tpumap.utils import dna
+from tpumap_torch import native
 from tpumap_torch.gsnap import ladder
 from tpumap_torch.gsnap.engine import AlignConfig, mapq_from_scores
-from tpumap_torch.gsnap.knownsplicing import known_to_device
+from tpumap_torch.gsnap.knownsplicing import KnownSplicing, known_to_device
+from tpumap_torch.gsnap.params import MIN_INTRON
+from tpumap_torch.gsnap.spliceends import (AMB_MAX, NC_REVIEW_MAX,
+                                           pool_device_results, xa_tag)
+from tpumap_torch.index.build import GenomeDB
 from tpumap_torch.index.device import DeviceIndex
+from tpumap_torch.io import sam, sam_bulk
+from tpumap_torch.io.fasta import Record, read_seqs
+from tpumap_torch.io.iit import IIT
 from tpumap_torch.ops import dp as dp_ops
 from tpumap_torch.ops.mode import MODE_SPACES
 from tpumap_torch.ops import pathdp
 from tpumap_torch.ops.pack import words_for
+from tpumap_torch.utils import dna
 
 
 def pad_to_bucket(n: int, buckets=(32, 64, 96, 128, 160, 192, 256, 384, 512)) -> int:
@@ -58,12 +60,7 @@ def make_batch(records: list[Record], batch_size: int, L: int):
     codes = np.zeros((batch_size, L), dtype=np.uint8)
     nmask = np.zeros((batch_size, L), dtype=bool)
     lengths = np.zeros(batch_size, dtype=np.int32)
-    lib = None
-    try:
-        from tpumap.native import get_lib
-        lib = get_lib()
-    except Exception:
-        pass
+    lib = native.get_lib()
     any_qual = any(r.quality for r in records)
     if lib is not None and records:
         W = words_for(L)
@@ -740,7 +737,7 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                   known_indels=None, device_ctx=None,
                   sink=None) -> list[sam.SamRecord]:
     """Align single-end reads (DNA, or RNA with novelsplicing and/or
-    known, a tpumap KnownSplicing) through the fused ladder on the
+    known, a KnownSplicing) through the fused ladder on the
     index's device. Returns SAM records in input order, or, with sink (a
     callable taking bytes), streams the final SAM text to it in input
     order and returns []."""
@@ -1025,11 +1022,9 @@ def main(argv=None):
         return 2
     known = None
     if args.use_splicing:
-        from tpumap.gsnap.knownsplicing import KnownSplicing
         if args.use_splicing.endswith(".npz"):
             known = KnownSplicing.load(args.use_splicing)
         else:
-            from tpumap.io.iit import IIT
             known = KnownSplicing.from_splicing_iit(
                 IIT.read(args.use_splicing), db)
     index = DeviceIndex.from_host(db, device)

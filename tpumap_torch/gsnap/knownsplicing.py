@@ -1,8 +1,12 @@
-"""Known splice sites on the device (port of the device half of
-tpumap/gsnap/knownsplicing.py; the KnownSplicing dataclass itself is
-tpumap's, which loads without JAX).
+"""Known splice sites (the -s/--use-splicing path; port of
+tpumap/gsnap/knownsplicing.py).
 
-`known_to_device` is KnownSplicing.to_device: the four sorted site sets
+`KnownSplicing` is a copy of tpumap's dataclass (built from a splicing
+map IIT, from junctions, or loaded from .npz): four sorted univcoord sets
+(donor, acceptor, antidonor, antiacceptor; a donor coordinate is the
+first intron base, an acceptor the first exon base after the intron) and
+the plus- and minus-sense junction pairs. `known_to_device` is
+KnownSplicing.to_device: the four sorted site sets
 and the junction-pair table in two sorted views (by left and by right
 boundary) with their intron lengths, as int64 tensors holding uint32
 coordinates (introns int32). An empty set becomes the one impossible
@@ -11,16 +15,135 @@ searchsorted membership test.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
 import torch
 
-from tpumap.gsnap.knownsplicing import KnownSplicing
+_EMPTY = np.zeros(0, dtype=np.uint64)
+
+
+@dataclass
+class KnownSplicing:
+    donor: np.ndarray = field(default_factory=lambda: _EMPTY)
+    acceptor: np.ndarray = field(default_factory=lambda: _EMPTY)
+    antidonor: np.ndarray = field(default_factory=lambda: _EMPTY)
+    antiacceptor: np.ndarray = field(default_factory=lambda: _EMPTY)
+    # paired junctions (the reference's *_partners): [J, 2] arrays of
+    # (left, right) boundary univcoords — left = first intron base,
+    # right = first exon base after the intron — sorted by left coord.
+    # junctions carries plus-sense (GT-AG side) introns, anti_junctions
+    # antisense ones. Used to DERIVE the partner diagonal for reads whose
+    # second exon anchor is too short to seed (src/knownsplicing.c:59-80)
+    junctions: np.ndarray = field(
+        default_factory=lambda: np.zeros((0, 2), dtype=np.uint64))
+    anti_junctions: np.ndarray = field(
+        default_factory=lambda: np.zeros((0, 2), dtype=np.uint64))
+
+    def __post_init__(self):
+        for name in ("donor", "acceptor", "antidonor", "antiacceptor"):
+            arr = np.asarray(getattr(self, name), dtype=np.uint64)
+            setattr(self, name, np.unique(arr))
+        for name in ("junctions", "anti_junctions"):
+            arr = np.asarray(getattr(self, name), dtype=np.uint64).reshape(-1, 2)
+            order = np.lexsort((arr[:, 1], arr[:, 0]))
+            setattr(self, name, arr[order])
+
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def from_splicing_iit(cls, iit, db, intron_level: bool | None = None
+                          ) -> "KnownSplicing":
+        """Build from a splicing map IIT + GenomeDB chromosome table.
+
+        Mirrors src/knownsplicing.c:892-985: typed donor/acceptor entries
+        give site-level knowledge; if the IIT has no donor/acceptor types
+        (or intron_level is forced) every interval is treated as a full
+        donor..acceptor intron.
+        """
+        donor_t = iit.typeint("donor")
+        acceptor_t = iit.typeint("acceptor")
+        if intron_level is None:
+            intron_level = donor_t < 0 or acceptor_t < 0
+        chrom_off = {name: int(db.chrom_offsets[i])
+                     for i, name in enumerate(db.chrom_names)}
+        d, a, ad, aa = [], [], [], []
+        junc, anti_junc = [], []
+        for divno, divname in enumerate(iit.divs):
+            if divname not in chrom_off:
+                continue
+            off = chrom_off[divname]
+            dd = iit.divdata[divno]
+            for r in range(len(dd)):
+                # interval lows are 1-based; chroffset + low = 0-based
+                # coordinate one past the exon end (src/knownsplicing.c:916)
+                low = off + int(dd.lows[r])
+                high = off + int(dd.highs[r]) - 1
+                sign = int(dd.signs[r])
+                if intron_level:
+                    if sign >= 0:
+                        d.append(low)
+                        a.append(high)
+                        junc.append((low, high))
+                    else:
+                        ad.append(high)
+                        aa.append(low)
+                        anti_junc.append((low, high))
+                elif int(dd.types[r]) == donor_t:
+                    (d if sign >= 0 else ad).append(low)
+                elif int(dd.types[r]) == acceptor_t:
+                    (a if sign >= 0 else aa).append(low)
+        return cls(donor=np.asarray(d, dtype=np.uint64),
+                   acceptor=np.asarray(a, dtype=np.uint64),
+                   antidonor=np.asarray(ad, dtype=np.uint64),
+                   antiacceptor=np.asarray(aa, dtype=np.uint64),
+                   junctions=np.asarray(junc, dtype=np.uint64).reshape(-1, 2),
+                   anti_junctions=np.asarray(anti_junc,
+                                             dtype=np.uint64).reshape(-1, 2))
+
+    @classmethod
+    def from_junctions(cls, donor_coords, acceptor_coords, senses
+                       ) -> "KnownSplicing":
+        """Build from observed junctions (two-pass learning, the
+        Path_learn_* -> Knownsplicing_new path, src/gsnap.c:4340-4352).
+
+        donor_coords[i] = univcoord of the first intron base (left edge),
+        acceptor_coords[i] = univcoord of the first exon base after the
+        intron (right edge), senses[i] = +1 (GT-AG side) / -1 (antisense).
+        """
+        donor_coords = np.asarray(donor_coords, dtype=np.uint64)
+        acceptor_coords = np.asarray(acceptor_coords, dtype=np.uint64)
+        senses = np.asarray(senses)
+        plus = senses >= 0
+        return cls(donor=donor_coords[plus],
+                   acceptor=acceptor_coords[plus],
+                   antiacceptor=donor_coords[~plus],
+                   antidonor=acceptor_coords[~plus],
+                   junctions=np.stack([donor_coords[plus],
+                                       acceptor_coords[plus]], axis=1),
+                   anti_junctions=np.stack([donor_coords[~plus],
+                                            acceptor_coords[~plus]], axis=1))
+
+    # the --splices-read analog (src/gsnap.c:655-658)
+
+    @classmethod
+    def load(cls, path: str) -> "KnownSplicing":
+        z = np.load(path if path.endswith(".npz") else path + ".npz")
+        kw = {}
+        for name in ("junctions", "anti_junctions"):
+            if name in z:
+                kw[name] = z[name]
+        return cls(donor=z["donor"], acceptor=z["acceptor"],
+                   antidonor=z["antidonor"], antiacceptor=z["antiacceptor"],
+                   **kw)
+
 
 SITE_SETS = ("donor", "acceptor", "antidonor", "antiacceptor")
 
 
-def known_to_device(ks: KnownSplicing, device) -> dict:
-    """KnownSplicing.to_device on `device`: donor, acceptor, antidonor,
+def known_to_device(ks, device) -> dict:
+    """KnownSplicing.to_device on `device` (ks: a KnownSplicing of
+    either package, read by its attributes): donor, acceptor, antidonor,
     antiacceptor, jleft, jright int64 (uint32 coordinates, sorted) and
     jleft_intron, jright_intron int32."""
 

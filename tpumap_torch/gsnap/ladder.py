@@ -23,27 +23,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpumap.gsnap.params import (CLIP_INDEL_TRIGGER, CLIP_SPLICE_TRIGGER,
-                                 INDEL_BAND, INDEL_MARGIN, INDEL_NMM_TRIGGER,
-                                 SPLICE_NMM_TRIGGER)
-from tpumap.gsnap.spliceends import (AMB_MAX, BOUNDARY_SHIFTS, SCAN_W,
-                                     TOP_ALTS)
-from tpumap.gsnap.spliceends import MIN_INTRON as AMB_MIN_INTRON
-from tpumap.utils.fetch import _WIRE_DTYPES, widen_ints
 from tpumap_torch.gsnap.engine import (AlignConfig,
                                        align_batch_cascaded_packed,
                                        indel_forward, indel_traceback)
+from tpumap_torch.gsnap.params import (CLIP_INDEL_TRIGGER,
+                                       CLIP_SPLICE_TRIGGER, INDEL_BAND,
+                                       INDEL_MARGIN, INDEL_NMM_TRIGGER,
+                                       SPLICE_NMM_TRIGGER)
+from tpumap_torch.gsnap.spliceends import (AMB_MAX, BOUNDARY_SHIFTS, SCAN_W,
+                                           TOP_ALTS)
+from tpumap_torch.gsnap.spliceends import MIN_INTRON as AMB_MIN_INTRON
 from tpumap_torch.ops import localscan, pack, pathdp, verify
 from tpumap_torch.ops.dp import MAXRUNS
 from tpumap_torch.ops.u32 import (INT32_MIN, INVALID, MASK32, stable_topk,
                                   take_along)
+from tpumap_torch.utils.fetch import _WIRE_DTYPES, widen_ints
 
 SALVAGE_W = 65536         # localdb region scale (src/localdb-write.c)
 SALVAGE_F = 16
 MIN_FRAG = 6
 N_PARTNER = 3             # known-junction partner diagonals per side
 
-# wire dtypes (tpumap/utils/fetch.py): uint16 fields travel as int16 bit
+# wire dtypes (tpumap_torch/utils/fetch.py): uint16 fields travel as int16 bit
 # patterns and are reinterpreted on the host
 _TORCH_WIRE = {"uint8": torch.uint8, "int16": torch.int16,
                "uint16": torch.int16, "int8": torch.int8,

@@ -25,19 +25,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpumap.gsnap import spliceends as se
-from tpumap.index.build import GenomeDB
-from tpumap.io import sam, sam_bulk
-from tpumap.io.fasta import Record
-from tpumap.utils import dna
 from tpumap_torch.gsnap import ladder
+from tpumap_torch.gsnap import spliceends as se
 from tpumap_torch.gsnap.driver import (_to_device, make_batch, pad_to_bucket,
                                        refine_unsolved)
 from tpumap_torch.gsnap.engine import AlignConfig, mapq_from_scores
 from tpumap_torch.gsnap.knownsplicing import known_to_device
+from tpumap_torch.index.build import GenomeDB
 from tpumap_torch.index.device import DeviceIndex
+from tpumap_torch.io import sam, sam_bulk
+from tpumap_torch.io.fasta import Record
 from tpumap_torch.ops import localscan, pack, pathdp, verify
 from tpumap_torch.ops.u32 import INVALID, MASK32
+from tpumap_torch.utils import dna
 
 NO_PAIR = 2 ** 28           # concordance key of a non-concordant combination
 
@@ -130,7 +130,7 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
     """Align read pairs through the fused paired program on the index's
     device. Returns (mate 1, mate 2) SAM record pairs in input order, or,
     with sink (a callable taking bytes), streams the SAM text to it and
-    returns []. known: a tpumap KnownSplicing (-s). stats, if given,
+    returns []. known: a KnownSplicing (-s). stats, if given,
     counts the rescue rows, the mates rescued, the repair rows and the
     mates repaired."""
     unported = {"tr": tr is not None,

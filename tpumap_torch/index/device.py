@@ -1,6 +1,7 @@
 """Device-resident genome index (port of tpumap/index/device.py).
 
-The device image of a tpumap GenomeDB, with tpumap's padding so every
+The device image of a GenomeDB (tpumap_torch.index.build, or tpumap's,
+read by its attributes), with tpumap's padding so every
 gather may read one past the end: genome words padded with zeros, the
 N bitmap with ones and positions with INVALID, each by SAFE_PAD_WORDS.
 
@@ -19,7 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpumap.index.build import GenomeDB
+from tpumap_torch.index.build import GenomeDB
 from tpumap_torch.ops.u32 import INVALID
 
 # tpumap/ops/verify.py SAFE_PAD_WORDS: the widest fixed window fetched in
@@ -71,7 +72,9 @@ class DeviceIndex:
         return sum(t.numel() * t.element_size() for t in ts)
 
     @classmethod
-    def from_host(cls, db: GenomeDB, device="cpu") -> "DeviceIndex":
+    def from_host(cls, db: GenomeDB, device="cuda") -> "DeviceIndex":
+        """The index of db on `device`: the card unless the caller asks
+        for the CPU; raises where the device is CUDA and there is none."""
         if db.positions.dtype != np.uint32:
             raise ValueError("genome exceeds the uint32 coordinate space")
         pad_inv = np.full(SAFE_PAD_WORDS, INVALID, np.uint32)
@@ -97,11 +100,17 @@ class DeviceIndex:
         }, device)
 
     @classmethod
-    def from_jax_arrays(cls, arrays: dict, device="cpu") -> "DeviceIndex":
+    def from_jax_arrays(cls, arrays: dict, device="cuda") -> "DeviceIndex":
         """Build from a tpumap DeviceIndex's fields as numpy arrays (and
         its static ints/flags), already padded — so a test feeds both
         packages the same index. alt_offsets and alt_positions (dicts by
-        space) and genomealt_packed are optional."""
+        space) and genomealt_packed are optional. On the card unless the
+        caller asks for the CPU; raises where there is no CUDA device."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "DeviceIndex: no CUDA device; pass device='cpu' to run "
+                "the plain versions on the CPU")
         alt_off = arrays.get("alt_offsets") or {}
         alt_pos = arrays.get("alt_positions") or {}
         for off in [arrays["offsets"], *alt_off.values()]:

@@ -3,7 +3,8 @@
 The sources are compiled at first use with nvcc for sm_90a, one nvcc
 process per source run side by side, and linked into one shared library
 with a plain C interface, under tpumap_torch/_build/ keyed by a hash of
-the sources, and loaded with ctypes. Each C entry
+the sources (nvcc's -Xptxas -v report beside it in build.log, read back
+into `build_log` when the library is cached), and loaded with ctypes. Each C entry
 point launches on the stream it is given and returns cudaGetLastError();
 `launch` raises if that is not 0. There is no fallback: a missing nvcc
 or a failed build raises.
@@ -42,7 +43,7 @@ _ENTRY = {
                    _P, _P, _P, _P, _P]),
     "chain_dp": ("tt_chain_dp",
                  [_P] * 7 + [_I] * 3 + [_I] * 7 + [_L, _L] + [_I] * 4
-                 + [_P] * 8),
+                 + [_P] * 7),
     "scan_fragment": ("tt_scan_fragment", _SCAN_ARGS),
     "scan_exact_sites": ("tt_scan_exact_sites", _SCAN_ARGS),
     "scan_fragment_runs": ("tt_scan_fragment_runs", _SCAN_ARGS),
@@ -105,9 +106,13 @@ def build() -> ctypes.CDLL:
         if r.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
                                f"{build_log}")
+        out.with_name("build.log").write_text(build_log)
         os.replace(tmp, out)
         for o in objs:
             o.unlink()
+    else:
+        log = out.with_name("build.log")
+        build_log = log.read_text() if log.exists() else ""
     lib = ctypes.CDLL(str(out))
     for name, (sym, argtypes) in _ENTRY.items():
         fn = getattr(lib, sym)

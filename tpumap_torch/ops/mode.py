@@ -16,7 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpumap_torch.index.build import build_kmer_index
 from tpumap_torch.ops.u32 import to_i32, u32
+from tpumap_torch.utils import dna
 
 LOW = 0x55555555
 
@@ -41,11 +43,10 @@ SPACE_CODES = {None: 0, "ct": 1, "ga": 2, "ag": 3, "tc": 4}
 
 
 def add_mode_index(db, space: str) -> None:
-    """GenomeDB.add_mode_index(space) without JAX (tpumap's method reads
-    CODE_MAPS from tpumap/ops/mode.py, which imports it): the k-mer table
-    of the genome mapped into the space, under db.mode_indexes[space]."""
-    from tpumap.index.build import build_kmer_index
-    from tpumap.utils import dna
+    """GenomeDB.add_mode_index(space) (tpumap's method reads CODE_MAPS
+    from tpumap/ops/mode.py, which imports JAX): the k-mer table of the
+    genome mapped into the space, under db.mode_indexes[space]; db is a
+    GenomeDB of either package."""
     codes = dna.unpack_2bit(db.genome_packed, db.genome_length)
     nmask = db.get_nmask(0, db.genome_length).astype(bool)
     db.mode_indexes = db.mode_indexes or {}

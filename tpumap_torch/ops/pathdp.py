@@ -268,12 +268,24 @@ def chain_dp_plain(inp: dict, lengths: torch.Tensor,
             "seg_diag": seg_diag, "nmm": nmm}
 
 
+def chain_max_len(K: int) -> int:
+    """The longest rows K5 takes at K lanes: 28,984 steps up to 8 lanes,
+    7,194 up to 16. A block (csrc/chain.cu) holds one row a warp at 8
+    lanes and two at 16, each with its [L, lanes] choice bytes (padded
+    to 16), a 16-deep ring of int32 sums per lane and its diagonals and
+    segments in shared memory, within the H100's 227 KiB a block."""
+    G, rows = (8, 1) if K <= 8 else (16, 2)
+    fixed = 16 * G * 4 + G * 4 + MAX_SEGMENTS * 4
+    return (227 * 1024 // rows - fixed) // 16 * 16 // G
+
+
 def chain_dp(inp: dict, lengths: torch.Tensor,
              scoring: PathScoring = PathScoring()) -> dict:
     """chain_dp_plain for CPU tensors; kernel K5 for CUDA. The kernel
-    reads its [R, K, L] inputs time-major ([L, K, R], one thread per
-    row, neighbouring rows on neighbouring addresses); K is 8 lanes, or
-    14 with known splicing's partner diagonals."""
+    reads chain_inputs' [R, K, L] tensors as they are, with 32 threads
+    per row up to 8 lanes (4 per candidate) and 16 up to 16 lanes; K is
+    8 lanes, or 14 with known splicing's partner diagonals. It takes
+    2 <= L <= chain_max_len(K) and raises ValueError past that."""
     s = inp["s"]
     if s.device.type == "cpu":
         return chain_dp_plain(inp, lengths, scoring)
@@ -281,21 +293,21 @@ def chain_dp(inp: dict, lengths: torch.Tensor,
     R, K, L = s.shape
     dev = s.device
     S = MAX_SEGMENTS
+    known = inp["known"]
     kernels.check_args("chain_dp", dev,
                        (inp["diags"], torch.int64, (R, K)),
                        (s, torch.int32, (R, K, L)),
                        (inp["don"], torch.int32, (R, K, L)),
                        (inp["acc"], torch.int32, (R, K, L)),
                        (inp["mm"], torch.bool, (R, K, L)),
+                       *(() if known is None
+                         else ((known, torch.uint8, (R, K, L)),)),
                        (lengths, torch.int32, (R,)))
-    if K > 16 or not 0 <= sc.max_insert <= 8 or L < 2:
-        raise ValueError("chain_dp: needs K <= 16 candidates, "
-                         "max_insert <= 8 and L >= 2")
-
-    def tmajor(x):
-        return x.permute(2, 1, 0).to(torch.uint8).contiguous()
-
-    known = inp["known"]
+    if not 1 <= K <= 16 or not 0 <= sc.max_insert <= 8 \
+            or not 2 <= L <= chain_max_len(K):
+        raise ValueError(f"chain_dp: needs 1 <= K <= 16 candidates, "
+                         f"max_insert <= 8 and 2 <= L <= {chain_max_len(K)}"
+                         f" (K = {K}, L = {L})")
     out = {"score": torch.empty(R, dtype=torch.int32, device=dev),
            "q_start": torch.empty(R, dtype=torch.int32, device=dev),
            "q_end": torch.empty(R, dtype=torch.int32, device=dev),
@@ -305,16 +317,13 @@ def chain_dp(inp: dict, lengths: torch.Tensor,
            "nmm": torch.empty(R, dtype=torch.int32, device=dev)}
     if R == 0:
         return out
-    choices = torch.empty((L, K, R), dtype=torch.uint8, device=dev)
-    kn = tmajor(known) if known is not None else None
     kernels.launch(
-        "chain_dp", dev, inp["diags"], s.permute(2, 1, 0).contiguous(),
-        tmajor(inp["don"]), tmajor(inp["acc"]), tmajor(inp["mm"]),
-        kn if kn is not None else 0, lengths, R, K, L,
+        "chain_dp", dev, inp["diags"], s, inp["don"], inp["acc"], inp["mm"],
+        known if known is not None else 0, lengths, R, K, L,
         sc.del_open, sc.del_extend, sc.splice_base, sc.bonus_gtag,
         sc.bonus_gcag, sc.bonus_atac, sc.bonus_known, sc.min_intron,
         sc.max_intron, sc.ins_open, sc.ins_extend, sc.max_insert,
-        int(sc.allow_noncanon), choices, out["score"], out["q_start"],
+        int(sc.allow_noncanon), out["score"], out["q_start"],
         out["q_end"], out["nsegs"], out["seg_q"], out["seg_diag"],
         out["nmm"])
     return out
