@@ -9,8 +9,9 @@ mate repair, and bisulfite (cmet) and SNP-tolerant DNA at the DNA size
 — and fails (exit code != 0) if any phase fails:
 
 1. card name and power limit; build the CUDA kernels from csrc/ (each
-   K5 instance's ptxas registers, stack and spills; K5 must have no
-   stack frame and no spills); the port's native host library must load;
+   kernel instance's ptxas registers, stack and spills; no K5 instance
+   and not the K2 instance of the indel band may have a stack frame or
+   spills); the port's native host library must load;
 2. the chr21-scale bench genome (46.7 Mbp, tools/bench_data.py) and
    its k=14, interval-3 index, uploaded to the card;
 3. every kernel at its main-path shapes against its plain PyTorch
@@ -19,7 +20,9 @@ mate repair, and bisulfite (cmet) and SNP-tolerant DNA at the DNA size
    per launch, and the bound of the work (the larger of its bytes over
    the HBM rate and its integer operations over the int32 ALU rate; with the
    mate rescue's K1 at [512, 1000], K5 with known-site masks at R =
-   8,192 and 14 lanes, K6a at the mate repair's W = 1,024);
+   8,192 and 14 lanes, K5 on 64 reads of 7,169-7,680 bases at L = 7,680
+   and 14 lanes (past pathdp.chain_max_len: its choice table in global
+   memory; one plain run), K6a at the mate repair's W = 1,024);
 4. DNA end to end: one warm-up call, then align_records over all 50,000
    100-bp reads at batch size 32,768 with launch counters reset just
    before; reads/s, aligned fraction and agreement with the generator's
@@ -244,19 +247,27 @@ def device_ms(fn, reps: int, symbol: str):
 def measure(name, shape, fn, plain_fn, reps, plain_reps, in_bytes, nops):
     """One kernel row: the kernel against its plain version on the same
     inputs (max |difference|); the median time per call of the kernel's
-    wrapper ("ms") and of the plain version ("plain_ms"), CUDA events
-    around each call, host work included; and the bound of the work: the
-    larger of the bytes it must move (in_bytes read once, its outputs
-    written once) over HBM_BPS and its nops over INT_OPS. The kernel's
-    device time per launch ("device_ms") comes later, from
+    wrapper ("ms") and of the plain version ("plain_ms"; with plain_reps
+    1, the time of the one plain call that gave the comparison), CUDA
+    events around each call, host work included; and the bound of the
+    work: the larger of the bytes it must move (in_bytes read once, its
+    outputs written once) over HBM_BPS and its nops over INT_OPS. The
+    kernel's device time per launch ("device_ms") comes later, from
     profile_rows, with every other profile after the timed runs."""
     got = fn()
-    err = max_abs_err(got, plain_fn())
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = plain_fn()
+    b.record()
+    b.synchronize()
+    err = max_abs_err(got, want)
     t_bytes = (in_bytes + tensor_bytes(got)) / HBM_BPS * 1e3
     t_ops = nops / INT_OPS * 1e3
     return {"name": name, "shape": shape, "max_abs_err": err,
             "ms": cuda_ms(fn, reps),
-            "plain_ms": cuda_ms(plain_fn, plain_reps),
+            "plain_ms": (a.elapsed_time(b) if plain_reps == 1
+                         else cuda_ms(plain_fn, plain_reps)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "fn": fn, "reps": reps}
@@ -498,6 +509,7 @@ def kernel_phase(index, gpu, known, mindex):
     rows += rna_kernel_rows(index, rng, reads_at)
     rows += pe_known_kernel_rows(index, rng, reads_at, known)
     rows += mode_kernel_rows(mindex, rng, reads_at)
+    rows.append(long_chain_row(index, rng, known))
     for r in rows:
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{r['name']} disagrees with its plain "
@@ -584,7 +596,11 @@ def rna_kernel_rows(index, rng, reads_at):
 
     # int ops per window position: ~8 for the fragment's mismatch count
     # and its top-k (align two words, xor, fold, mask, popcount, compare),
-    # ~6 for an exact match and for a run length (xor, fold, bit scan)
+    # ~6 for an exact match (xor, fold, mask, compare); 3 for a run
+    # length (align, xor, compare: the run's end is the highest set bit
+    # of the xor, or the lowest on a bit-reversed window, so the least
+    # xor orders the offsets and only the few that can reach the top
+    # need a bit scan)
     g = index.genome_packed
     ws, frag, flen = scan_inputs(2048, 16)
     args = (g, ws, frag, flen, W, 16, 4)
@@ -608,8 +624,63 @@ def rna_kernel_rows(index, rng, reads_at):
             f"R=2048, W=65536, top 8, {'suffix' if suffix else 'prefix'}",
             partial(localscan.scan_fragment_runs, *args),
             partial(localscan.scan_fragment_runs_plain, *args), 20, 2,
-            *scan_work(ws, frag, None, W, 6)))
+            *scan_work(ws, frag, None, W, 3)))
     return rows
+
+
+def known_chain_inputs(index, rng, known, R, L, lens, l0s):
+    """chain_inputs of R reads of lens bases across bench junctions (known
+    sites), the junction l0s bases in (at most the donor's coordinate),
+    against 14 lanes: the junction's two diagonals and random or INVALID
+    ones; known-site masks from the bench genes, at least one site bit a
+    row."""
+    from tpumap_torch.gsnap.knownsplicing import known_to_device
+    from tpumap_torch.ops import pathdp, verify
+    dev = index.device
+    K = 14
+
+    def ints(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    jn = np.asarray(known.junctions, np.int64)
+    pick = jn[rng.integers(0, len(jn), R)]
+    l0 = np.minimum(rng.integers(*l0s, R), pick[:, 0])
+    da, db_ = pick[:, 0] - l0, pick[:, 1] - l0
+    a = verify.extract_codes_window(index.genome_packed, ints(da), L)
+    b = verify.extract_codes_window(index.genome_packed, ints(db_), L)
+    qs = torch.arange(L, device=dev)[None, :]
+    lengths = ints(lens.astype(np.int32))
+    codes = torch.where(qs < ints(l0)[:, None], a, b)
+    codes[qs >= lengths[:, None]] = 0
+    cands = np.concatenate([np.stack([da, db_], 1),
+                            rng.integers(0, index.genome_length,
+                                         (R, K - 2))], 1)
+    cands[:, 2:][rng.random((R, K - 2)) < 0.5] = 0xFFFFFFFF
+    inp = pathdp.chain_inputs(index, codes.contiguous(),
+                              torch.zeros(codes.shape, dtype=torch.bool,
+                                          device=dev),
+                              lengths, ints(cands), pathdp.PathScoring(),
+                              known=known_to_device(known, dev))
+    if not bool((inp["known"] != 0).flatten(1).any(dim=1).all()):
+        raise AssertionError("K5 known rows without a site bit")
+    return inp, lengths
+
+
+def long_chain_row(index, rng, known):
+    """K5 on 64 reads of 7,169-7,680 bases (the 7,680 bucket) at 14
+    lanes: past chain_max_len(14), so the choice table lives in global
+    memory; one plain run (it steps L times)."""
+    from tpumap_torch.ops import pathdp
+    R, L = 64, 7680
+    inp, lengths = known_chain_inputs(index, rng, known, R, L,
+                                      rng.integers(7169, L + 1, R),
+                                      (2000, 5001))
+    if L <= pathdp.chain_max_len(14):
+        raise AssertionError("the long K5 row fits shared memory")
+    return measure(
+        "chain_dp", f"R={R}, K=14, L={L}, known sites, global table",
+        partial(pathdp.chain_dp, inp, lengths),
+        partial(pathdp.chain_dp_plain, inp, lengths), 5, 1,
+        *chain_work(inp, lengths))
 
 
 def pe_known_kernel_rows(index, rng, reads_at, known):
@@ -618,7 +689,6 @@ def pe_known_kernel_rows(index, rng, reads_at, known):
     R = 8,192 with 14 lanes (the cascade's 8 and 6 partner diagonals) and
     known-site masks from the bench genes, at least one site bit per row,
     and K6a at the mate repair's R = 512, W = 1,024."""
-    from tpumap_torch.gsnap.knownsplicing import known_to_device
     from tpumap_torch.ops import localscan, pack, pathdp, verify
 
     dev = index.device
@@ -642,29 +712,11 @@ def pe_known_kernel_rows(index, rng, reads_at, known):
         partial(verify.verify_diagonals_plain, *args), 50, 10,
         *verify_work(index, packed, diags)))
 
-    R, K, L = 8192, 14, 128
-    jn = np.asarray(known.junctions, np.int64)
-    pick = jn[rng.integers(0, len(jn), R)]
-    l0 = rng.integers(20, 81, R)
-    da, db_ = pick[:, 0] - l0, pick[:, 1] - l0
-    a = verify.extract_codes_window(index.genome_packed, ints(da), L)
-    b = verify.extract_codes_window(index.genome_packed, ints(db_), L)
-    qs = torch.arange(L, device=dev)[None, :]
-    codes = torch.where(qs < ints(l0)[:, None], a, b)
-    codes[:, 100:] = 0
-    cands = np.concatenate([np.stack([da, db_], 1),
-                            rng.integers(0, glen, (R, K - 2))], 1)
-    cands[:, 2:][rng.random((R, K - 2)) < 0.5] = 0xFFFFFFFF
-    lengths = torch.full((R,), 100, dtype=torch.int32, device=dev)
-    inp = pathdp.chain_inputs(index, codes.contiguous(),
-                              torch.zeros(codes.shape, dtype=torch.bool,
-                                          device=dev),
-                              lengths, ints(cands), pathdp.PathScoring(),
-                              known=known_to_device(known, dev))
-    if not bool((inp["known"] != 0).flatten(1).any(dim=1).all()):
-        raise AssertionError("K5 known rows without a site bit")
+    R, L = 8192, 128
+    inp, lengths = known_chain_inputs(index, rng, known, R, L,
+                                      np.full(R, 100), (20, 81))
     rows.append(measure(
-        "chain_dp", f"R={R}, K={K}, L={L}, known sites",
+        "chain_dp", f"R={R}, K=14, L={L}, known sites",
         partial(pathdp.chain_dp, inp, lengths),
         partial(pathdp.chain_dp_plain, inp, lengths), 20, 2,
         *chain_work(inp, lengths)))
@@ -804,6 +856,13 @@ def main():
         raise AssertionError("no ptxas report of K5 in the build log")
     if any(v[1] or v[2] or v[3] for v in chain.values()):
         raise AssertionError(f"K5 instances with stack or spills: {chain}")
+    # K2's instance at the indel band: ceil((2 * band + 1) / 32) cells a
+    # lane
+    from tpumap_torch.gsnap.params import INDEL_BAND
+    k2 = f"banded_kernel<{-(-(2 * INDEL_BAND + 1) // 32)}>"
+    if k2 not in ptxas or any(ptxas[k2][1:]):
+        raise AssertionError(f"{k2}: no ptxas report, or stack or spills: "
+                             f"{ptxas.get(k2)}")
     if native.get_lib() is None:
         raise AssertionError("the port's native host library is not loaded")
     log("native host library loaded")

@@ -89,9 +89,14 @@ def test_verify_kernel_matches_plain(dev, B, W, C, n_frac, qunk, gunk):
 
 @pytest.mark.parametrize("R,Lq,band,mode", [
     (300, 128, 32, "glocal"), (50, 40, 8, "glocal"), (64, 60, 16, "global"),
+    (300, 128, 32, "global"), (41, 37, 1, "glocal"), (41, 37, 1, "global"),
+    (70, 130, 63, "glocal"), (70, 130, 63, "global"), (33, 99, 40, "global"),
 ])
 def test_banded_and_traceback_match_plain(dev, R, Lq, band, mode):
-    rng = np.random.default_rng(R + Lq)
+    """K2 (one warp a problem, 1 to 4 band cells a lane: bands 1, 8-16,
+    32-40 and 63) and K3 against their plain versions, glocal and
+    global, with qlen < Lq in most rows and Lq not a multiple of 4."""
+    rng = np.random.default_rng(R + Lq + band)
     Lg = Lq + band + 4
     g = rng.integers(0, 4, (R, Lg)).astype(np.uint8)
     q = g[:, 4:4 + Lq].copy()
@@ -257,20 +262,17 @@ def chain_rows(dev, idx, rng, R, L, K):
     return pathdp.chain_inputs(idx, ct, nt, lt, cdt, pathdp.PathScoring()), lt
 
 
-@pytest.mark.parametrize("K", [8, 16])
-def test_chain_kernel_longest_rows(dev, K):
-    """K5 at its longest rows, chain_max_len(K) steps (the choice table
-    fills the shared memory of a block), against the plain version; one
-    step more raises ValueError."""
-    L = pathdp.chain_max_len(K)
+@pytest.mark.parametrize("K,L", [(8, 28_984), (8, 28_985), (16, 7_194),
+                                 (16, 7_195), (14, 7_195), (14, 7_680)])
+def test_chain_kernel_longest_rows(dev, K, L):
+    """K5 at the longest rows whose choice table fits a block's shared
+    memory (chain_max_len(K) steps), and past them, where the table moves
+    to a global scratch (7,680: the bucket of a 7,169-base read), against
+    the plain version."""
+    assert L - pathdp.chain_max_len(K) in (0, 1) or L == 7_680
     rng = np.random.default_rng(L)
     idx = random_index(rng, L + 60_000, dev)
-    inp, lt = chain_rows(dev, idx, rng, 3, L + 1, K)
-    with pytest.raises(ValueError, match="L <="):
-        pathdp.chain_dp(inp, lt)
-    inp = {k: v[..., :L].contiguous() if k != "diags" and v is not None
-           else v for k, v in inp.items()}
-    lt = torch.clamp(lt, max=L)
+    inp, lt = chain_rows(dev, idx, rng, 3, L, K)
     got = pathdp.chain_dp(inp, lt)
     want = pathdp.chain_dp_plain(inp, lt)
     torch.cuda.synchronize()
@@ -304,11 +306,14 @@ def test_chain_kernel_unaligned_inputs(dev, L):
     ("fragment", 65536, 4), ("exact", 65536, 8), ("runs_suffix", 65536, 8),
     ("runs_prefix", 65536, 8), ("fragment", 2048, 4), ("exact", 100, 8),
     ("runs_suffix", 200, 3), ("fragment", 1024, 4), ("fragment", 2000, 4),
+    ("runs_prefix", 200, 3), ("runs_prefix", 1000, 8), ("runs_suffix", 7, 2),
+    ("runs_suffix", 4100, 8), ("exact", 1000, 5), ("runs_prefix", 131072, 8),
 ])
 def test_scan_kernels_match_plain(dev, scan, window, top_k):
     """K6a-c against their plain versions, with window starts past the
-    genome end (clamped as tpumap's dynamic slice clamps them) and
-    zero-length fragments."""
+    genome end (clamped as tpumap's dynamic slice clamps them),
+    zero-length fragments, windows of whole and partial words, and
+    fragments cut from the window (the runs scans find run 16 there)."""
     rng = np.random.default_rng(window + top_k)
     glen = 200_000
     idx = random_index(rng, glen, dev)
@@ -337,6 +342,7 @@ def test_scan_kernels_match_plain(dev, scan, window, top_k):
         args = (g, wt, ft, window, top_k, scan == "runs_suffix")
         got, want = (localscan.scan_fragment_runs(*args),
                      localscan.scan_fragment_runs_plain(*args))
+        assert bool((want[1][:, 0] == 16).any())
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)

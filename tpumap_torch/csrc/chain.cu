@@ -31,12 +31,21 @@
 // ring of each candidate's C in shared memory. The row maximum (first k
 // of the maximum) is a group reduction of the pairs (H, k); the latest
 // q among equal row maxima is the scalar rule. Each step's choice (and
-// the mismatch bit of its base) goes to a per-row [L, G] byte table in
-// shared memory, which the reverse walk (one thread per row) reads back;
-// it never touches global memory. Ties follow tpumap exactly: extend
-// before open before jump, the first k' of the best jump, the first k of
-// the row maximum, the latest end among equal row maxima. Gaps are
-// uint32 wrap arithmetic.
+// the mismatch bit of its base) goes to a per-row [L, G] byte table,
+// which the reverse walk (one thread per row) reads back. Ties follow
+// tpumap exactly: extend before open before jump, the first k' of the
+// best jump, the first k of the row maximum, the latest end among equal
+// row maxima. Gaps are uint32 wrap arithmetic.
+//
+// Where the table lives (GTAB): in shared memory beside the ring, the
+// diagonals and the segments while a block of one warp holds its rows'
+// tables there (L <= pathdp.chain_max_len(K): 28,984 steps at 8 lanes,
+// 7,194 at 16, which covers every read bucket up to 7,168 bases); past
+// that in a global [R, L, G] byte scratch that the wrapper allocates, so
+// a row of any length runs. Only the table moves: the ring, diagonals
+// and segments stay in shared memory, and the global instance writes
+// G bytes a step per row (coalesced within a row) and walks them back
+// with one dependent load a step.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -62,13 +71,16 @@ struct Scoring {
   int ins_open, ins_extend, max_insert, allow_noncanon;
 };
 
-// Shared memory of one row: the choice table, the running-sum ring, the
-// diagonals and the reversed segments.
-template <int G>
+// Shared memory of one row: the choice table (unless it is global), the
+// running-sum ring, the diagonals and the reversed segments.
+template <int G, bool GTAB>
 struct RowSmem {
   static constexpr int ring_bytes = RING * G * 4;
+  static __host__ __device__ int table_bytes(int L) {
+    return GTAB ? 0 : ((L * G + 15) / 16) * 16;
+  }
   static __host__ __device__ int bytes(int L) {
-    return ((L * G + 15) / 16) * 16 + ring_bytes + G * 4 + S * 4;
+    return table_bytes(L) + ring_bytes + G * 4 + S * 4;
   }
 };
 
@@ -103,13 +115,13 @@ __device__ __forceinline__ void take_first_max(int& v, int& i, int ov,
   }
 }
 
-template <int G, int SPLIT>
+template <int G, int SPLIT, bool GTAB>
 __global__ void __launch_bounds__(WARPS * 32) chain_kernel(
     const long long* __restrict__ diags, const int32_t* __restrict__ s,
     const int32_t* __restrict__ don, const int32_t* __restrict__ acc,
     const uint8_t* __restrict__ mm, const uint8_t* __restrict__ known,
     const int32_t* __restrict__ lengths, int R, int K, int L, bool vec,
-    Scoring sc,
+    Scoring sc, uint8_t* __restrict__ gtab,
     int32_t* __restrict__ out_score, int32_t* __restrict__ out_qstart,
     int32_t* __restrict__ out_qend, int32_t* __restrict__ out_nsegs,
     int32_t* __restrict__ out_segq, long long* __restrict__ out_segd,
@@ -126,9 +138,10 @@ __global__ void __launch_bounds__(WARPS * 32) chain_kernel(
   if (r >= R) return;                              // whole groups leave
   const unsigned gmask = T == 32 ? 0xFFFFFFFFu
       : ((1u << (T % 32)) - 1u) << (threadIdx.x % 32 / T * T);
-  unsigned char* base = smem + slot * RowSmem<G>::bytes(L);
-  uint8_t* ch = base;                                      // [L][G]
-  int32_t* ring = (int32_t*)(base + ((L * G + 15) / 16) * 16);  // [RING][G]
+  using Row = RowSmem<G, GTAB>;
+  unsigned char* base = smem + slot * Row::bytes(L);
+  uint8_t* ch = GTAB ? gtab + (long long)r * L * G : base;  // [L][G]
+  int32_t* ring = (int32_t*)(base + Row::table_bytes(L));   // [RING][G]
   uint32_t* dsm = (uint32_t*)(ring + RING * G);            // [G]
   int32_t* segs = (int32_t*)(dsm + G);                     // [S]
 
@@ -234,13 +247,15 @@ __global__ void __launch_bounds__(WARPS * 32) chain_kernel(
       // straight-line code per k' (selects, one predicated ring read) so
       // the unrolled k' iterations interleave; only the running best is a
       // dependent chain. k' >= K contribute nothing; with SPLIT > 1 the
-      // loop runs on (the parts of a group shuffle together).
+      // loop runs on (the parts of a group shuffle together), and so it
+      // does for a global table: long rows are few, so a step's latency
+      // counts there, and an exit at K would cut the loop into branches.
       const int cur = (q % RING) * G;
       int sw_best = 0, sw_arg = 0;
 #pragma unroll
       for (int j = 0; j < P; ++j) {
         const int kp = part * P + j;
-        if (SPLIT == 1 && kp >= K) break;
+        if (SPLIT == 1 && !GTAB && kp >= K) break;
         const int Hp = __shfl_sync(gmask, H, kp, T);
         const int dkp = __shfl_sync(gmask, dkn, kp, T);
         const int g = geom[j];
@@ -355,15 +370,15 @@ __global__ void __launch_bounds__(WARPS * 32) chain_kernel(
   }
 }
 
-template <int G, int SPLIT>
+template <int G, int SPLIT, bool GTAB>
 int launch(const void* diags, const void* s, const void* don,
            const void* acc, const void* mm, const void* known,
            const void* lengths, int R, int K, int L, bool vec,
-           const Scoring& sc,
+           const Scoring& sc, void* gtab,
            void* score, void* q_start, void* q_end, void* nsegs, void* seg_q,
            void* seg_diag, void* nmm, cudaStream_t stream) {
   constexpr int T = G * SPLIT;
-  const int per_row = RowSmem<G>::bytes(L);
+  const int per_row = RowSmem<G, GTAB>::bytes(L);
   const int max_smem = 227 * 1024;
   int warps = WARPS;
   while (warps > 1 && warps * (32 / T) * per_row > max_smem) warps /= 2;
@@ -372,15 +387,16 @@ int launch(const void* diags, const void* s, const void* don,
   if (bytes > max_smem) return (int)cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        chain_kernel<G, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        chain_kernel<G, SPLIT, GTAB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  chain_kernel<G, SPLIT><<<(R + rows - 1) / rows, warps * 32, bytes,
-                           stream>>>(
+  chain_kernel<G, SPLIT, GTAB><<<(R + rows - 1) / rows, warps * 32, bytes,
+                                 stream>>>(
       (const long long*)diags, (const int32_t*)s, (const int32_t*)don,
       (const int32_t*)acc, (const uint8_t*)mm, (const uint8_t*)known,
-      (const int32_t*)lengths, R, K, L, vec, sc, (int32_t*)score,
+      (const int32_t*)lengths, R, K, L, vec, sc, (uint8_t*)gtab,
+      (int32_t*)score,
       (int32_t*)q_start, (int32_t*)q_end, (int32_t*)nsegs, (int32_t*)seg_q,
       (long long*)seg_diag, (int32_t*)nmm);
   return (int)cudaGetLastError();
@@ -395,9 +411,10 @@ extern "C" int tt_chain_dp(const void* diags, const void* s, const void* don,
                            int b_gtag, int b_gcag, int b_atac, int b_known,
                            long long min_intron, long long max_intron,
                            int ins_open, int ins_extend, int max_insert,
-                           int allow_noncanon, void* score, void* q_start,
-                           void* q_end, void* nsegs, void* seg_q,
-                           void* seg_diag, void* nmm, void* stream) {
+                           int allow_noncanon, void* gtab, void* score,
+                           void* q_start, void* q_end, void* nsegs,
+                           void* seg_q, void* seg_diag, void* nmm,
+                           void* stream) {
   Scoring sc{del_open,   del_extend, splice_base,
              b_gtag,     b_gcag,     b_atac,
              b_known,    (uint32_t)min_intron,
@@ -407,8 +424,13 @@ extern "C" int tt_chain_dp(const void* diags, const void* s, const void* don,
   const bool vec = L % 4 == 0
       && ((uintptr_t)s | (uintptr_t)don | (uintptr_t)acc) % 16 == 0
       && ((uintptr_t)mm | (uintptr_t)known) % 4 == 0;
-  auto fn = K <= 8 ? launch<8, SPLIT8> : launch<16, SPLIT16>;
-  return fn(diags, s, don, acc, mm, known, lengths, R, K, L, vec, sc, score,
-            q_start, q_end, nsegs, seg_q, seg_diag, nmm,
+  // the choice table in global memory where the caller gives a scratch
+  // of R * L * G bytes (G = 8 or 16), else in shared memory
+  auto fn = K <= 8 ? (gtab ? launch<8, SPLIT8, true>
+                           : launch<8, SPLIT8, false>)
+                   : (gtab ? launch<16, SPLIT16, true>
+                           : launch<16, SPLIT16, false>);
+  return fn(diags, s, don, acc, mm, known, lengths, R, K, L, vec, sc, gtab,
+            score, q_start, q_end, nsegs, seg_q, seg_diag, nmm,
             (cudaStream_t)stream);
 }

@@ -43,7 +43,7 @@ _ENTRY = {
                    _P, _P, _P, _P, _P]),
     "chain_dp": ("tt_chain_dp",
                  [_P] * 7 + [_I] * 3 + [_I] * 7 + [_L, _L] + [_I] * 4
-                 + [_P] * 7),
+                 + [_P] * 8),
     "scan_fragment": ("tt_scan_fragment", _SCAN_ARGS),
     "scan_exact_sites": ("tt_scan_exact_sites", _SCAN_ARGS),
     "scan_fragment_runs": ("tt_scan_fragment_runs", _SCAN_ARGS),

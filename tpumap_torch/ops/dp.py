@@ -99,7 +99,8 @@ def banded_align_plain(qcodes, qlens, gcodes, glens, band: int,
 
 def banded_align(qcodes, qlens, gcodes, glens, band: int,
                  scoring: Scoring = Scoring(), mode: str = "glocal"):
-    """banded_align_plain for CPU tensors; the K2 kernel for CUDA."""
+    """banded_align_plain for CPU tensors; the K2 kernel for CUDA (one
+    warp a problem, so band <= 63; every caller passes INDEL_BAND = 32)."""
     if mode not in ("glocal", "global"):
         raise ValueError(f"unknown mode {mode!r}")
     if qcodes.device.type == "cpu":
@@ -120,9 +121,9 @@ def banded_align(qcodes, qlens, gcodes, glens, band: int,
            "H_last": torch.empty((B, W), dtype=torch.int32, device=dev)}
     if B == 0:
         return out
-    if W > 1024 or Lq < 1 or Lg < 1:
-        raise ValueError("banded_align: needs 2*band+1 <= 1024 and "
-                         "non-empty sequences")
+    if not 0 <= band <= 63 or Lq < 1 or Lg < 1:
+        raise ValueError("banded_align: needs 0 <= band <= 63 (one warp "
+                         "a problem) and non-empty sequences")
     kernels.launch("banded_align", dev, qcodes, qlens, gcodes, glens,
                    B, Lq, Lg, band, int(mode == "global"),
                    scoring.match, scoring.mismatch, scoring.gap_open,

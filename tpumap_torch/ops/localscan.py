@@ -184,25 +184,28 @@ def scan_fragment_runs_plain(genome_packed, win_starts, frag16,
 
 
 def _launch_scan(name: str, genome_packed, win_starts, frag, frag_lens,
-                 window: int, top_k: int, extra: int):
-    """Shared CUDA path of the three scans: checks, outputs, launch."""
+                 window: int, top_k: int, extra: int, count=None):
+    """Shared CUDA path of the three scans: checks, outputs, launch. The
+    runs scan takes no lengths (frag_lens None: 16-base fragments); the
+    exact-site scan passes its int32[R] count tensor, the others None."""
     R, F = frag.shape
     dev = win_starts.device
     kernels.check_args(name, dev, (genome_packed, torch.int32, None),
                        (win_starts, torch.int64, (R,)),
                        (frag, torch.uint8, (R, F)),
-                       (frag_lens, torch.int32, (R,)))
+                       *(() if frag_lens is None
+                         else ((frag_lens, torch.int32, (R,)),)))
     if F > 16 or not 1 <= top_k <= 8 or not 1 <= window <= 1 << OFF_BITS:
         raise ValueError(f"{name}: needs fragments of <= 16 bases, "
                          f"1 <= top_k <= 8 and 1 <= window <= 2^17")
     pos = torch.empty((R, top_k), dtype=torch.int64, device=dev)
     val = torch.empty((R, top_k), dtype=torch.int32, device=dev)
-    count = torch.empty(R, dtype=torch.int32, device=dev)
     if R:
         kernels.launch(name, dev, genome_packed, genome_packed.shape[0],
-                       win_starts, frag, frag_lens, R, F, window, top_k,
-                       extra, pos, val, count)
-    return pos, val, count
+                       win_starts, frag,
+                       0 if frag_lens is None else frag_lens, R, F, window,
+                       top_k, extra, pos, val, 0 if count is None else count)
+    return pos, val
 
 
 def scan_fragment(genome_packed, win_starts, frag, frag_lens, window: int,
@@ -213,9 +216,8 @@ def scan_fragment(genome_packed, win_starts, frag, frag_lens, window: int,
                                    frag_lens, window, max_frag, top_k)
     if frag.shape[1] != max_frag:
         raise ValueError("scan_fragment: frag must hold max_frag bases")
-    pos, nmm, _ = _launch_scan("scan_fragment", genome_packed, win_starts,
-                               frag, frag_lens, window, top_k, 0)
-    return pos, nmm
+    return _launch_scan("scan_fragment", genome_packed, win_starts, frag,
+                        frag_lens, window, top_k, 0)
 
 
 def scan_exact_sites(genome_packed, win_starts, frag, frag_lens,
@@ -226,9 +228,10 @@ def scan_exact_sites(genome_packed, win_starts, frag, frag_lens,
                                       frag_lens, window, max_frag, top_k)
     if frag.shape[1] != max_frag:
         raise ValueError("scan_exact_sites: frag must hold max_frag bases")
-    pos, _, count = _launch_scan("scan_exact_sites", genome_packed,
-                                 win_starts, frag, frag_lens, window, top_k,
-                                 0)
+    count = torch.empty(win_starts.shape[0], dtype=torch.int32,
+                        device=win_starts.device)
+    pos, _ = _launch_scan("scan_exact_sites", genome_packed, win_starts, frag,
+                          frag_lens, window, top_k, 0, count)
     return pos, count
 
 
@@ -240,9 +243,5 @@ def scan_fragment_runs(genome_packed, win_starts, frag16, window: int,
                                         window, top_k, suffix)
     if frag16.shape[1] != 16:
         raise ValueError("scan_fragment_runs: frag16 must hold 16 bases")
-    lens = torch.full((frag16.shape[0],), 16, dtype=torch.int32,
-                      device=frag16.device)
-    pos, runs, _ = _launch_scan("scan_fragment_runs", genome_packed,
-                                win_starts, frag16, lens, window, top_k,
-                                int(suffix))
-    return pos, runs
+    return _launch_scan("scan_fragment_runs", genome_packed, win_starts,
+                        frag16, None, window, top_k, int(suffix))

@@ -269,11 +269,14 @@ def chain_dp_plain(inp: dict, lengths: torch.Tensor,
 
 
 def chain_max_len(K: int) -> int:
-    """The longest rows K5 takes at K lanes: 28,984 steps up to 8 lanes,
-    7,194 up to 16. A block (csrc/chain.cu) holds one row a warp at 8
-    lanes and two at 16, each with its [L, lanes] choice bytes (padded
-    to 16), a 16-deep ring of int32 sums per lane and its diagonals and
-    segments in shared memory, within the H100's 227 KiB a block."""
+    """The longest rows whose choice table K5 keeps in shared memory at
+    K lanes: 28,984 steps up to 8 lanes, 7,194 up to 16. A block
+    (csrc/chain.cu) holds one row a warp at 8 lanes and two at 16, each
+    with its [L, lanes] choice bytes (padded to 16), a 16-deep ring of
+    int32 sums per lane and its diagonals and segments in shared memory,
+    within the H100's 227 KiB a block. Longer rows put the table in a
+    global [R, L, lanes] scratch (chain_dp); this is only the threshold
+    between the two placements."""
     G, rows = (8, 1) if K <= 8 else (16, 2)
     fixed = 16 * G * 4 + G * 4 + MAX_SEGMENTS * 4
     return (227 * 1024 // rows - fixed) // 16 * 16 // G
@@ -284,8 +287,9 @@ def chain_dp(inp: dict, lengths: torch.Tensor,
     """chain_dp_plain for CPU tensors; kernel K5 for CUDA. The kernel
     reads chain_inputs' [R, K, L] tensors as they are, with 32 threads
     per row up to 8 lanes (4 per candidate) and 16 up to 16 lanes; K is
-    8 lanes, or 14 with known splicing's partner diagonals. It takes
-    2 <= L <= chain_max_len(K) and raises ValueError past that."""
+    8 lanes, or 14 with known splicing's partner diagonals. It takes any
+    L >= 2: rows longer than chain_max_len(K) keep their choice table in
+    a global scratch of R * L * lanes bytes allocated here."""
     s = inp["s"]
     if s.device.type == "cpu":
         return chain_dp_plain(inp, lengths, scoring)
@@ -303,11 +307,9 @@ def chain_dp(inp: dict, lengths: torch.Tensor,
                        *(() if known is None
                          else ((known, torch.uint8, (R, K, L)),)),
                        (lengths, torch.int32, (R,)))
-    if not 1 <= K <= 16 or not 0 <= sc.max_insert <= 8 \
-            or not 2 <= L <= chain_max_len(K):
+    if not 1 <= K <= 16 or not 0 <= sc.max_insert <= 8 or L < 2:
         raise ValueError(f"chain_dp: needs 1 <= K <= 16 candidates, "
-                         f"max_insert <= 8 and 2 <= L <= {chain_max_len(K)}"
-                         f" (K = {K}, L = {L})")
+                         f"max_insert <= 8 and L >= 2 (K = {K}, L = {L})")
     out = {"score": torch.empty(R, dtype=torch.int32, device=dev),
            "q_start": torch.empty(R, dtype=torch.int32, device=dev),
            "q_end": torch.empty(R, dtype=torch.int32, device=dev),
@@ -317,13 +319,15 @@ def chain_dp(inp: dict, lengths: torch.Tensor,
            "nmm": torch.empty(R, dtype=torch.int32, device=dev)}
     if R == 0:
         return out
+    gtab = (torch.empty((R, L, 8 if K <= 8 else 16), dtype=torch.uint8,
+                        device=dev) if L > chain_max_len(K) else 0)
     kernels.launch(
         "chain_dp", dev, inp["diags"], s, inp["don"], inp["acc"], inp["mm"],
         known if known is not None else 0, lengths, R, K, L,
         sc.del_open, sc.del_extend, sc.splice_base, sc.bonus_gtag,
         sc.bonus_gcag, sc.bonus_atac, sc.bonus_known, sc.min_intron,
         sc.max_intron, sc.ins_open, sc.ins_extend, sc.max_insert,
-        int(sc.allow_noncanon), out["score"], out["q_start"],
+        int(sc.allow_noncanon), gtab, out["score"], out["q_start"],
         out["q_end"], out["nsegs"], out["seg_q"], out["seg_diag"],
         out["nmm"])
     return out
