@@ -9,20 +9,25 @@ mate repair, and bisulfite (cmet) and SNP-tolerant DNA at the DNA size
 — and fails (exit code != 0) if any phase fails:
 
 1. card name and power limit; build the CUDA kernels from csrc/ (each
-   kernel instance's ptxas registers, stack and spills; no K5 instance
-   and not the K2 instance of the indel band may have a stack frame or
-   spills); the port's native host library must load;
+   kernel instance's ptxas registers, stack and spills; no K5 instance,
+   not the K2 instance of the indel band, not K3 and no K6a instance may
+   have a stack frame or spills); the port's native host library must
+   load; the latency of a chain of dependent shared-memory loads (one
+   and two a step, one thread), for the floor of K3's walk;
 2. the chr21-scale bench genome (46.7 Mbp, tools/bench_data.py) and
    its k=14, interval-3 index, uploaded to the card;
 3. every kernel at its main-path shapes against its plain PyTorch
    version on the same CUDA tensors: exact equality, the wrapper's and
    the plain version's median time per call, the kernel's device time
    per launch, and the bound of the work (the larger of its bytes over
-   the HBM rate and its integer operations over the int32 ALU rate; with the
+   the HBM rate and its operations over their pipe's rate; with the
    mate rescue's K1 at [512, 1000], K5 with known-site masks at R =
    8,192 and 14 lanes, K5 on 64 reads of 7,169-7,680 bases at L = 7,680
    and 14 lanes (past pathdp.chain_max_len: its choice table in global
-   memory; one plain run), K6a at the mate repair's W = 1,024);
+   memory; one plain run), K3 at R = 256, Lq = 512 and at R = 32,
+   Lq = 7,680 (one plain run), K6a at the mate repair's W = 1,024 and
+   with the path's fragment lengths, 6-16, over the bench genome and over
+   a poly-A genome with all-A fragments);
 4. DNA end to end: one warm-up call, then align_records over all 50,000
    100-bp reads at batch size 32,768 with launch counters reset just
    before; reads/s, aligned fraction and agreement with the generator's
@@ -78,14 +83,18 @@ x 8.
 
 Every profile waits until the timed runs and the GPU half of 11 are
 over: each kernel row's device time per launch (torch.profiler), and one
-batch of phases 4-7, 9 and 10 (its device time and K5's part against the
-timed run's wall time per batch). After the runs: each kernel's launches
-per batch on each path (from kernels.LAUNCHES). The line before the
+batch of phases 4-7, 9 and 10 (its device time and the parts of K5, K3
+and each K6a instance against the timed run's wall time per batch), and
+K3's walk floor (its longest walk times the chain's step); then the
+fragment lengths that reach K6a in one batch of RNA, RNA -s and the
+repair. After the runs: each kernel's launches per batch on each path
+(from kernels.LAUNCHES). The line before the
 last is the kernel table as JSON; the last line is {"ok": true,
 "device": {...}}. JAX and tpumap are blocked: the port must run without
 either. Bench data and the index go under .bench_data/ in the checkout.
 Usage: python3 chip_smoke.py
 """
+import ctypes
 import io
 import json
 import pathlib
@@ -115,10 +124,15 @@ SNP_EVERY = 300         # bp per SNP of the SNP index
 CMET = "cmet-stranded"
 INVALID = 0xFFFFFFFF
 # the H100 SXM's peak rates for the bound of a kernel's work: HBM3 at
-# 3.35 TB/s (NVIDIA's H100 data sheet) and int32 ALU operations at 132
-# SMs x 64 INT32 lanes x 1.98 GHz boost (NVIDIA's Hopper white paper)
+# 3.35 TB/s (NVIDIA's H100 data sheet), int32 ALU operations at 132 SMs
+# x 64 INT32 lanes x 1.98 GHz boost (NVIDIA's Hopper white paper), and
+# popcounts, which issue on a pipe of their own, at 16 a clock per SM
+# (CUDA C Programming Guide, arithmetic instructions, compute capability
+# 9.0). A shift or a doubling can issue on the FMA pipe as a multiply,
+# so the operation counts leave it out.
 HBM_BPS = 3.35e12
 INT_OPS = 132 * 64 * 1.98e9
+POPC_OPS = 132 * 16 * 1.98e9
 DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
 # each kernel's source, the TPU function it replaces, and the name of
 # its __global__ function (for its device time in the profile)
@@ -141,8 +155,115 @@ SOURCES = {
 }
 
 
+# A chain of dependent shared-memory loads in one thread, for the floor
+# of K3's walk: each step reads LOADS 16-bit entries in turn, each the
+# byte offset of the next read (K3's step reads a cell, then a decode-
+# table entry); clock64 around the chain gives its cycles.
+CHAIN_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+template <int LOADS>
+__global__ void chain(const uint16_t* init, int n, int steps,
+                      long long* cycles, uint32_t* sink) {
+  extern __shared__ __align__(16) unsigned char buf[];
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    ((uint16_t*)buf)[i] = init[i];
+  __syncthreads();
+  if (threadIdx.x) return;
+  uint32_t p = 0;
+  const long long t0 = clock64();
+  for (int s = 0; s < steps; ++s)
+#pragma unroll
+    for (int l = 0; l < LOADS; ++l) p = *(const uint16_t*)(buf + p);
+  cycles[0] = clock64() - t0;
+  sink[0] = p;
+}
+extern "C" int smem_chain(const void* init, int n, int steps, int loads,
+                          void* cycles, void* sink) {
+  auto k = loads == 1 ? chain<1> : chain<2>;
+  k<<<1, 128, 2 * n>>>((const uint16_t*)init, n, steps, (long long*)cycles,
+                       (uint32_t*)sink);
+  return (int)cudaGetLastError();
+}
+"""
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def start_chain_build():
+    """Start nvcc on CHAIN_SRC (beside the kernels' build); returns the
+    library's path and the process."""
+    from tpumap_torch import kernels
+    out = ROOT / "tpumap_torch" / "_build" / "chain_probe"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "chain.cu").write_text(CHAIN_SRC)
+    lib = out / "libchain.so"
+    return lib, subprocess.Popen(
+        [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-o", str(lib),
+         str(out / "chain.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def shared_chain_ns(lib, proc, smi):
+    """{loads: ns per step} of a chain of dependent shared-memory loads,
+    one or two a step, in one thread over 2^18 steps of a random cycle
+    through 2,048 entries (CUDA events around the launch; clock64's
+    cycles a step logged beside)."""
+    msg = proc.communicate()[0]
+    if proc.returncode:
+        raise AssertionError(f"nvcc failed on the chain probe:\n{msg}")
+    fn = ctypes.CDLL(str(lib)).smem_chain
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    n, steps = 2048, 1 << 18
+    perm = np.random.default_rng(5).permutation(n)
+    nxt = np.empty(n, np.uint16)
+    nxt[perm] = 2 * np.roll(perm, -1)       # byte offset of the next entry
+    init = torch.from_numpy(nxt.view(np.int16)).cuda()
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = {}
+    for loads in (1, 2):
+        def run():
+            if fn(init.data_ptr(), n, steps, loads, cycles.data_ptr(),
+                  sink.data_ptr()):
+                raise AssertionError("the chain probe did not launch")
+        out[loads] = cuda_ms(run, 5) * 1e6 / steps
+        log(f"shared-memory chain, {loads} dependent load(s) a step: "
+            f"{out[loads]:.2f} ns, {int(cycles) / steps:.1f} cycles a step "
+            f"[{smi}]")
+    return out
+
+
+def frag_lengths(name, one_batch, smi):
+    """The fragment lengths that reach K6a in one batch: the calls
+    (rows, window, top_k) and the rows' shares by length (0, 1-5, 6-15,
+    16); the lengths are counted on the device around each call."""
+    from tpumap_torch.ops import localscan
+    inner, calls = localscan.scan_fragment, []
+    hist = torch.zeros(17, dtype=torch.int64, device="cuda")
+
+    def counted(genome, ws, frag, flen, window, max_frag, top_k=4):
+        calls.append((ws.shape[0], window, top_k))
+        hist.add_(torch.bincount(flen.clamp(0, 16).to(torch.int64),
+                                 minlength=17))
+        return inner(genome, ws, frag, flen, window, max_frag, top_k)
+
+    localscan.scan_fragment = counted
+    try:
+        one_batch()
+    finally:
+        localscan.scan_fragment = inner
+    h = hist.cpu().numpy()
+    n = max(int(h.sum()), 1)
+    log(f"{name}: K6a calls of one batch (rows, window, top_k) {calls}; "
+        f"rows by fragment length: 0 {h[0] / n:.4f}, 1-5 "
+        f"{h[1:6].sum() / n:.4f}, 6-15 {h[6:16].sum() / n:.4f}, 16 "
+        f"{h[16] / n:.4f} of {int(h.sum())}; each length {h.tolist()} "
+        f"[{smi}]")
 
 
 def ptxas_report(build_log: str) -> dict:
@@ -244,16 +365,19 @@ def device_ms(fn, reps: int, symbol: str):
     return None
 
 
-def measure(name, shape, fn, plain_fn, reps, plain_reps, in_bytes, nops):
+def measure(name, shape, fn, plain_fn, reps, plain_reps, in_bytes, nops,
+            popc=0):
     """One kernel row: the kernel against its plain version on the same
     inputs (max |difference|); the median time per call of the kernel's
     wrapper ("ms") and of the plain version ("plain_ms"; with plain_reps
     1, the time of the one plain call that gave the comparison), CUDA
     events around each call, host work included; and the bound of the
     work: the larger of the bytes it must move (in_bytes read once, its
-    outputs written once) over HBM_BPS and its nops over INT_OPS. The
-    kernel's device time per launch ("device_ms") comes later, from
-    profile_rows, with every other profile after the timed runs."""
+    outputs written once) over HBM_BPS and its operations, each pipe
+    apart: nops integer operations over INT_OPS, popc popcounts over
+    POPC_OPS. The kernel's device time per launch ("device_ms") comes
+    later, from profile_rows, with every other profile after the timed
+    runs."""
     got = fn()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -263,7 +387,7 @@ def measure(name, shape, fn, plain_fn, reps, plain_reps, in_bytes, nops):
     b.synchronize()
     err = max_abs_err(got, want)
     t_bytes = (in_bytes + tensor_bytes(got)) / HBM_BPS * 1e3
-    t_ops = nops / INT_OPS * 1e3
+    t_ops = max(nops / INT_OPS, popc / POPC_OPS) * 1e3
     return {"name": name, "shape": shape, "max_abs_err": err,
             "ms": cuda_ms(fn, reps),
             "plain_ms": (a.elapsed_time(b) if plain_reps == 1
@@ -275,15 +399,16 @@ def measure(name, shape, fn, plain_fn, reps, plain_reps, in_bytes, nops):
 
 def verify_work(index, packed, diags, snp=False):
     """K1's bytes read (reads, N masks, lengths, diagonals, and each valid
-    lane's genome window, N-bit window and, with SNPs, alt window) and
-    its operations (~8 per lane word: align, xor, fold, mask, popcount,
-    add)."""
+    lane's genome window, N-bit window and, with SNPs, alt window), its
+    integer operations (4 per lane word: align, xor, the fold and mask as
+    one LOP3, the add) and its popcounts (1 per lane word)."""
     n, W = packed.shape
     lanes = int((diags != INVALID).sum())
     win = lanes * (W + 1) * 4 * (2 if snp else 1)
     if index.genome_has_n:
         win += lanes * (W // 2 + 1) * 4
-    return tensor_bytes((packed, packed, diags)) + 4 * n + win, lanes * W * 8
+    return (tensor_bytes((packed, packed, diags)) + 4 * n + win,
+            lanes * W * 4, lanes * W)
 
 
 def chain_work(inp, lengths):
@@ -299,14 +424,15 @@ def chain_work(inp, lengths):
     return tensor_bytes(inp) + tensor_bytes(lengths), ops
 
 
-def scan_work(ws, frag, flen, window, per_pos):
+def scan_work(ws, frag, flen, window, per_pos, popc_per_pos=0):
     """K6's bytes read (each active row's window words, its start,
-    fragment and length) and per_pos operations per window position of
-    each active row (rows with an empty fragment scan nothing)."""
+    fragment and length), per_pos integer operations and popc_per_pos
+    popcounts per window position of each active row (rows with an empty
+    fragment scan nothing)."""
     R = ws.shape[0]
     active = R if flen is None else int((flen > 0).sum())
-    return (active * (window // 16 + 2) * 4
-            + tensor_bytes((ws, frag, flen))), active * window * per_pos
+    return (active * (window // 16 + 2) * 4 + tensor_bytes((ws, frag, flen)),
+            active * window * per_pos, active * window * popc_per_pos)
 
 
 def load_index(smi):
@@ -506,6 +632,9 @@ def kernel_phase(index, gpu, known, mindex):
         "traceback", f"R={Rt}, S={S}, 12 runs",
         partial(dp.traceback, *targs), partial(dp.traceback_plain, *targs),
         50, 3, Rt * S + tensor_bytes(targs[1:3]), Rt * S * 6))
+    rows[-1]["walk_steps"] = log_walk(dp.traceback(*targs)[0],
+                                      f"R={Rt}, Lq=128")
+    rows += traceback_rows(index)
     rows += rna_kernel_rows(index, rng, reads_at)
     rows += pe_known_kernel_rows(index, rng, reads_at, known)
     rows += mode_kernel_rows(mindex, rng, reads_at)
@@ -517,8 +646,82 @@ def kernel_phase(index, gpu, known, mindex):
     return rows
 
 
-def profile_rows(rows, gpu):
-    """Each kernel row's device time per launch, then its log line."""
+def log_walk(ops, shape):
+    """The mean and the most steps K3's walk took a problem (its ops
+    before T_END); returns the most: the longest dependent chain, which
+    all problems walking at once cannot end before."""
+    from tpumap_torch.ops import dp
+    steps = (ops != dp.T_END).sum(dim=1, dtype=torch.float64)
+    log(f"K3 at {shape}: {float(steps.mean()):.1f} walk steps a problem on "
+        f"average, {int(steps.max())} at most")
+    return int(steps.max())
+
+
+def traceback_rows(index):
+    """K3 at R = 256, Lq = 512 and at R = 32, Lq = 7,680 (a direction
+    table past shared memory; one plain run): tables from K2 over reads
+    cut from the genome with 1% substitutions and a 1-6 base indel every
+    ~150 bases (deletions and insertions of one size in turn, so the
+    diagonal stays in the band), qlens from 3/4 Lq to Lq; the long rows
+    must have more than 12 runs. Bounds as the R = 256, Lq = 128 row.
+    Its own generator, so the rows after it draw the same inputs as
+    before it was added."""
+    from tpumap_torch.gsnap.params import INDEL_BAND
+    from tpumap_torch.ops import dp, verify
+    rng = np.random.default_rng(7680)
+    dev = index.device
+    rows = []
+    for R, Lq, plain_reps in ((256, 512, 3), (32, 7680, 1)):
+        Lg = Lq + INDEL_BAND + 8
+        starts = rng.integers(0, index.genome_length - Lg, R)
+        g = verify.extract_codes_window(
+            index.genome_packed, torch.from_numpy(starts).to(dev),
+            Lg).cpu().numpy()
+        q = np.zeros((R, Lq), np.uint8)
+        for r in range(R):
+            parts, p = [], 4
+            cuts = np.arange(100, Lq - 50, 150) + rng.integers(0, 50)
+            sizes = rng.integers(1, 7, len(cuts))
+            for m, c in enumerate(cuts):
+                parts.append(g[r, p:c])
+                n = int(sizes[m - m % 2])
+                if m % 2 == 0:
+                    p = c + n                   # deletion from the read
+                else:
+                    parts.append(rng.integers(0, 4, n).astype(np.uint8))
+                    p = c
+            parts.append(g[r, p:])
+            q[r] = np.concatenate(parts)[:Lq]
+        mut = rng.random(q.shape) < 0.01
+        q[mut] = rng.integers(0, 4, int(mut.sum()))
+        qlens = torch.from_numpy(
+            rng.integers(3 * Lq // 4, Lq + 1, R).astype(np.int32)).to(dev)
+        gt = torch.from_numpy(g).to(dev)
+        fwd = dp.banded_align(torch.from_numpy(q).to(dev), qlens, gt,
+                              torch.full((R,), Lg, dtype=torch.int32,
+                                         device=dev), INDEL_BAND)
+        targs = (fwd["dirs"], qlens, fwd["end_k"], INDEL_BAND)
+        S = Lq + 2 * INDEL_BAND
+        row = measure("traceback", f"R={R}, Lq={Lq}, S={S}",
+                      partial(dp.traceback, *targs),
+                      partial(dp.traceback_plain, *targs), 20, plain_reps,
+                      R * S + tensor_bytes(targs[1:3]), R * S * 6)
+        out = dp.traceback(*targs)
+        row["walk_steps"] = log_walk(out[0], f"R={R}, Lq={Lq}")
+        nruns = int(out[4].max())
+        if Lq > 1000 and nruns <= dp.MAXRUNS:
+            raise AssertionError(f"K3 at Lq={Lq}: at most {nruns} runs")
+        rows.append(row)
+    return rows
+
+
+def profile_rows(rows, gpu, chain_ns):
+    """Each kernel row's device time per launch, then its log line; for
+    K3's rows also the floor of the walk: its longest walk times the
+    measured step of a chain of dependent shared-memory loads
+    (chain_ns[1]: one load a step, the cell, which any design that keeps
+    the cells in shared memory pays; chain_ns[2]: the cell, then a
+    decode-table entry, as K3 reads them)."""
     for r in rows:
         dev = r["device_ms"] = device_ms(r.pop("fn"), r.pop("reps"),
                                          SOURCES[r["name"]][2])
@@ -530,17 +733,35 @@ def profile_rows(rows, gpu):
             f")  plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), share of bound "
             f"{r['bound_ms'] / (dev or r['ms']):.3f}  [{gpu}]")
+        if "walk_steps" in r:
+            n = r["walk_steps"]
+            one, two = (n * chain_ns[k] / 1e6 for k in (1, 2))
+            r["walk_floor_ms"] = one
+            log(f"  K3 walk floor at {r['shape']}: {n} steps x "
+                f"{chain_ns[1]:.2f} ns (one dependent shared load) = "
+                f"{one:.4f} ms, share {one / (dev or r['ms']):.3f}; x "
+                f"{chain_ns[2]:.2f} ns (cell, then table) = {two:.4f} ms, "
+                f"share {two / (dev or r['ms']):.3f}  [{gpu}]")
 
 
-def profile_batch(name, one_batch, wall, smi):
+# kernel instances whose device time per batch is logged: K5, K3 and
+# K6a's two (a kept list of 4 keys, of 8)
+BATCH_PARTS = (("K5", "chain_kernel"), ("K3", "traceback_kernel"),
+               ("K6a<4>", "localscan_kernel<0, 4>"),
+               ("K6a<8>", "localscan_kernel<0, 8>"))
+
+
+def profile_batch(name, one_batch, wall, smi, parts=BATCH_PARTS):
     """The device time of one batch (every kernel, copy and memset) and
-    K5's part, against the timed run's wall time per batch."""
+    the parts of each (label, kernel name) of parts, against the timed
+    run's wall time per batch."""
     prof = profile_ms(one_batch)
     dev = sum(v for k, v in prof.items() if isinstance(k, str))
-    k5 = sum(v for k, v in prof.items()
-             if isinstance(k, str) and "chain_kernel" in k)
+    parts = ", ".join(
+        f"{label} {sum(v for k, v in prof.items() if isinstance(k, str) and sym in k):.4f}"
+        for label, sym in parts)
     log(f"{name} device time of one batch "
-        + (f"{dev:.3f} ms (K5 {k5:.3f}) against {wall:.1f} ms of wall per "
+        + (f"{dev:.3f} ms ({parts}) against {wall:.1f} ms of wall per "
            f"batch in the timed run: idle {1 - dev / wall:.3f}" if dev else
            "not measured (the profile holds no device events)")
         + f" [{smi}]")
@@ -594,9 +815,10 @@ def rna_kernel_rows(index, rng, reads_at):
         flen = rng.integers(0, F + 1, R).astype(np.int32)
         return ints(ws), frag.contiguous(), ints(flen)
 
-    # int ops per window position: ~8 for the fragment's mismatch count
-    # and its top-k (align two words, xor, fold, mask, popcount, compare),
-    # ~6 for an exact match (xor, fold, mask, compare); 3 for a run
+    # ops per window position: for the fragment's mismatch count and its
+    # top-k, 4 integer operations (align two words, xor, the fold and
+    # length mask as one LOP3, the min) and a popcount; for an exact match
+    # 5 (align, xor, fold and mask, compare, the count's add); 3 for a run
     # length (align, xor, compare: the run's end is the highest set bit
     # of the xor, or the lowest on a bit-reversed window, so the least
     # xor orders the offsets and only the few that can reach the top
@@ -608,14 +830,14 @@ def rna_kernel_rows(index, rng, reads_at):
         "scan_fragment", "R=2048, W=65536, F=16, top 4",
         partial(localscan.scan_fragment, *args),
         partial(localscan.scan_fragment_plain, *args), 20, 2,
-        *scan_work(ws, frag, flen, W, 8)))
+        *scan_work(ws, frag, flen, W, 4, 1)))
     ws, frag, flen = scan_inputs(1536, 10)
     args = (g, ws, frag, flen, W, 10, 8)
     rows.append(measure(
         "scan_exact_sites", "R=1536, W=65536, F=10, top 8",
         partial(localscan.scan_exact_sites, *args),
         partial(localscan.scan_exact_sites_plain, *args), 20, 2,
-        *scan_work(ws, frag, flen, W, 6)))
+        *scan_work(ws, frag, flen, W, 5)))
     ws, frag, _ = scan_inputs(2048, 16)
     for suffix in (True, False):
         args = (g, ws, frag, W, 8, suffix)
@@ -625,6 +847,36 @@ def rna_kernel_rows(index, rng, reads_at):
             partial(localscan.scan_fragment_runs, *args),
             partial(localscan.scan_fragment_runs_plain, *args), 20, 2,
             *scan_work(ws, frag, None, W, 3)))
+    return rows + scan_fragment_rows(index)
+
+
+def scan_fragment_rows(index):
+    """K6a at R = 2,048, W = 65,536, top 4 with fragment lengths of 6-16
+    bases, the ones the path sends (ladder.py and paired.py send 0 below
+    MIN_FRAG = 6): over the bench genome, and over a poly-A genome with
+    all-A fragments, where every offset ties at count 0. Bounds as the
+    first K6a row. Its own generator."""
+    from tpumap_torch.ops import localscan, verify
+    rng = np.random.default_rng(616)
+    dev = index.device
+    R, W, F = 2048, 65536, 16
+    polya = torch.zeros(1 << 20, dtype=torch.int32, device=dev)
+    rows = []
+    for label, g, glen in (
+            ("bench genome", index.genome_packed, index.genome_length),
+            ("poly-A", polya, 16 * polya.shape[0])):
+        ws = rng.integers(0, glen - W, R).astype(np.int64)
+        at = ws + rng.integers(0, W - F, R)
+        frag = verify.extract_codes_window(
+            g, torch.from_numpy(at).to(dev), F).contiguous()
+        flen = torch.from_numpy(
+            rng.integers(6, F + 1, R).astype(np.int32)).to(dev)
+        args = (g, torch.from_numpy(ws).to(dev), frag, flen, W, F, 4)
+        rows.append(measure(
+            "scan_fragment", f"R={R}, W={W}, F=6-16, top 4 ({label})",
+            partial(localscan.scan_fragment, *args),
+            partial(localscan.scan_fragment_plain, *args), 20, 2,
+            *scan_work(args[1], frag, flen, W, 4, 1)))
     return rows
 
 
@@ -732,7 +984,7 @@ def pe_known_kernel_rows(index, rng, reads_at, known):
         "scan_fragment", f"R={R}, W={W}, F=16, top 4 (repair)",
         partial(localscan.scan_fragment, *args),
         partial(localscan.scan_fragment_plain, *args), 20, 5,
-        *scan_work(args[1], args[2], flen, W, 8)))
+        *scan_work(args[1], args[2], flen, W, 4, 1)))
     return rows
 
 
@@ -845,6 +1097,7 @@ def main():
     from tpumap_torch.io.fasta import Record, read_fasta
 
     t0 = time.perf_counter()
+    chain_lib, chain_proc = start_chain_build()
     kernels.build()
     log(f"kernel build {time.perf_counter() - t0:.1f} s [{smi}]")
     ptxas = ptxas_report(kernels.build_log)
@@ -860,12 +1113,15 @@ def main():
     # lane
     from tpumap_torch.gsnap.params import INDEL_BAND
     k2 = f"banded_kernel<{-(-(2 * INDEL_BAND + 1) // 32)}>"
-    if k2 not in ptxas or any(ptxas[k2][1:]):
-        raise AssertionError(f"{k2}: no ptxas report, or stack or spills: "
-                             f"{ptxas.get(k2)}")
+    for name in (k2, "traceback_kernel", "localscan_kernel<0, 4>",
+                 "localscan_kernel<0, 8>"):
+        if name not in ptxas or any(ptxas[name][1:]):
+            raise AssertionError(f"{name}: no ptxas report, or stack or "
+                                 f"spills: {ptxas.get(name)}")
     if native.get_lib() is None:
         raise AssertionError("the port's native host library is not loaded")
     log("native host library loaded")
+    chain_ns = shared_chain_ns(chain_lib, chain_proc, smi)
 
     bench_data, db, rfa = load_index(smi)
     torch.cuda.synchronize()
@@ -978,9 +1234,13 @@ def main():
         gbuf = io.BytesIO()
         run(mindex if modes else index, sub, len(sub), gbuf.write)
         gpu_sam.append(gbuf.getvalue())
-    profile_rows(rows, smi)
+    profile_rows(rows, smi, chain_ns)
     for job in jobs:
         profile_batch(*job, smi)
+        if job[0] in ("RNA", "RNA -s"):
+            frag_lengths(job[0], job[1], smi)
+    frag_lengths("PE RNA repair", lambda: rep_run(
+        index, rep_pairs, N_REPAIR, io.BytesIO().write), smi)
     del index, mindex, jobs
     torch.cuda.empty_cache()
     cpu_index = DeviceIndex.from_host(db, "cpu")
@@ -1041,7 +1301,8 @@ def main():
             "library_ms": None, "shape": r["shape"],
             "rows": [{k: x[k] for k in ("shape", "max_abs_err", "ms",
                                         "device_ms", "plain_ms", "bound_ms",
-                                        "bound_by")}
+                                        "bound_by", "walk_floor_ms")
+                      if k in x}
                      for x in rows if x["name"] == name],
             "launches_per_batch": per_batch[name]})
     log(json.dumps({"kernels": table}))

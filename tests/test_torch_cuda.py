@@ -91,11 +91,17 @@ def test_verify_kernel_matches_plain(dev, B, W, C, n_frac, qunk, gunk):
     (300, 128, 32, "glocal"), (50, 40, 8, "glocal"), (64, 60, 16, "global"),
     (300, 128, 32, "global"), (41, 37, 1, "glocal"), (41, 37, 1, "global"),
     (70, 130, 63, "glocal"), (70, 130, 63, "global"), (33, 99, 40, "global"),
+    (64, 512, 32, "glocal"), (12, 4000, 32, "glocal"), (1, 128, 32, "glocal"),
+    (257, 128, 32, "global"),
 ])
 def test_banded_and_traceback_match_plain(dev, R, Lq, band, mode):
     """K2 (one warp a problem, 1 to 4 band cells a lane: bands 1, 8-16,
     32-40 and 63) and K3 against their plain versions, glocal and
-    global, with qlen < Lq in most rows and Lq not a multiple of 4."""
+    global, with qlen < Lq in most rows and Lq not a multiple of 4; K3
+    also at Lq = 512 and 4,000 (a table past one row tile, and past
+    shared memory) with an indel every 64 bases in a third of the rows
+    (more than 12 runs), at R = 1 and 257, and with qlens 0 and Lq and
+    end_k 0 and W - 1 in four rows."""
     rng = np.random.default_rng(R + Lq + band)
     Lg = Lq + band + 4
     g = rng.integers(0, 4, (R, Lg)).astype(np.uint8)
@@ -103,11 +109,14 @@ def test_banded_and_traceback_match_plain(dev, R, Lq, band, mode):
     mut = rng.random((R, Lq)) < 0.05
     q[mut] = rng.integers(0, 4, int(mut.sum()))
     for r in range(0, R, 3):            # plant indels
-        p = int(rng.integers(10, Lq - 10))
-        if r % 2:
-            q[r, p:] = np.concatenate([q[r, p + 3:], q[r, :3]])
-        else:
-            q[r, p + 2:] = q[r, p:Lq - 2]
+        ps = (range(32, Lq - 32, 64) if Lq >= 512
+              else [int(rng.integers(10, Lq - 10))])
+        for m, p in enumerate(ps):
+            if (r + m) % 2:
+                q[r, p:] = np.concatenate([q[r, p + 3:], q[r, :3]])
+            else:
+                n = 2 if Lq < 512 else 3
+                q[r, p + n:] = q[r, p:Lq - n]
     qlens = rng.integers(Lq // 2, Lq + 1, R).astype(np.int32)
     if mode == "global":
         glens = (qlens + rng.integers(-band // 2, band // 2 + 1, R)).astype(
@@ -119,11 +128,18 @@ def test_banded_and_traceback_match_plain(dev, R, Lq, band, mode):
     want = dp.banded_align_plain(qt, qlt, gt, glt, band, mode=mode)
     for key in ("score", "end_k", "dirs", "H_last"):
         assert torch.equal(got[key], want[key]), key
-    tb = dp.traceback(got["dirs"], qlt, got["end_k"], band)
-    tbp = dp.traceback_plain(want["dirs"], qlt, want["end_k"], band)
+    end_k = got["end_k"].clone()
+    if R >= 4:
+        qlt = qlt.clone()
+        qlt[:2] = torch.tensor([0, Lq])
+        end_k[2:4] = torch.tensor([0, 2 * band])
+    tb = dp.traceback(got["dirs"], qlt, end_k, band)
+    tbp = dp.traceback_plain(want["dirs"], qlt, end_k, band)
     torch.cuda.synchronize()
     for a, b in zip(tb, tbp):
         assert torch.equal(a, b)
+    if Lq >= 512:
+        assert bool((tbp[4] > dp.MAXRUNS).any())
 
 
 def test_launch_counters_count_launches(dev):
@@ -302,21 +318,32 @@ def test_chain_kernel_unaligned_inputs(dev, L):
     assert (want["nsegs"] >= 2).any()
 
 
-@pytest.mark.parametrize("scan,window,top_k", [
-    ("fragment", 65536, 4), ("exact", 65536, 8), ("runs_suffix", 65536, 8),
-    ("runs_prefix", 65536, 8), ("fragment", 2048, 4), ("exact", 100, 8),
-    ("runs_suffix", 200, 3), ("fragment", 1024, 4), ("fragment", 2000, 4),
-    ("runs_prefix", 200, 3), ("runs_prefix", 1000, 8), ("runs_suffix", 7, 2),
-    ("runs_suffix", 4100, 8), ("exact", 1000, 5), ("runs_prefix", 131072, 8),
+@pytest.mark.parametrize("scan,window,top_k,case", [
+    ("fragment", 65536, 4, ""), ("exact", 65536, 8, ""),
+    ("runs_suffix", 65536, 8, ""), ("runs_prefix", 65536, 8, ""),
+    ("fragment", 2048, 4, ""), ("exact", 100, 8, ""),
+    ("runs_suffix", 200, 3, ""), ("fragment", 1024, 4, ""),
+    ("fragment", 2000, 4, ""), ("runs_prefix", 200, 3, ""),
+    ("runs_prefix", 1000, 8, ""), ("runs_suffix", 7, 2, ""),
+    ("runs_suffix", 4100, 8, ""), ("exact", 1000, 5, ""),
+    ("runs_prefix", 131072, 8, ""), ("fragment", 65536, 1, ""),
+    ("fragment", 65536, 3, ""), ("fragment", 65536, 5, ""),
+    ("fragment", 65536, 8, ""), ("fragment", 65536, 4, "no_lengths"),
+    ("fragment", 65536, 4, "poly_a"), ("fragment", 65536, 8, "poly_a"),
+    ("fragment", 16, 4, ""), ("fragment", 17, 3, ""),
 ])
-def test_scan_kernels_match_plain(dev, scan, window, top_k):
+def test_scan_kernels_match_plain(dev, scan, window, top_k, case):
     """K6a-c against their plain versions, with window starts past the
     genome end (clamped as tpumap's dynamic slice clamps them),
     zero-length fragments, windows of whole and partial words, and
-    fragments cut from the window (the runs scans find run 16 there)."""
+    fragments cut from the window (the runs scans find run 16 there);
+    K6a also at top_k 1-8, on a batch whose fragment lengths are all 0,
+    and with all-A fragments over a 6,400-base poly-A stretch (thousands
+    of offsets score 0)."""
     rng = np.random.default_rng(window + top_k)
     glen = 200_000
     idx = random_index(rng, glen, dev)
+    idx.genome_packed[1000:1400] = 0
     R = 300
     F = 10 if scan == "exact" else 16
     ws = rng.integers(0, glen, R).astype(np.int64)
@@ -328,12 +355,20 @@ def test_scan_kernels_match_plain(dev, scan, window, top_k):
     flen = rng.integers(0, F + 1, R).astype(np.int32)
     flen[4:10] = 0
     flen[10:40] = F
+    if case == "no_lengths":
+        flen[:] = 0
+    elif case == "poly_a":
+        ws[40:80] = 16_000 - rng.integers(0, 400, 40)
+        frag[40:80] = 0
+        flen[40:80] = F
     g = idx.genome_packed
     wt, ft, lt = to(dev, ws, frag, flen)
     if scan == "fragment":
         args = (g, wt, ft, lt, window, F, top_k)
         got, want = (localscan.scan_fragment(*args),
                      localscan.scan_fragment_plain(*args))
+        if case == "poly_a":
+            assert bool((want[1][40:80] == 0).all())
     elif scan == "exact":
         args = (g, wt, ft, lt, window, F, top_k)
         got, want = (localscan.scan_exact_sites(*args),

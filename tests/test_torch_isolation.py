@@ -3,7 +3,7 @@ runs where neither can be imported, and its copies of tpumap's host
 modules give tpumap's results on the same inputs.
 
 (a) an AST walk of every module of tpumap_torch, of chip_smoke.py and of
-    rna_ab.py, function-local imports included;
+    phase_ab.py, function-local imports included;
 (b) a subprocess where JAX and tpumap are refused: every port module
     imports, and align_records (DNA and RNA), align_paired_records and
     main --device cpu give the SAM of the port's in-process runs on
@@ -45,7 +45,7 @@ from torch_workloads import NO_TPUMAP, mixed_workload, sam_text, stream_pairs
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "tpumap_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "rna_ab.py"]
+    REPO / "chip_smoke.py", REPO / "phase_ab.py"]
 
 
 def imported_modules(path: pathlib.Path) -> list[str]:

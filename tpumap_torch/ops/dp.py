@@ -197,10 +197,13 @@ def traceback_plain(dirs, qlens, end_k, band: int, maxruns: int = MAXRUNS):
 
 def traceback(dirs, qlens, end_k, band: int, maxruns: int = MAXRUNS):
     """traceback_plain for CPU tensors; the K3 kernel for CUDA (which
-    writes run_len as uint16 into the int16 tensor; lengths <= S)."""
+    writes run_len as uint16 into the int16 tensor, the bits of
+    traceback_plain's int16 lengths)."""
     if dirs.device.type == "cpu":
         return traceback_plain(dirs, qlens, end_k, band, maxruns)
     B, Lq, W = dirs.shape
+    if B and Lq < 1:
+        raise ValueError("traceback: needs at least one query row")
     S = Lq + 2 * band
     dev = dirs.device
     kernels.check_args("traceback", dev,
