@@ -10,10 +10,10 @@ mate repair, and bisulfite (cmet) and SNP-tolerant DNA at the DNA size
 
 1. card name and power limit; build the CUDA kernels from csrc/ (each
    kernel instance's ptxas registers, stack and spills; no K5 instance,
-   not the K2 instance of the indel band, not K3 and no K6a instance may
-   have a stack frame or spills); the port's native host library must
-   load; the latency of a chain of dependent shared-memory loads (one
-   and two a step, one thread), for the floor of K3's walk;
+   not the K2 instance of the indel band, not K3, no K6a instance and
+   not K6b may have a stack frame or spills); the port's native host
+   library must load; the latency of a chain of dependent shared-memory
+   loads (one and two a step, one thread), for the floor of K3's walk;
 2. the chr21-scale bench genome (46.7 Mbp, tools/bench_data.py) and
    its k=14, interval-3 index, uploaded to the card;
 3. every kernel at its main-path shapes against its plain PyTorch
@@ -27,7 +27,10 @@ mate repair, and bisulfite (cmet) and SNP-tolerant DNA at the DNA size
    memory; one plain run), K3 at R = 256, Lq = 512 and at R = 32,
    Lq = 7,680 (one plain run), K6a at the mate repair's W = 1,024 and
    with the path's fragment lengths, 6-16, over the bench genome and over
-   a poly-A genome with all-A fragments);
+   a poly-A genome with all-A fragments, and K6b with the splice-end
+   review's fragment lengths (with and without its empty rows, and at 3
+   and 10 bases alone) over the bench genome and with all-A fragments
+   over the poly-A genome);
 4. DNA end to end: one warm-up call, then align_records over all 50,000
    100-bp reads at batch size 32,768 with launch counters reset just
    before; reads/s, aligned fraction and agreement with the generator's
@@ -83,13 +86,13 @@ x 8.
 
 Every profile waits until the timed runs and the GPU half of 11 are
 over: each kernel row's device time per launch (torch.profiler), and one
-batch of phases 4-7, 9 and 10 (its device time and the parts of K5, K3
-and each K6a instance against the timed run's wall time per batch), and
-K3's walk floor (its longest walk times the chain's step); then the
-fragment lengths that reach K6a in one batch of RNA, RNA -s and the
-repair. After the runs: each kernel's launches per batch on each path
-(from kernels.LAUNCHES). The line before the
-last is the kernel table as JSON; the last line is {"ok": true,
+batch of phases 4-7, 9 and 10 (its device time and the parts of K5, K3,
+each K6a instance and K6b against the timed run's wall time per batch),
+and K3's walk floor (its longest walk times the chain's step); then the
+fragment lengths that reach K6a and K6b in one batch of RNA, RNA -s and
+the repair (with K6b's active share and counts). After the runs: each
+kernel's launches per batch on each path (from kernels.LAUNCHES). The
+line before the last is the kernel table as JSON; the last line is {"ok": true,
 "device": {...}}. JAX and tpumap are blocked: the port must run without
 either. Bench data and the index go under .bench_data/ in the checkout.
 Usage: python3 chip_smoke.py
@@ -123,6 +126,15 @@ N_REPAIR = 512          # paired RNA pairs through the mate repair
 SNP_EVERY = 300         # bp per SNP of the SNP index
 CMET = "cmet-stranded"
 INVALID = 0xFFFFFFFF
+# K6b's integer operations a window word at fragment length f are
+# 2 f + EXACT_OPS: f - 1 funnel shifts and f xor-ors for the match mask,
+# a funnel shift to align the window, a LOP3 for the fold (its shift can
+# issue on the FMA pipe as a doubling), and for each two words a LOP3
+# that merges their masks and an add of the popcount
+EXACT_OPS = 2
+# rows reaching K6b by fragment length (0-10) in one RNA, one RNA -s and
+# one PE repair batch together, as frag_lengths logs them on the H100
+PATH_LENGTHS = (4571, 0, 0, 6, 0, 6, 2, 4, 5, 8, 6)
 # the H100 SXM's peak rates for the bound of a kernel's work: HBM3 at
 # 3.35 TB/s (NVIDIA's H100 data sheet), int32 ALU operations at 132 SMs
 # x 64 INT32 lanes x 1.98 GHz boost (NVIDIA's Hopper white paper), and
@@ -149,7 +161,7 @@ SOURCES = {
     "scan_fragment": ("tpumap_torch/csrc/localscan.cu",
                       "tpumap/ops/localscan.py:68", "localscan_kernel"),
     "scan_exact_sites": ("tpumap_torch/csrc/localscan.cu",
-                         "tpumap/ops/localscan.py:118", "localscan_kernel"),
+                         "tpumap/ops/localscan.py:118", "exact_sites_kernel"),
     "scan_fragment_runs": ("tpumap_torch/csrc/localscan.cu",
                            "tpumap/ops/localscan.py:148", "localscan_kernel"),
 }
@@ -239,12 +251,18 @@ def shared_chain_ns(lib, proc, smi):
 
 
 def frag_lengths(name, one_batch, smi):
-    """The fragment lengths that reach K6a in one batch: the calls
-    (rows, window, top_k) and the rows' shares by length (0, 1-5, 6-15,
-    16); the lengths are counted on the device around each call."""
+    """The fragment lengths that reach K6a and K6b in one batch, counted
+    on the device around each call. K6a: the calls (rows, window, top_k)
+    and the rows' shares by length (0, 1-5, 6-15, 16). K6b: the calls,
+    the rows, the active share (length > 0), the shares by length (0,
+    1-2, 3-5, 6-10, 11-16) and the mean and largest count of exact
+    placements of an active row."""
     from tpumap_torch.ops import localscan
-    inner, calls = localscan.scan_fragment, []
+    inner, inner_b = localscan.scan_fragment, localscan.scan_exact_sites
+    calls, calls_b = [], []
     hist = torch.zeros(17, dtype=torch.int64, device="cuda")
+    hist_b = torch.zeros(17, dtype=torch.int64, device="cuda")
+    counts = []
 
     def counted(genome, ws, frag, flen, window, max_frag, top_k=4):
         calls.append((ws.shape[0], window, top_k))
@@ -252,11 +270,21 @@ def frag_lengths(name, one_batch, smi):
                                  minlength=17))
         return inner(genome, ws, frag, flen, window, max_frag, top_k)
 
+    def counted_b(genome, ws, frag, flen, window, max_frag, top_k=8):
+        calls_b.append((ws.shape[0], window, top_k))
+        hist_b.add_(torch.bincount(flen.clamp(0, 16).to(torch.int64),
+                                   minlength=17))
+        pos, count = inner_b(genome, ws, frag, flen, window, max_frag, top_k)
+        counts.append(count[flen > 0])
+        return pos, count
+
     localscan.scan_fragment = counted
+    localscan.scan_exact_sites = counted_b
     try:
         one_batch()
     finally:
         localscan.scan_fragment = inner
+        localscan.scan_exact_sites = inner_b
     h = hist.cpu().numpy()
     n = max(int(h.sum()), 1)
     log(f"{name}: K6a calls of one batch (rows, window, top_k) {calls}; "
@@ -264,6 +292,18 @@ def frag_lengths(name, one_batch, smi):
         f"{h[1:6].sum() / n:.4f}, 6-15 {h[6:16].sum() / n:.4f}, 16 "
         f"{h[16] / n:.4f} of {int(h.sum())}; each length {h.tolist()} "
         f"[{smi}]")
+    h = hist_b.cpu().numpy()
+    n = max(int(h.sum()), 1)
+    c = (torch.cat(counts).to(torch.float64) if counts
+         else torch.zeros(0, dtype=torch.float64))
+    log(f"{name}: K6b calls of one batch (rows, window, top_k) {calls_b}; "
+        f"{int(h.sum())} rows, active {1 - h[0] / n:.4f}; by fragment "
+        f"length: 0 {h[0] / n:.4f}, 1-2 {h[1:3].sum() / n:.4f}, 3-5 "
+        f"{h[3:6].sum() / n:.4f}, 6-10 {h[6:11].sum() / n:.4f}, 11-16 "
+        f"{h[11:].sum() / n:.4f}; each length {h.tolist()}; exact "
+        f"placements an active row: mean "
+        f"{float(c.mean()) if c.numel() else 0.0:.2f}, most "
+        f"{int(c.max()) if c.numel() else 0} [{smi}]")
 
 
 def ptxas_report(build_log: str) -> dict:
@@ -424,14 +464,51 @@ def chain_work(inp, lengths):
     return tensor_bytes(inp) + tensor_bytes(lengths), ops
 
 
-def scan_work(ws, frag, flen, window, per_pos, popc_per_pos=0):
-    """K6's bytes read (each active row's window words, its start,
-    fragment and length), per_pos integer operations and popc_per_pos
-    popcounts per window position of each active row (rows with an empty
-    fragment scan nothing)."""
+def exact_work(g, ws, frag, flen, window):
+    """K6b's bytes read (as scan_work) and the operations of its
+    bit-parallel test, per window word of 16 offsets of each active row
+    of fragment length f (at most F): 2 f + EXACT_OPS integer operations
+    and half a popcount (see EXACT_OPS)."""
+    F = frag.shape[1]
+    f = torch.clamp(flen, 0, F).to(torch.int64)
+    act = flen > 0
+    words = window // 16 + (window % 16 > 0)
+    nbytes = scan_work(g, ws, frag, flen, window, 0)[0]
+    return (nbytes, int((2 * f[act] + EXACT_OPS).sum()) * words,
+            int(act.sum()) * words // 2)
+
+
+def window_words(g, ws, flen, window):
+    """The genome words that the active rows' windows read, each counted
+    once: a row reads window // 16 + 3 words from its start word, which
+    is clamped as tpumap's dynamic slice clamps it (csrc/localscan.cu),
+    and the windows of nearby rows overlap."""
+    from tpumap_torch.index.device import SAFE_PAD_WORDS
+    glen = g.shape[0]
+    nraw = window // 16 + 3
+    w0 = (ws if flen is None else ws[flen > 0]) >> 4
+    if w0.numel() == 0:
+        return 0
+    zext = nraw - 1 >= 16 and nraw > SAFE_PAD_WORDS
+    if nraw - 1 >= 16:
+        w0 = w0.clamp(max=max(glen if zext else glen - nraw, 0))
+    w0 = w0.sort().values
+    # past the genome a row reads zeros (zext) or its last word again
+    end = (w0 + nraw).clamp(max=glen)
+    start = w0 if zext else w0.clamp(max=glen - 1)
+    prev = torch.cat([start[:1], end[:-1]])
+    return int((end - torch.maximum(start, prev)).clamp(min=0).sum())
+
+
+def scan_work(g, ws, frag, flen, window, per_pos, popc_per_pos=0):
+    """K6's bytes read (the genome words of the active rows' windows,
+    window_words, and each row's start, fragment and length), per_pos
+    integer operations and popc_per_pos popcounts per window position of
+    each active row (rows with an empty fragment scan nothing)."""
     R = ws.shape[0]
     active = R if flen is None else int((flen > 0).sum())
-    return (active * (window // 16 + 2) * 4 + tensor_bytes((ws, frag, flen)),
+    return (4 * window_words(g, ws, flen, window)
+            + tensor_bytes((ws, frag, flen)),
             active * window * per_pos, active * window * popc_per_pos)
 
 
@@ -744,11 +821,12 @@ def profile_rows(rows, gpu, chain_ns):
                 f"share {two / (dev or r['ms']):.3f}  [{gpu}]")
 
 
-# kernel instances whose device time per batch is logged: K5, K3 and
-# K6a's two (a kept list of 4 keys, of 8)
+# kernel instances whose device time per batch is logged: K5, K3, K6a's
+# two (a kept list of 4 keys, of 8) and K6b
 BATCH_PARTS = (("K5", "chain_kernel"), ("K3", "traceback_kernel"),
                ("K6a<4>", "localscan_kernel<0, 4>"),
-               ("K6a<8>", "localscan_kernel<0, 8>"))
+               ("K6a<8>", "localscan_kernel<0, 8>"),
+               ("K6b", "exact_sites_kernel"))
 
 
 def profile_batch(name, one_batch, wall, smi, parts=BATCH_PARTS):
@@ -817,12 +895,11 @@ def rna_kernel_rows(index, rng, reads_at):
 
     # ops per window position: for the fragment's mismatch count and its
     # top-k, 4 integer operations (align two words, xor, the fold and
-    # length mask as one LOP3, the min) and a popcount; for an exact match
-    # 5 (align, xor, fold and mask, compare, the count's add); 3 for a run
-    # length (align, xor, compare: the run's end is the highest set bit
-    # of the xor, or the lowest on a bit-reversed window, so the least
-    # xor orders the offsets and only the few that can reach the top
-    # need a bit scan)
+    # length mask as one LOP3, the min) and a popcount (K6b's rows, in
+    # scan_exact_rows, count its own: exact_work); 3 for a run length (align, xor, compare: the run's
+    # end is the highest set bit of the xor, or the lowest on a
+    # bit-reversed window, so the least xor orders the offsets and only
+    # the few that can reach the top need a bit scan)
     g = index.genome_packed
     ws, frag, flen = scan_inputs(2048, 16)
     args = (g, ws, frag, flen, W, 16, 4)
@@ -830,14 +907,7 @@ def rna_kernel_rows(index, rng, reads_at):
         "scan_fragment", "R=2048, W=65536, F=16, top 4",
         partial(localscan.scan_fragment, *args),
         partial(localscan.scan_fragment_plain, *args), 20, 2,
-        *scan_work(ws, frag, flen, W, 4, 1)))
-    ws, frag, flen = scan_inputs(1536, 10)
-    args = (g, ws, frag, flen, W, 10, 8)
-    rows.append(measure(
-        "scan_exact_sites", "R=1536, W=65536, F=10, top 8",
-        partial(localscan.scan_exact_sites, *args),
-        partial(localscan.scan_exact_sites_plain, *args), 20, 2,
-        *scan_work(ws, frag, flen, W, 5)))
+        *scan_work(g, ws, frag, flen, W, 4, 1)))
     ws, frag, _ = scan_inputs(2048, 16)
     for suffix in (True, False):
         args = (g, ws, frag, W, 8, suffix)
@@ -846,8 +916,8 @@ def rna_kernel_rows(index, rng, reads_at):
             f"R=2048, W=65536, top 8, {'suffix' if suffix else 'prefix'}",
             partial(localscan.scan_fragment_runs, *args),
             partial(localscan.scan_fragment_runs_plain, *args), 20, 2,
-            *scan_work(ws, frag, None, W, 3)))
-    return rows + scan_fragment_rows(index)
+            *scan_work(g, ws, frag, None, W, 3)))
+    return rows + scan_fragment_rows(index) + scan_exact_rows(index)
 
 
 def scan_fragment_rows(index):
@@ -876,7 +946,61 @@ def scan_fragment_rows(index):
             "scan_fragment", f"R={R}, W={W}, F=6-16, top 4 ({label})",
             partial(localscan.scan_fragment, *args),
             partial(localscan.scan_fragment_plain, *args), 20, 2,
-            *scan_work(args[1], frag, flen, W, 4, 1)))
+            *scan_work(g, args[1], frag, flen, W, 4, 1)))
+    return rows
+
+
+def scan_exact_rows(index):
+    """K6b at R = 1,536, W = 65,536, F = 10, top 8 over the bench genome:
+    first with lengths 0-10 drawn uniformly (its main row), then with the
+    fragment lengths of the splice-end review (PATH_LENGTHS: 99% of the
+    rows have none), with its active rows' lengths alone (3-10), and with
+    every row of 3 bases and of 10; and with the active rows' lengths
+    over a poly-A genome with all-A fragments, where every offset of
+    every row hits. Bounds from exact_work. Its own generator."""
+    from tpumap_torch.ops import localscan, verify
+    rng = np.random.default_rng(818)
+    dev = index.device
+    R, W, F = 1536, 65536, 10
+    polya = torch.zeros(1 << 20, dtype=torch.int32, device=dev)
+    mix = np.asarray(PATH_LENGTHS, np.float64)
+    active = mix * (np.arange(len(mix)) > 0)
+    bench = (index.genome_packed, index.genome_length)
+    rows = []
+    for label, (g, glen), p in (
+            ("the path's lengths", bench, mix),
+            ("the path's active lengths", bench, active),
+            ("all 3 bases", bench, np.eye(F + 1)[3]),
+            ("all 10 bases", bench, np.eye(F + 1)[10]),
+            ("the path's active lengths, poly-A",
+             (polya, 16 * polya.shape[0]), active)):
+        ws = rng.integers(0, glen - W, R).astype(np.int64)
+        at = ws + rng.integers(0, W - F, R)
+        frag = verify.extract_codes_window(
+            g, torch.from_numpy(at).to(dev), F).contiguous()
+        flen = torch.from_numpy(
+            rng.choice(len(p), R, p=p / p.sum()).astype(np.int32)).to(dev)
+        args = (g, torch.from_numpy(ws).to(dev), frag, flen, W, F, 8)
+        rows.append(measure(
+            "scan_exact_sites", f"R={R}, W={W}, F={F}, top 8, {label}",
+            partial(localscan.scan_exact_sites, *args),
+            partial(localscan.scan_exact_sites_plain, *args), 20, 2,
+            *exact_work(g, args[1], frag, flen, W)))
+    # first, the row of lengths 0-10 drawn uniformly, with two windows
+    # clamped at the genome's end
+    g, glen = bench
+    ws = rng.integers(0, glen, R).astype(np.int64)
+    ws[:2] = [glen - 100, glen + 10_000]
+    at = np.minimum(ws + rng.integers(0, W, R), glen - 16)
+    frag = verify.extract_codes_window(
+        g, torch.from_numpy(at).to(dev), F).contiguous()
+    flen = torch.from_numpy(rng.integers(0, F + 1, R).astype(np.int32)).to(dev)
+    args = (g, torch.from_numpy(ws).to(dev), frag, flen, W, F, 8)
+    rows.insert(0, measure(
+        "scan_exact_sites", f"R={R}, W={W}, F={F}, top 8",
+        partial(localscan.scan_exact_sites, *args),
+        partial(localscan.scan_exact_sites_plain, *args), 20, 2,
+        *exact_work(g, args[1], frag, flen, W)))
     return rows
 
 
@@ -984,7 +1108,7 @@ def pe_known_kernel_rows(index, rng, reads_at, known):
         "scan_fragment", f"R={R}, W={W}, F=16, top 4 (repair)",
         partial(localscan.scan_fragment, *args),
         partial(localscan.scan_fragment_plain, *args), 20, 5,
-        *scan_work(args[1], args[2], flen, W, 4, 1)))
+        *scan_work(args[0], args[1], args[2], flen, W, 4, 1)))
     return rows
 
 
@@ -1114,7 +1238,7 @@ def main():
     from tpumap_torch.gsnap.params import INDEL_BAND
     k2 = f"banded_kernel<{-(-(2 * INDEL_BAND + 1) // 32)}>"
     for name in (k2, "traceback_kernel", "localscan_kernel<0, 4>",
-                 "localscan_kernel<0, 8>"):
+                 "localscan_kernel<0, 8>", "exact_sites_kernel"):
         if name not in ptxas or any(ptxas[name][1:]):
             raise AssertionError(f"{name}: no ptxas report, or stack or "
                                  f"spills: {ptxas.get(name)}")

@@ -10,42 +10,75 @@ the bench genes' junctions as known sites) or snp (the 50,000 DNA reads
 with the alt alleles in, snp_tolerant=True on the mode db, batch
 32,768). A phase runs one warm-up call, then RUNS timed runs of all the
 reads (reads/s and chip_smoke's accuracy floors), then the device time
-of one batch with the parts of K5, K3 and K6a (torch.profiler), then a
-host profile (cProfile) of one batch: its wall time and the functions
-that took the most of it. With --kernels it first runs K6a's rows at the
-path's fragment lengths (chip_smoke.scan_fragment_rows: exact against
-the plain version, device ms per launch). JAX and tpumap are blocked, as
-in chip_smoke.py. Each tree runs in its own process, so an A/B
-comparison alternates processes:
+of one batch with the parts of K5, K3, K6a and K6b (torch.profiler),
+then a host profile (cProfile) of one batch: its wall time and the
+functions that took the most of it. With --kernels it first runs K6a's
+rows at the path's fragment lengths and all of K6b's
+(chip_smoke.scan_fragment_rows and scan_exact_rows: exact against the
+plain version, device ms per launch). With --sass DIR it first reads the
+tree's kernel library with cuobjdump: for each window-scan kernel
+(K6a-c) its instruction count and a hash of its instructions, with each
+scan's SASS written to DIR. JAX and tpumap are blocked, as in
+chip_smoke.py. Each tree runs in its own process, so an A/B comparison
+alternates processes:
 
     for t in A B B A; do python3 phase_ab.py --tree $t --phase rna snp; done
 
-Usage: python3 phase_ab.py [--tree DIR] [--phase P ...] [--kernels]
-                           [--runs N] [--top N]
+Usage: python3 phase_ab.py [--tree DIR] [--phase [P ...]] [--kernels]
+                           [--sass DIR] [--runs N] [--top N]
 """
 import argparse
 import cProfile
+import hashlib
 import io
 import pathlib
 import pstats
+import re
 import subprocess
 import sys
 import time
 
 HERE = pathlib.Path(__file__).resolve().parent
-# every K6a instance of this tree and of earlier ones
+# every K6a instance of this tree and of earlier ones, and K6b
 PARTS = (("K5", "chain_kernel"), ("K3", "traceback_kernel"),
-         ("K6a", "localscan_kernel<0"))
+         ("K6a", "localscan_kernel<0"), ("K6b", "exact_sites_kernel"))
+
+
+def sass_report(lib: str, out_dir: pathlib.Path, tag: str, smi: str):
+    """cuobjdump -sass of the kernel library: each window-scan kernel's
+    instruction count and the hash of its instructions (addresses left
+    out), to see that a change left an instance's SASS as it was. Each
+    scan's SASS goes to out_dir/{tag}_{kernel}.sass."""
+    import chip_smoke as cs
+    from tpumap_torch import kernels
+    tool = pathlib.Path(kernels._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for part in text.split("Function : ")[1:]:
+        name = cs.kernel_name(part.split(None, 1)[0])
+        if not name.startswith(("localscan_kernel", "exact_sites_kernel")):
+            continue
+        ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part)
+        digest = hashlib.sha256(
+            "\n".join(t.strip() for t in ins).encode()).hexdigest()[:16]
+        fname = re.sub(r"[^A-Za-z0-9]+", "_", name).strip("_")
+        (out_dir / f"{tag}_{fname}.sass").write_text(part)
+        cs.log(f"sass {tag} {name}: {len(ins)} instructions, hash "
+               f"{digest} [{smi}]")
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(HERE),
                     help="checkout whose tpumap_torch is timed")
-    ap.add_argument("--phase", nargs="+", default=["rna"],
+    ap.add_argument("--phase", nargs="*", default=["rna"],
                     choices=["rna", "rna_known", "snp"])
     ap.add_argument("--kernels", action="store_true",
-                    help="first K6a's rows at the path's fragment lengths")
+                    help="first K6a's and K6b's rows at the path's "
+                    "fragment lengths")
+    ap.add_argument("--sass", metavar="DIR",
+                    help="first the window scans' SASS, written to DIR")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--top", type=int, default=15,
                     help="functions of the host profile to print")
@@ -73,15 +106,19 @@ def main():
     if pkg.parent != tree:
         raise AssertionError(f"tpumap_torch imported from {pkg}, not {tree}")
 
-    kernels.build()
+    lib = kernels.build()
+    if args.sass:
+        sass_report(lib._name, pathlib.Path(args.sass), tree.name, smi)
+    if not (args.kernels or args.phase):
+        return 0
     bench_data, db, rfa = cs.load_index(smi)
     index = DeviceIndex.from_host(db, "cuda")
     if args.kernels:
-        rows = cs.scan_fragment_rows(index)
+        rows = cs.scan_fragment_rows(index) + cs.scan_exact_rows(index)
         for r in rows:
             if r["max_abs_err"] != 0:
-                raise AssertionError(f"K6a disagrees with its plain version "
-                                     f"at {r['shape']}")
+                raise AssertionError(f"{r['name']} disagrees with its plain "
+                                     f"version at {r['shape']}")
         cs.log(f"tree {tree.name}:")
         cs.profile_rows(rows, smi, {})
 

@@ -331,6 +331,11 @@ def test_chain_kernel_unaligned_inputs(dev, L):
     ("fragment", 65536, 8, ""), ("fragment", 65536, 4, "no_lengths"),
     ("fragment", 65536, 4, "poly_a"), ("fragment", 65536, 8, "poly_a"),
     ("fragment", 16, 4, ""), ("fragment", 17, 3, ""),
+    ("exact", 65536, 8, "path"), ("exact", 65536, 1, "path"),
+    ("exact", 65536, 8, "poly_a"), ("exact", 65536, 1, "poly_a"),
+    ("exact", 65536, 8, "no_lengths"), ("exact", 1031, 8, "path"),
+    ("exact", 131072, 8, ""), ("exact", 16, 3, ""), ("exact", 17, 8, ""),
+    ("exact", 1000, 8, "no_bases"),
 ])
 def test_scan_kernels_match_plain(dev, scan, window, top_k, case):
     """K6a-c against their plain versions, with window starts past the
@@ -339,7 +344,11 @@ def test_scan_kernels_match_plain(dev, scan, window, top_k, case):
     fragments cut from the window (the runs scans find run 16 there);
     K6a also at top_k 1-8, on a batch whose fragment lengths are all 0,
     and with all-A fragments over a 6,400-base poly-A stretch (thousands
-    of offsets score 0)."""
+    of offsets score 0); K6b also with the review's fragment lengths,
+    3-10 ("path"), at top_k 1 and 8, over the poly-A stretch (thousands
+    of hits a row), on a batch whose lengths are all 0, with fragments of
+    no bases (F = 0: every offset hits) and at windows of 16, 17, 1,031
+    and 2^17 bases."""
     rng = np.random.default_rng(window + top_k)
     glen = 200_000
     idx = random_index(rng, glen, dev)
@@ -357,10 +366,14 @@ def test_scan_kernels_match_plain(dev, scan, window, top_k, case):
     flen[10:40] = F
     if case == "no_lengths":
         flen[:] = 0
+    elif case == "path":
+        flen[:] = rng.integers(3, F + 1, R)
     elif case == "poly_a":
         ws[40:80] = 16_000 - rng.integers(0, 400, 40)
         frag[40:80] = 0
         flen[40:80] = F
+    elif case == "no_bases":
+        F, frag = 0, np.ascontiguousarray(frag[:, :0])
     g = idx.genome_packed
     wt, ft, lt = to(dev, ws, frag, flen)
     if scan == "fragment":
@@ -373,6 +386,10 @@ def test_scan_kernels_match_plain(dev, scan, window, top_k, case):
         args = (g, wt, ft, lt, window, F, top_k)
         got, want = (localscan.scan_exact_sites(*args),
                      localscan.scan_exact_sites_plain(*args))
+        if case == "poly_a":
+            assert bool((want[1][40:80] > 1000).all())
+        if case == "no_bases":
+            assert bool((want[1] == torch.where(lt > 0, window, 0)).all())
     else:
         args = (g, wt, ft, window, top_k, scan == "runs_suffix")
         got, want = (localscan.scan_fragment_runs(*args),

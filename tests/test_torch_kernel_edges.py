@@ -1,4 +1,4 @@
-"""Plain versions of K3 and K6a against tpumap (JAX on CPU) at the
+"""Plain versions of K3, K6a and K6b against tpumap (JAX on CPU) at the
 kernels' edges.
 
 K3 (`dp.traceback_plain`, with its run-length encoding) against
@@ -8,8 +8,14 @@ K3 (`dp.traceback_plain`, with its run-length encoding) against
 transcripts of more than 12 runs. K6a (`localscan.scan_fragment_plain`)
 against `tpumap.ops.localscan.scan_fragment`: a batch whose fragment
 lengths are all 0, all-A fragments over a poly-A stretch (thousands of
-offsets score 0), and top_k 1 and 8. Every quantity is an integer, so
-there is no tolerance.
+offsets score 0), and top_k 1 and 8. K6b
+(`localscan.scan_exact_sites_plain`) against
+`tpumap.ops.localscan.scan_exact_sites`: fragments of 3-10 bases (the
+lengths the splice-end review sends), all-A fragments over the poly-A
+stretch (thousands of hits a row), windows of 1,000 and 1,031 bases
+(not a multiple of 16), top_k 1 and 8, rows with fewer hits than top_k,
+a batch whose lengths are all 0, and windows clamped at the genome's
+end. Every quantity is an integer, so there is no tolerance.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +26,7 @@ from test_torch_ops import ladder_runs_numpy, same
 from tpumap.ops import dp as jdp
 from tpumap.ops import localscan as jlocalscan
 from tpumap_torch.ops import dp, localscan, verify
+from tpumap_torch.ops.u32 import INVALID
 
 torch.set_num_threads(1)
 
@@ -123,3 +130,44 @@ def test_scan_fragment_edges_match_tpumap(poly_a_genome, case, top_k):
                                     + torch.arange(top_k)) & 0xFFFFFFFF)
     elif case == "poly_a":
         assert (got[1][2:8] == 0).all()
+
+
+@pytest.mark.parametrize("case,window,top_k", [
+    ("path", 65536, 8), ("path", 65536, 1), ("poly_a", 65536, 8),
+    ("poly_a", 65536, 1), ("path", 1000, 8), ("path", 1031, 1),
+    ("no_lengths", 65536, 8),
+])
+def test_scan_exact_sites_edges_match_tpumap(poly_a_genome, case, window,
+                                             top_k):
+    g, gt, glen = poly_a_genome
+    rng = np.random.default_rng(window + top_k)
+    R, F = 12, 10
+    ws = rng.integers(0, glen, R).astype(np.int64)
+    ws[:2] = [glen - 100, 2 ** 32 - 40]          # clamped at the end
+    at = np.minimum(ws + rng.integers(0, window, R), glen - F)
+    frag = verify.extract_codes_window(gt, t(at), F).numpy()
+    flen = rng.integers(3, F + 1, R).astype(np.int32)
+    flen[2:4] = [3, F]
+    if case == "no_lengths":
+        flen[:] = 0
+    elif case == "poly_a":
+        ws[2:8] = 16_000 - rng.integers(0, 400, 6)
+        frag[2:8] = 0
+        flen[2:8] = F
+    want = jlocalscan.scan_exact_sites(jnp.asarray(g),
+                                       jnp.asarray(ws.astype(np.uint32)),
+                                       jnp.asarray(frag), jnp.asarray(flen),
+                                       window, F, top_k)
+    got = localscan.scan_exact_sites_plain(gt, t(ws), t(frag), t(flen),
+                                           window, F, top_k)
+    for a, b in zip(want, got):
+        same(a, b)
+    pos, count = got
+    if case == "no_lengths":
+        assert (count == 0).all() and (pos == INVALID).all()
+    elif case == "poly_a":
+        # every offset of the stretch hits: thousands a row
+        assert (count[2:8] > 1000).all()
+    else:
+        assert ((count > 0) & (count < top_k)).any() or top_k == 1
+        assert (count[(pos[:, -1] == INVALID)] < top_k).all()

@@ -1,45 +1,50 @@
 // K6a-c: the window scans of the RNA path's salvage and ambiguous-end
-// review, one kernel template with an instance per scan.
+// review: one kernel template with an instance per scan for K6a and K6c,
+// and a kernel of its own for K6b.
 //
 // Replaces: tpumap/ops/localscan.py: _phase_mismatch_counts (34-65) with
 // scan_fragment (68-115, K6a), scan_exact_sites (118-145, K6b) and
 // scan_fragment_runs (148-225, K6c): a fragment of <= 16 bases compared
 // with every offset of a row's genome window (65,536 bp on the path) as
 // 16 shift phases of an XOR/popcount stream over the window's packed
-// words, then an exact top-k.
+// words, then an exact top-k (K6b: the count of exact placements and the
+// first top_k).
 //
 // Bound on the H100: integer ALU. A row is 4,097 words x 16 phases, and
 // the window itself is 16.4 KB read once. tpumap's form (and the plain
 // version) writes [R, 4097, 16] intermediates to memory, 1.07 GB at
-// R = 2,048; this kernel writes only the top k. So the time is the
+// R = 2,048; these kernels write only the top k. So the time is the
 // instructions spent a window offset: the per-offset score, and for the
 // few offsets that can reach the top k, the compare with the kept keys
 // and the insertion, which a warp runs whenever any of its lanes inserts.
 //
-// Design: one block per row, one instance per scan (MODE a template
-// parameter; K, the length of each thread's kept list, another): 256
-// threads, fewer for a window of fewer words (a warp per 32 words, so
-// the mate repair's 1,024-base window takes 64). The block loads the
-// row's raw window words into shared memory, fetched as tpumap fetches
-// them (one dynamic slice whose start is clamped to len - size). Each
-// thread takes whole words: it aligns two neighbouring words with
-// __funnelshift_r and scores all 16 phases of each, one funnel shift a
-// phase, with no bound check; the one partial word at the window's end
-// has its phases guarded. Every offset gets a unique 32-bit key
+// Both kernels take one block per row: at most 256 threads (THREADS;
+// K6b's launches on the path are 99% rows without a fragment, so a
+// launch takes one active row's latency, and 256 beat 128, 512 and 1,024
+// there), fewer for a window of fewer words (K6a and K6c a warp per 32
+// words, so the mate repair's 1,024-base window takes 64; K6b a warp per
+// 128). The block loads the row's raw window words into shared
+// memory, fetched as tpumap fetches them (one dynamic slice whose start
+// is clamped to len - size; K6b issues them as cp.async copies, all of a
+// thread's in flight at once), and aligns two neighbouring words with
+// __funnelshift_r.
+//
+// K6a and K6c (localscan_kernel, MODE a template parameter; K, the
+// length of each thread's kept list, another): each thread takes whole
+// words and scores all 16 phases of each, one funnel shift a phase, with
+// no bound check; the one partial word at the window's end has its
+// phases guarded. Every offset gets a unique 32-bit key
 // (score << 17 | offset), so tpumap's iterated block minima equal an
 // exact k-smallest: each thread keeps its K smallest keys in registers
 // (a compare-exchange insertion), then the block pops the global minimum
-// k times with warp reductions.
-//
-// K6a and K6c run two passes (two_pass, with a Scan policy each). Pass 1
-// gives each word the least of its 16 phases' scores (K6c: of a proxy)
-// in shared memory and each thread its least over its words; it builds
-// no keys. The threads'
-// least scores give a block bar: the least score S that
-// top_k distinct threads reach, so at least top_k distinct offsets score
-// S or less and a key of a higher score is in no top k. Pass 2 scores
-// exactly, and inserts, only the phases of the words that can reach S
-// (a few of 4,096 on random windows).
+// k times with warp reductions. Two passes (two_pass, with a Scan policy
+// each). Pass 1 gives each word the least of its 16 phases' scores (K6c:
+// of a proxy) in shared memory and each thread its least over its words;
+// it builds no keys. The threads' least scores give a block bar: the
+// least score S that top_k distinct threads reach, so at least top_k
+// distinct offsets score S or less and a key of a higher score is in no
+// top k. Pass 2 scores exactly, and inserts, only the phases of the
+// words that can reach S (a few of 4,096 on random windows).
 // - K6a scores mismatches, popc over the fold of x = stream ^ fw, 0-16
 //   (about 6 instructions an offset in pass 1). Its kept list is 4 keys
 //   where top_k <= 4 (every call site), else 8. Short fragments tie
@@ -58,13 +63,44 @@
 //   version's smear popc(~y & LOW) for all 2^16 patterns. The run ends
 //   at the highest (suffix) or lowest (prefix) set bit of
 //   x = stream ^ fw, so x, or ~(x ^ (x - 1)), is a proxy that orders
-//   with it at no bit scan (3 or 5 instructions an offset).
-// K6b (exact placements, counted, the key the offset) runs one pass: a
-// word goes to the insertion only if its least key is under the warp's
-// bar, the smallest 8th key of the warp's lanes (one __reduce_min_sync
-// a word). Its rows with no fragment (length <= 0) return at once with no
-// hits, as tpumap's masked hits give; K6c's fragment is always 16 bases
-// and it reads no lengths.
+//   with it at no bit scan (3 or 5 instructions an offset). Its fragment
+//   is always 16 bases and it reads no lengths.
+//
+// K6b (exact_sites_kernel) keys an offset by the offset itself, so its
+// top_k smallest keys are its first top_k hits in window order: a count
+// and a stream compaction, with no kept list, bar or pops. One pass:
+// - Each warp takes a contiguous run of words, and a lane 4 consecutive
+//   words an iteration (one 128-bit and one 64-bit shared load, 5 funnel
+//   shifts to align them), so the offsets come in (warp, iteration,
+//   lane, word) order.
+// - A word's 16 phases are tested at once, bit-parallel over the
+//   fragment's bases rather than its offsets: with rep[i] base i of the
+//   fragment in all 16 pairs, acc = OR over i < flen of
+//   (window >> 2i) ^ rep[i] has pair p 00 iff offset p matches, so the
+//   hit mask ~(acc | acc >> 1) & LOW costs 2 flen + 1 integer
+//   instructions a word (flen - 1 funnel shifts, flen xor-ors, the
+//   fold), against ~3 an offset for a test a phase, and against a
+//   Shift-And over the word's four code masks, which must pick each
+//   base's mask by its code, known only at run time. The loop is
+//   instantiated per length (0-16, 0 where F is: no base to test, every
+//   offset hits, as the plain version gives; the length is uniform in a
+//   block) and
+//   the last iteration masks the phases past the window or the warp's
+//   run.
+// - The count is a popcount of two words' masks at a time, summed over
+//   the lanes and the warps once at the end. Every offset is tested: no
+//   pass can skip a word of a count.
+// - While a warp holds fewer than top_k hits and some lane has one, the
+//   lanes rank their hits (a shuffle scan of their counts) and write the
+//   first top_k offsets of the warp to shared memory. The warps' first
+//   hits in warp order are the row's: after one __syncthreads, each
+//   output slot takes the hit of its rank from the warp whose prefix of
+//   counts covers it, INVALID past the last. A second walk of the runs
+//   to rank the hits after the block's scan, as an alternative, would
+//   repeat the whole run of every warp with a hit on the sparse rows of
+//   7-10 bases the path sends.
+// Rows with no fragment (length <= 0) return at once with no hits, as
+// tpumap's masked hits give.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -78,16 +114,14 @@ constexpr uint32_t LOW = 0x55555555u;
 constexpr uint32_t NONE = 0xFFFFFFFFu;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
-constexpr int FRAG = 0, EXACT = 1, RUNS_SUFFIX = 2, RUNS_PREFIX = 3;
+// localscan_kernel's scans (the values are in its instances' names,
+// which the profiles and the ptxas check read)
+constexpr int FRAG = 0, RUNS_SUFFIX = 2, RUNS_PREFIX = 3;
 
-// K6b's key of window offset o from its genome stream word (fragment
-// base j against genome base o + j at bits 2j, 2j + 1), NONE for no
-// exact placement; K6c's key from x = stream ^ fw
+// K6c's key of window offset o from x = stream ^ fw (fragment base j
+// against genome base o + j at bits 2j, 2j + 1)
 template <int MODE>
-__device__ __forceinline__ uint32_t offset_key(uint32_t x, uint32_t lowfm,
-                                               uint32_t o) {
-  if (MODE == EXACT)
-    return ((x | (x >> 1)) & lowfm) ? NONE : o;
+__device__ __forceinline__ uint32_t offset_key(uint32_t x, uint32_t o) {
   const uint32_t mm2 = (x | (x >> 1)) & LOW;
   const uint32_t lead =
       MODE == RUNS_SUFFIX ? __clz(mm2) : __clz(__brev(mm2));
@@ -114,7 +148,7 @@ struct Scan {
   // say 2
   __device__ static __forceinline__ int bin(uint32_t m) {
     if (MODE == RUNS_SUFFIX)
-      return (int)(offset_key<MODE>(m, 0u, 0u) >> OFF_BITS);
+      return (int)(offset_key<MODE>(m, 0u) >> OFF_BITS);
     if (m == 0u) return 2;
     const int a = 31 - __clz(~m);          // the lowest set bit of x
     return 32 - 2 * (a >> 1);
@@ -131,7 +165,7 @@ struct Scan {
   }
   __device__ static __forceinline__ uint32_t key(uint32_t, uint32_t x,
                                                  uint32_t o) {
-    return offset_key<MODE>(x, 0u, o);
+    return offset_key<MODE>(x, o);
   }
 };
 
@@ -248,7 +282,7 @@ __global__ void __launch_bounds__(THREADS) localscan_kernel(
     const long long* __restrict__ win_starts,
     const uint8_t* __restrict__ frag, const int32_t* __restrict__ frag_lens,
     int F, int window, int top_k, long long* __restrict__ out_pos,
-    int32_t* __restrict__ out_val, int32_t* __restrict__ out_count) {
+    int32_t* __restrict__ out_val) {
   constexpr bool RUNS = MODE == RUNS_SUFFIX || MODE == RUNS_PREFIX;
   extern __shared__ uint32_t raw[];
   __shared__ uint32_t red[WARPS];
@@ -260,14 +294,6 @@ __global__ void __launch_bounds__(THREADS) localscan_kernel(
   const int flen = min(max(flen_raw, 0), F);
   long long* pos = out_pos + (long long)r * top_k;
   int32_t* val = out_val + (long long)r * top_k;
-  if (MODE == EXACT && flen_raw <= 0) {
-    if (tid < top_k) {
-      pos[tid] = (long long)NONE;
-      val[tid] = 0;
-    }
-    if (tid == 0) out_count[r] = 0;
-    return;
-  }
   if (MODE == FRAG && flen <= 0) {       // every offset scores 0
     if (tid < top_k) {
       pos[tid] = (long long)(uint32_t)(ws + tid);
@@ -306,63 +332,10 @@ __global__ void __launch_bounds__(THREADS) localscan_kernel(
   uint32_t top[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) top[i] = NONE;
-  int hits = 0;
   const int nfull = window / 16;         // words with all 16 phases
   const int rem = window - 16 * nfull;   // phases of the partial word
-  if constexpr (MODE != EXACT) {
-    two_pass<Scan<MODE>>(raw, raw + nraw, s2, fw, lowfm, nfull, rem, top_k,
-                         top);
-  } else {
-    // the loop runs alike on the lanes of a warp, so the bar is a
-    // full-warp reduction
-    for (int jb = tid & ~31; jb < nfull; jb += nthr) {
-      const int j = jb + (tid & 31);
-      uint32_t bar = __reduce_min_sync(FULL, top[K - 1]);
-      if (j >= nfull) continue;
-      const uint32_t lo = __funnelshift_r(raw[j], raw[j + 1], s2);
-      const uint32_t hi = __funnelshift_r(raw[j + 1], raw[j + 2], s2);
-      uint32_t key[16];
-      uint32_t least = NONE;
-#pragma unroll
-      for (int p = 0; p < 16; ++p) {
-        key[p] = offset_key<MODE>(__funnelshift_r(lo, hi, 2 * p) ^ fw, lowfm,
-                                  16 * j + p);
-        least = min(least, key[p]);
-        hits += key[p] != NONE;
-      }
-      if (least < bar) {
-#pragma unroll
-        for (int p = 0; p < 16; ++p)
-          if (key[p] < bar) {
-            insert(top, key[p]);
-            bar = min(bar, top[K - 1]);
-          }
-      }
-    }
-    // the partial word at the window's end, phases guarded
-    if (rem && tid == nfull % nthr) {
-      const int j = nfull;
-      const uint32_t lo = __funnelshift_r(raw[j], raw[j + 1], s2);
-      const uint32_t hi = __funnelshift_r(raw[j + 1], raw[j + 2], s2);
-#pragma unroll
-      for (int p = 0; p < 16; ++p) {
-        if (p >= rem) break;
-        const uint32_t key = offset_key<MODE>(
-            __funnelshift_r(lo, hi, 2 * p) ^ fw, lowfm, 16 * j + p);
-        hits += key != NONE;
-        if (key < top[K - 1]) insert(top, key);
-      }
-    }
-    int h = __reduce_add_sync(FULL, hits);
-    if ((tid & 31) == 0) red[tid >> 5] = (uint32_t)h;
-    __syncthreads();
-    if (tid == 0) {
-      int total = 0;
-      for (int w = 0; w < nwarps; ++w) total += (int)red[w];
-      out_count[r] = total;
-    }
-    __syncthreads();
-  }
+  two_pass<Scan<MODE>>(raw, raw + nraw, s2, fw, lowfm, nfull, rem, top_k,
+                       top);
 
   // exact block-wide k smallest: pop the minimum head k times (keys are
   // unique, so exactly one thread owns each popped key)
@@ -385,27 +358,184 @@ __global__ void __launch_bounds__(THREADS) localscan_kernel(
     }
     if (tid == 0) {
       const uint32_t off = m & ((1u << OFF_BITS) - 1u);
-      if (MODE == EXACT) {
-        pos[t] = m == NONE ? (long long)NONE : (long long)(uint32_t)(ws + m);
-        val[t] = 0;
-      } else {
-        pos[t] = (long long)(uint32_t)(ws + off);
-        // K6c's run: (32 - score) >> 1
-        val[t] = RUNS ? (int)(32u - (m >> OFF_BITS)) >> 1
-                      : (int)(m >> OFF_BITS);
-      }
+      pos[t] = (long long)(uint32_t)(ws + off);
+      // K6c's run: (32 - score) >> 1
+      val[t] = RUNS ? (int)(32u - (m >> OFF_BITS)) >> 1
+                    : (int)(m >> OFF_BITS);
     }
+  }
+}
+
+// K6b's hit mask of the word at window offsets 16j .. 16j + 15 (lo, and
+// hi the next, both aligned to the window): bit 2p set iff the first
+// FLEN fragment bases match at offset 16j + p. rep[i] is fragment base i
+// in every pair, so pair p of the funnel shift by 2i, xor rep[i], is 00
+// iff base i matches at p
+template <int FLEN>
+__device__ __forceinline__ uint32_t exact_hits(uint32_t lo, uint32_t hi,
+                                               const uint32_t (&rep)[16]) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < FLEN; ++i)
+    acc |= (i ? __funnelshift_r(lo, hi, 2 * i) : lo) ^ rep[i];
+  return ~(acc | (acc >> 1)) & LOW;
+}
+
+// the even bits of the first d phases of a word (any d)
+__device__ __forceinline__ uint32_t first_phases(int d) {
+  return d >= 16 ? LOW : d <= 0 ? 0u : LOW & ((1u << (2 * d)) - 1u);
+}
+
+// K6b's scan of a row whose fragment has FLEN bases (all threads of the
+// block): warp w takes the words [w * per, (w + 1) * per), a lane 4
+// consecutive ones an iteration. Returns in wtot[w] the warp's count of
+// exact placements and in first[w] the offsets of its first
+// min(count, top_k).
+template <int FLEN>
+__device__ __forceinline__ void exact_scan(const uint32_t* raw, uint32_t s2,
+                                           const uint32_t (&rep)[16],
+                                           int window, int per, int top_k,
+                                           uint32_t* first, int* wtot) {
+  const int lane = threadIdx.x & 31, run0 = (threadIdx.x >> 5) * per;
+  int cnt = 0;    // this lane's hits
+  int kept = 0;   // the warp's hits so far, while under top_k
+  for (int u0 = 0; u0 < per; u0 += 128) {
+    const int u = u0 + 4 * lane;
+    const int j0 = run0 + u;
+    const uint4 q = *reinterpret_cast<const uint4*>(raw + j0);
+    const uint2 e = *reinterpret_cast<const uint2*>(raw + j0 + 4);
+    const uint32_t a0 = __funnelshift_r(q.x, q.y, s2);
+    const uint32_t a1 = __funnelshift_r(q.y, q.z, s2);
+    const uint32_t a2 = __funnelshift_r(q.z, q.w, s2);
+    const uint32_t a3 = __funnelshift_r(q.w, e.x, s2);
+    const uint32_t a4 = __funnelshift_r(e.x, e.y, s2);
+    uint32_t h[4] = {exact_hits<FLEN>(a0, a1, rep),
+                     exact_hits<FLEN>(a1, a2, rep),
+                     exact_hits<FLEN>(a2, a3, rep),
+                     exact_hits<FLEN>(a3, a4, rep)};
+    if (u >= per || 16 * (j0 + 4) > window) {  // past the run or window
+      const int d = u < per ? window - 16 * j0 : 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) h[k] &= first_phases(d - 16 * k);
+    }
+    // the masks hold even bits only: two words fit one popcount
+    const int n = __popc(h[0] | (h[1] << 1)) + __popc(h[2] | (h[3] << 1));
+    cnt += n;
+    if (kept < top_k && __any_sync(FULL, n != 0)) {
+      int incl = n;                      // the warp's hits up to this lane
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(FULL, incl, off);
+        if (lane >= off) incl += v;
+      }
+      int rank = kept + incl - n;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        for (uint32_t m = h[k]; m && rank < top_k; m &= m - 1)
+          first[rank++] = 16 * (j0 + k) + ((__ffs(m) - 1) >> 1);
+      kept += __shfl_sync(FULL, incl, 31);
+    }
+  }
+  cnt = __reduce_add_sync(FULL, cnt);
+  if (lane == 0) *wtot = cnt;
+}
+
+// K6b: count the exact placements of each row's fragment in its window
+// and keep the first top_k (one block a row; blockDim.x a multiple of 32)
+__global__ void __launch_bounds__(THREADS) exact_sites_kernel(
+    const uint32_t* __restrict__ genome, long long glen_words,
+    const long long* __restrict__ win_starts,
+    const uint8_t* __restrict__ frag, const int32_t* __restrict__ frag_lens,
+    int F, int window, int top_k, int per, int nbuf,
+    long long* __restrict__ out_pos, int32_t* __restrict__ out_count) {
+  extern __shared__ __align__(16) uint32_t words[];
+  __shared__ uint32_t first[WARPS][8];
+  __shared__ int wtot[WARPS];
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x, nwarps = blockDim.x >> 5;
+  const uint32_t ws = (uint32_t)win_starts[r];
+  const int flen_raw = frag_lens[r];
+  long long* pos = out_pos + (long long)r * top_k;
+  if (flen_raw <= 0) {
+    if (tid < top_k) pos[tid] = (long long)NONE;
+    if (tid == 0) out_count[r] = 0;
+    return;
+  }
+  const int flen = min(flen_raw, F);
+  // the window words as localscan_kernel fetches them (the same clamped
+  // slice), then zeros up to nbuf (the last iteration's lanes past their
+  // warp's run read there, and mask what they read), as cp.async copies
+  // of 4 bytes, a copy of 0 bytes filling its word with zeros: a
+  // thread's words are all in flight at once, and the fragment's loads
+  // go out behind them
+  const int nw = window / 16 + 1;
+  const int nraw = nw + 2;
+  long long w0 = (long long)(ws >> 4);
+  bool zext = false;
+  if (nw + 1 >= 16) {
+    zext = nraw > SAFE_PAD_WORDS;
+    long long lim = zext ? glen_words : glen_words - nraw;
+    if (lim < 0) lim = 0;
+    if (w0 > lim) w0 = lim;
+  }
+  for (int i = tid; i < nbuf; i += blockDim.x) {
+    const long long idx = w0 + i;
+    const bool zero = i >= nraw || (zext && idx >= glen_words);
+    const uint32_t* src = genome + (idx >= glen_words ? glen_words - 1 : idx);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(words + i)),
+                 "l"(src), "r"(zero ? 0 : 4));
+  }
+  const uint32_t s2 = (ws & 15u) << 1;
+  uint32_t fw = 0;
+  for (int j = 0; j < F; ++j)
+    fw += (uint32_t)frag[(long long)r * F + j] << (2 * j);
+  uint32_t rep[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) rep[i] = ((fw >> (2 * i)) & 3u) * LOW;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int w = tid >> 5;
+  switch (flen) {
+#define EXACT_CASE(n)                                                   \
+  case n:                                                               \
+    exact_scan<n>(words, s2, rep, window, per, top_k, first[w], &wtot[w]); \
+    break;
+    EXACT_CASE(0) EXACT_CASE(1) EXACT_CASE(2) EXACT_CASE(3) EXACT_CASE(4)
+    EXACT_CASE(5) EXACT_CASE(6) EXACT_CASE(7) EXACT_CASE(8) EXACT_CASE(9)
+    EXACT_CASE(10) EXACT_CASE(11) EXACT_CASE(12) EXACT_CASE(13)
+    EXACT_CASE(14) EXACT_CASE(15) EXACT_CASE(16)
+#undef EXACT_CASE
+  }
+  __syncthreads();
+
+  // hit t of the row is hit t - (hits of the warps before) of the first
+  // warp whose prefix of counts passes t; each warp kept min(count, top_k)
+  if (tid < top_k) {
+    long long p = (long long)NONE;
+    for (int v = 0, before = 0; v < nwarps; before += wtot[v++])
+      if (tid < before + wtot[v]) {
+        p = (long long)(uint32_t)(ws + first[v][tid - before]);
+        break;
+      }
+    pos[tid] = p;
+  }
+  if (tid == 0) {
+    int total = 0;
+    for (int v = 0; v < nwarps; ++v) total += wtot[v];
+    out_count[r] = total;
   }
 }
 
 template <int MODE, int K>
 int launch(const void* genome, long long glen_words, const void* win_starts,
            const void* frag, const void* frag_lens, int R, int F, int window,
-           int top_k, void* pos, void* val, void* count, void* stream) {
-  // the raw window words; the two-pass scans add each word's least
-  // score (64 KiB at the largest window, 2^17)
+           int top_k, void* pos, void* val, void* stream) {
+  // the raw window words and each word's least score (64 KiB at the
+  // largest window, 2^17)
   const int nraw = window / 16 + 3;
-  const int bytes = (MODE == EXACT ? 1 : 2) * nraw * (int)sizeof(uint32_t);
+  const int bytes = 2 * nraw * (int)sizeof(uint32_t);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         localscan_kernel<MODE, K>,
@@ -418,11 +548,14 @@ int launch(const void* genome, long long glen_words, const void* win_starts,
   localscan_kernel<MODE, K><<<R, threads, bytes, (cudaStream_t)stream>>>(
       (const uint32_t*)genome, glen_words, (const long long*)win_starts,
       (const uint8_t*)frag, (const int32_t*)frag_lens, F, window, top_k,
-      (long long*)pos, (int32_t*)val, (int32_t*)count);
+      (long long*)pos, (int32_t*)val);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// The three scans share one argument list; each ignores some of it: K6a
+// unused and count, K6b unused and val, K6c frag_lens and count.
 
 // K6a: top_k lowest-mismatch placements of each row's fragment (a kept
 // list of 4 keys a thread where top_k <= 4)
@@ -433,7 +566,7 @@ extern "C" int tt_scan_fragment(const void* genome, long long glen_words,
                                 void* val, void* count, void* stream) {
   auto fn = top_k <= 4 ? launch<FRAG, 4> : launch<FRAG, 8>;
   return fn(genome, glen_words, win_starts, frag, frag_lens, R, F, window,
-            top_k, pos, val, count, stream);
+            top_k, pos, val, stream);
 }
 
 // K6b: exact placements, counted, the top_k smallest offsets kept
@@ -443,13 +576,26 @@ extern "C" int tt_scan_exact_sites(const void* genome, long long glen_words,
                                    int window, int top_k, int unused,
                                    void* pos, void* val, void* count,
                                    void* stream) {
-  return launch<EXACT, 8>(genome, glen_words, win_starts, frag, frag_lens, R,
-                          F, window, top_k, pos, val, count, stream);
+  // a warp per 128 words (4 a lane an iteration), at most THREADS;
+  // each warp's run a multiple of 4 words (the lanes' 16-byte loads)
+  const int nwords = (window + 15) / 16;
+  const int threads = min(THREADS, (nwords + 127) / 128 * 32);
+  const int nwarps = threads / 32;
+  const int per = ((nwords + nwarps - 1) / nwarps + 3) & ~3;
+  // the words the lanes read: the last iteration of the last run reads up
+  // to 128 words past nwarps * per, and 2 for the next words' alignment
+  // (33.3 KB at the largest window, 2^17)
+  const int nbuf = (nwarps * per + 130 + 3) & ~3;
+  exact_sites_kernel<<<R, threads, nbuf * (int)sizeof(uint32_t),
+                       (cudaStream_t)stream>>>(
+      (const uint32_t*)genome, glen_words, (const long long*)win_starts,
+      (const uint8_t*)frag, (const int32_t*)frag_lens, F, window, top_k, per,
+      nbuf, (long long*)pos, (int32_t*)count);
+  return (int)cudaGetLastError();
 }
 
 // K6c: top_k placements by the clean run anchored at the fragment's last
-// (suffix != 0) or first base; frag_lens and count are not read or
-// written (the fragment is 16 bases)
+// (suffix != 0) or first base (the fragment is 16 bases)
 extern "C" int tt_scan_fragment_runs(const void* genome, long long glen_words,
                                      const void* win_starts, const void* frag,
                                      const void* frag_lens, int R, int F,
@@ -458,5 +604,5 @@ extern "C" int tt_scan_fragment_runs(const void* genome, long long glen_words,
                                      void* stream) {
   auto fn = suffix ? launch<RUNS_SUFFIX, 8> : launch<RUNS_PREFIX, 8>;
   return fn(genome, glen_words, win_starts, frag, frag_lens, R, F, window,
-            top_k, pos, val, count, stream);
+            top_k, pos, val, stream);
 }

@@ -187,7 +187,8 @@ def _launch_scan(name: str, genome_packed, win_starts, frag, frag_lens,
                  window: int, top_k: int, extra: int, count=None):
     """Shared CUDA path of the three scans: checks, outputs, launch. The
     runs scan takes no lengths (frag_lens None: 16-base fragments); the
-    exact-site scan passes its int32[R] count tensor, the others None."""
+    exact-site scan passes its int32[R] count tensor and gets no values
+    (None), the others pass None."""
     R, F = frag.shape
     dev = win_starts.device
     kernels.check_args(name, dev, (genome_packed, torch.int32, None),
@@ -199,12 +200,14 @@ def _launch_scan(name: str, genome_packed, win_starts, frag, frag_lens,
         raise ValueError(f"{name}: needs fragments of <= 16 bases, "
                          f"1 <= top_k <= 8 and 1 <= window <= 2^17")
     pos = torch.empty((R, top_k), dtype=torch.int64, device=dev)
-    val = torch.empty((R, top_k), dtype=torch.int32, device=dev)
+    val = (torch.empty((R, top_k), dtype=torch.int32, device=dev)
+           if count is None else None)
     if R:
         kernels.launch(name, dev, genome_packed, genome_packed.shape[0],
                        win_starts, frag,
                        0 if frag_lens is None else frag_lens, R, F, window,
-                       top_k, extra, pos, val, 0 if count is None else count)
+                       top_k, extra, pos, 0 if val is None else val,
+                       0 if count is None else count)
     return pos, val
 
 
