@@ -6,14 +6,17 @@ emitter — single-end DNA at the repo's headline DNA size, single-end RNA
 with novel splicing and with known splicing (-s) at the bench's RNA
 size, paired-end DNA at the bench's PE size, paired RNA through the
 mate repair, and bisulfite (cmet) and SNP-tolerant DNA at the DNA size
-— and fails (exit code != 0) if any phase fails:
+— and GMAP's bulk path over 2,048 cDNAs, and fails (exit code != 0) if
+any phase fails:
 
 1. card name and power limit; build the CUDA kernels from csrc/ (each
    kernel instance's ptxas registers, stack and spills; no K5 instance,
    not the K2 instance of the indel band, not K3, no K6a instance and
-   not K6b may have a stack frame or spills); the port's native host
-   library must load; the latency of a chain of dependent shared-memory
-   loads (one and two a step, one thread), for the floor of K3's walk;
+   not K6b, not K7a nor K7b may have a stack frame or spills); the
+   port's native host library must load; the latency of a chain of
+   dependent shared-memory loads (one and two a step, one thread), for
+   the floor of K3's walk, and of a dependent block-wide first-maximum
+   reduction (at 64, 128 and 512 threads), for the floor of K7a's DP;
 2. the chr21-scale bench genome (46.7 Mbp, tools/bench_data.py) and
    its k=14, interval-3 index, uploaded to the card;
 3. every kernel at its main-path shapes against its plain PyTorch
@@ -77,7 +80,19 @@ mate repair, and bisulfite (cmet) and SNP-tolerant DNA at the DNA size
    first 2,048 cmet and SNP reads, the first 512 RNA reads as cmet with
    novel splicing and 512 PE pairs as cmet (both mates C->T) through the
    port on the CPU (plain versions) and on the GPU with the same
-   batching: byte-identical SAM.
+   batching: byte-identical SAM; and the first 256 GMAP cDNAs of 12:
+   byte-identical GFF3 (-f 3 and -f 2);
+12. GMAP end to end on the k=14 index: 2,048 cDNAs made as
+   tools/bench_gmap.make_queries makes them (gmap_bench.py, seed 7, 2-5
+   exons of 100-399 bp, introns of 200-4,999 bp), one warm-up call on
+   the first 256, then align_queries_bulk over all 2,048 with launch
+   counters reset; queries/s, the found fraction (>= 0.99) and the
+   share whose exon count equals the truth with every exon end within
+   10 bp (>= GMAP_FLOOR, tpumap's own share less 0.01); K7a and K7b
+   must have launched. Their rows (phase 3's columns) come after it, at
+   the shapes of its largest calls (logged from its timed run), of the
+   80-exon 8-kbp query of tests/test_gmap_e2e.py (S = 512, Rp =
+   131,072), and of poly-A windows under keep_overabundant.
 
 Phase 3 also holds K1 against its plain version on the mode index: in
 each base space at the mode rung's [32,768, 8] x 8, ref-OR-alt at the
@@ -87,7 +102,8 @@ x 8.
 Every profile waits until the timed runs and the GPU half of 11 are
 over: each kernel row's device time per launch (torch.profiler), and one
 batch of phases 4-7, 9 and 10 (its device time and the parts of K5, K3,
-each K6a instance and K6b against the timed run's wall time per batch),
+each K6a instance and K6b against the timed run's wall time per batch)
+and the GMAP call (with the parts of K7a and K7b),
 and K3's walk floor (its longest walk times the chain's step); then the
 fragment lengths that reach K6a and K6b in one batch of RNA, RNA -s and
 the repair (with K6b's active share and counts). After the runs: each
@@ -97,6 +113,7 @@ line before the last is the kernel table as JSON; the last line is {"ok": true,
 either. Bench data and the index go under .bench_data/ in the checkout.
 Usage: python3 chip_smoke.py
 """
+import contextlib
 import ctypes
 import io
 import json
@@ -146,6 +163,14 @@ HBM_BPS = 3.35e12
 INT_OPS = 132 * 64 * 1.98e9
 POPC_OPS = 132 * 16 * 1.98e9
 DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
+GSNAP_KERNELS = DNA_KERNELS + ("chain_dp", "scan_fragment",
+                               "scan_exact_sites", "scan_fragment_runs")
+GMAP_KERNELS = ("chain_segments", "region_anchors")
+GMAP_WARM = 256         # cDNAs of the GMAP warm-up call and of the CPU run
+# the exon-structure floor of the GMAP phase: tpumap's own share on the
+# same 2,048 cDNAs, 0.923828125 (gmap_bench.py, JAX on the CPU of the
+# H100 machine), less 0.01
+GMAP_FLOOR = 0.913828125
 # each kernel's source, the TPU function it replaces, and the name of
 # its __global__ function (for its device time in the profile)
 SOURCES = {
@@ -164,6 +189,10 @@ SOURCES = {
                          "tpumap/ops/localscan.py:118", "exact_sites_kernel"),
     "scan_fragment_runs": ("tpumap_torch/csrc/localscan.cu",
                            "tpumap/ops/localscan.py:148", "localscan_kernel"),
+    "chain_segments": ("tpumap_torch/csrc/gmapchain.cu",
+                       "tpumap/ops/chain.py:166", "chain_segments_kernel"),
+    "region_anchors": ("tpumap_torch/csrc/gmapchain.cu",
+                       "tpumap/ops/chain.py:63", "region_anchors_kernel"),
 }
 
 
@@ -195,6 +224,47 @@ extern "C" int smem_chain(const void* init, int n, int steps, int loads,
   auto k = loads == 1 ? chain<1> : chain<2>;
   k<<<1, 128, 2 * n>>>((const uint16_t*)init, n, steps, (long long*)cycles,
                        (uint32_t*)sink);
+  return (int)cudaGetLastError();
+}
+// K7a's step without its arithmetic: steps dependent block-wide
+// first-maximum reductions in one block, each thread's candidate read
+// from the score the step before wrote (shuffles in the warps, one
+// thread over the warp maxima, two barriers)
+__device__ __forceinline__ void better(float& v, int& i, float v2, int i2) {
+  if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
+}
+__global__ void reduce_chain(int steps, long long* cycles, float* sink) {
+  __shared__ float score[1024];
+  __shared__ float rv[32];
+  __shared__ int ri[32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nw = blockDim.x >> 5;
+  score[t] = (float)(t * 7 % 13);
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int j = 0; j < steps; ++j) {
+    float v = __fsub_rn(score[t], 0.01f * (float)(t & 7));
+    int i = t;
+    for (int off = 16; off; off >>= 1) {
+      const float v2 = __shfl_down_sync(0xFFFFFFFFu, v, off);
+      const int i2 = __shfl_down_sync(0xFFFFFFFFu, i, off);
+      better(v, i, v2, i2);
+    }
+    if (lane == 0) { rv[warp] = v; ri[warp] = i; }
+    __syncthreads();
+    if (t == 0) {
+      float bv = rv[0];
+      int bi = ri[0];
+      for (int x = 1; x < nw; ++x) better(bv, bi, rv[x], ri[x]);
+      score[(j + bi) % blockDim.x] = bv + 1.0f;
+    }
+    __syncthreads();
+  }
+  if (t == 0) { cycles[0] = clock64() - t0; sink[0] = score[0]; }
+}
+extern "C" int block_reduce(int threads, int steps, void* cycles,
+                            void* sink) {
+  reduce_chain<<<1, threads>>>(steps, (long long*)cycles, (float*)sink);
   return (int)cudaGetLastError();
 }
 """
@@ -247,6 +317,30 @@ def shared_chain_ns(lib, proc, smi):
         log(f"shared-memory chain, {loads} dependent load(s) a step: "
             f"{out[loads]:.2f} ns, {int(cycles) / steps:.1f} cycles a step "
             f"[{smi}]")
+    return out
+
+
+def block_reduce_ns(lib, smi):
+    """{threads: ns per step} of a chain of dependent block-wide
+    first-maximum reductions (CHAIN_SRC's reduce_chain) in one block of
+    64, 128, 256 and 512 threads over 4,096 steps (CUDA events around the
+    launch; clock64's cycles a step logged beside): the floor of a K7a
+    step at that many segments."""
+    fn = ctypes.CDLL(str(lib)).block_reduce
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    steps = 4096
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(1, dtype=torch.float32, device="cuda")
+    out = {}
+    for threads in (64, 128, 256, 512):
+        def run():
+            if fn(threads, steps, cycles.data_ptr(), sink.data_ptr()):
+                raise AssertionError("the reduction probe did not launch")
+        out[threads] = cuda_ms(run, 5) * 1e6 / steps
+        log(f"block-wide first-maximum reduction, {threads} threads: "
+            f"{out[threads]:.2f} ns, {int(cycles) / steps:.1f} cycles a "
+            f"dependent step [{smi}]")
     return out
 
 
@@ -810,6 +904,11 @@ def profile_rows(rows, gpu, chain_ns):
             f")  plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), share of bound "
             f"{r['bound_ms'] / (dev or r['ms']):.3f}  [{gpu}]")
+        if "reduce_floor_ms" in r:
+            f = r["reduce_floor_ms"]
+            log(f"  K7a floor at {r['shape']}: S dependent block-wide "
+                f"reductions in waves of resident blocks = {f:.4f} ms, "
+                f"share {f / (dev or r['ms']):.3f}  [{gpu}]")
         if "walk_steps" in r:
             n = r["walk_steps"]
             one, two = (n * chain_ns[k] / 1e6 for k in (1, 2))
@@ -827,6 +926,8 @@ BATCH_PARTS = (("K5", "chain_kernel"), ("K3", "traceback_kernel"),
                ("K6a<4>", "localscan_kernel<0, 4>"),
                ("K6a<8>", "localscan_kernel<0, 8>"),
                ("K6b", "exact_sites_kernel"))
+GMAP_PARTS = (("K7a", "chain_segments_kernel"),
+              ("K7b", "region_anchors_kernel"))
 
 
 def profile_batch(name, one_batch, wall, smi, parts=BATCH_PARTS):
@@ -1202,6 +1303,240 @@ def grade(sam_bytes: bytes, bench_data):
     return aligned / n, near / n
 
 
+@contextlib.contextmanager
+def k7_calls():
+    """Record each K7 wrapper call (the kernel's name and its arguments,
+    tensors by reference) while the block runs."""
+    from tpumap_torch.ops import chain
+    ra, cc = chain.region_anchors, chain.chain_compact
+    calls = []
+
+    def rec_ra(*args, **kw):
+        calls.append(("region_anchors", args + (kw.get(
+            "keep_overabundant", False),)))
+        return ra(*args, **kw)
+
+    def rec_cc(*args):
+        calls.append(("chain_segments", args))
+        return cc(*args)
+    chain.region_anchors, chain.chain_compact = rec_ra, rec_cc
+    try:
+        yield calls
+    finally:
+        chain.region_anchors, chain.chain_compact = ra, cc
+
+
+def gmap_phase(db, index, smi, jobs):
+    """Phase 12: 2,048 bench cDNAs through align_queries_bulk after a
+    warm-up call on the first GMAP_WARM; returns the timed run's launch
+    counts, its K7 calls, the queries and their encodings."""
+    from gmap_bench import N_GMAP, SEED, gmap_queries, grade_gmap
+    from tools.bench_gmap import make_queries
+    from tpumap_torch import kernels
+    from tpumap_torch.cli import gmap_cli
+    from tpumap_torch.utils import dna
+
+    queries, truth = gmap_queries(db, N_GMAP, SEED)
+    if queries != make_queries(db, N_GMAP, SEED):
+        raise AssertionError("gmap_queries differs from make_queries")
+    enc = [dna.encode(q) for q in queries]
+    t0 = time.perf_counter()
+    gmap_cli.align_queries_bulk(db, index, enc[:GMAP_WARM])
+    torch.cuda.synchronize()
+    log(f"GMAP warm-up ({GMAP_WARM} cDNAs) {time.perf_counter() - t0:.2f} s "
+        f"[{smi}]")
+    kernels.reset_launches()
+    with k7_calls() as calls:
+        t0 = time.perf_counter()
+        hits = gmap_cli.align_queries_bulk(db, index, enc)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    found, right = grade_gmap(hits, truth)
+    shapes = [(n, tuple(a[0].shape) if n == "region_anchors"
+               else tuple(a[0]["valid"].shape)) for n, a in calls]
+    log(f"GMAP end to end: {N_GMAP} cDNAs in one call in {dt:.3f} s = "
+        f"{N_GMAP / dt:.1f} queries/s, found {found:.4f}, exon structure "
+        f"{right:.4f} (floor {GMAP_FLOOR}), launches={launches}; K7 calls "
+        f"(kernel, [problems, window] or [problems, segments]): {shapes} "
+        f"[{smi}]")
+    jobs.append(("GMAP", lambda: gmap_cli.align_queries_bulk(db, index, enc),
+                 dt * 1e3))
+    if found < 0.99 or right < GMAP_FLOOR:
+        raise AssertionError(f"GMAP: found {found:.4f} (floor 0.99), exon "
+                             f"structure {right:.4f} (floor {GMAP_FLOOR})")
+    missing = [k for k in GMAP_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"GMAP: kernels never launched: {missing}")
+    return launches, calls, queries, enc
+
+
+def gmap_kernel_rows(db, index, calls, reduce_ns):
+    """K7b and K7a against their plain versions on the inputs of the GMAP
+    run's calls with the most problems and with the widest window (most
+    segments), of the 80-exon 8-kbp query of tests/test_gmap_e2e.py
+    (exons of 100 bp every 1,100 bp of the bench genome: Rp = 131,072, S
+    = 512), and of 64 poly-A windows of 32,768 bp (lengths 16,384-32,768)
+    with an all-A query under keep_overabundant at max_occ 128."""
+    from tpumap_torch.cli import gmap_cli
+    from tpumap_torch.ops import chain
+    from tpumap_torch.utils import dna
+
+    dev = index.device
+    g = db.get_seq(1_000_000, 80 * 1100)
+    q = "".join(g[1100 * e:1100 * e + 100] for e in range(80))
+    with k7_calls() as long_calls:
+        hit = gmap_cli.align_queries_bulk(db, index, [dna.encode(q)])[0]
+    log(f"80-exon query: {0 if hit is None else len(hit[0].exons)} exons, "
+        f"K7 calls {[(n, tuple(a[0].shape) if n == 'region_anchors' else tuple(a[0]['valid'].shape)) for n, a in long_calls]}")
+    ra = [a for n, a in calls if n == "region_anchors"]
+    cc = [a for n, a in calls if n == "chain_segments"]
+    picks = [("most problems", max(ra, key=lambda a: a[0].shape[0])),
+             ("widest window", max(ra, key=lambda a: a[0].shape[1])),
+             ("80 exons", max((a for n, a in long_calls
+                               if n == "region_anchors"),
+                              key=lambda a: a[0].shape[1]))]
+    rng = np.random.default_rng(64)
+    N, R, Q = 64, 32768, 512
+    lens = torch.from_numpy(rng.integers(R // 2, R + 1, N)).to(dev)
+    rv = torch.arange(R, device=dev)[None, :] < lens[:, None]
+    qo, qv = chain.rolled_oligos(
+        torch.zeros((N, Q), dtype=torch.uint8, device=dev),
+        torch.ones((N, Q), dtype=torch.bool, device=dev), 8)
+    picks.append(("poly-A, keep", (torch.zeros((N, R), dtype=torch.uint8,
+                                               device=dev), rv, qo, qv, 8,
+                                   128, True)))
+    rows, seen = [], set()
+    for label, args in picks:
+        if id(args) in seen:
+            continue
+        seen.add(id(args))
+        r_codes, r_valid, qolig, qvalid, k, max_occ, keep = args
+        N, R = r_codes.shape
+        Q = qolig.shape[1]
+        # the function needs ~5 integer operations a window position (the
+        # rolling oligo, its valid flag, a count, a scatter), 2 a table
+        # entry (the scan) and 4 an anchor lane (the lookup and the diag)
+        row = measure(
+            "region_anchors", f"{label}: N={N}, Rp={R}, Q={Q}, "
+            f"max_occ={max_occ}" + (", keep" if keep else ""),
+            lambda a=args: chain.region_anchors(*a)[0::2],
+            lambda a=args: chain.region_anchors_plain(*a)[0::2], 10, 1,
+            tensor_bytes((r_codes, r_valid, qvalid)) + 4 * qolig.numel(),
+            N * (5 * R + 2 * 4 ** k + 4 * Q * max_occ))
+        olig = chain.region_oligos(r_codes, r_valid, k)
+        row["library_ms"] = cuda_ms(
+            lambda: torch.sort(olig, dim=1, stable=True), 10)
+        rows.append(row)
+    picks = [("most problems", max(cc, key=lambda a: a[0]["valid"].shape[0])),
+             ("most segments", max(cc, key=lambda a: a[0]["valid"].shape[1])),
+             ("80 exons", max((a for n, a in long_calls
+                               if n == "chain_segments"),
+                              key=lambda a: a[0]["valid"].shape[1]))]
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    seen = set()
+    for label, args in picks:
+        if id(args) in seen:
+            continue
+        seen.add(id(args))
+        segs = args[0]
+        N, S = segs["valid"].shape
+        row = measure("chain_segments", f"{label}: N={N}, S={S}, "
+                      f"M={min(S, args[1])}",
+                      lambda a=args: chain.chain_compact(*a),
+                      lambda a=args: chain.chain_compact_plain(*a), 20, 1,
+                      tensor_bytes(segs), 0)
+        # the floor: S dependent block-wide reductions a problem (the
+        # probe's step at the block's threads), in waves of the blocks
+        # resident on the card (a block takes (12 S + 65) ints of shared
+        # memory and S threads, rounded up to a warp)
+        threads = -(-S // 32) * 32
+        per_sm = max(1, min(32, 2048 // threads,
+                            228 * 1024 // ((12 * S + 65) * 4 + 1024)))
+        step = reduce_ns[min(x for x in reduce_ns if x >= min(threads, 512))]
+        floor = -(-N // (nsm * per_sm)) * S * step / 1e6
+        row["reduce_floor_ms"] = floor
+        if floor > row["bound_ms"]:
+            row["bound_ms"], row["bound_by"] = floor, "operations"
+        rows.append(row)
+    for r in rows:
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{r['name']} disagrees with its plain "
+                                 f"version at {r['shape']}")
+    return rows
+
+
+def gmap_layers(db, index, queries, enc, smi):
+    """One more GMAP call of all the cDNAs with the host wall time of its
+    layers summed: stage 1 (find_regions_bulk, both passes, each ending
+    in its copy to the host), the chain stage's enqueue (window groups
+    dispatched), the wait for the chain results with the windows'
+    host codes (align_cdna_windows_finish less refine_chain),
+    refine_chain, and then the GFF3 emission (-f 3) of the hits."""
+    from tpumap_torch.cli import gmap_cli
+    from tpumap_torch.gmap import engine
+    from tpumap_torch.io.fasta import Record
+    spent = {"stage 1": 0.0, "chain enqueue": 0.0, "finish": 0.0,
+             "refine_chain": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+    saved = [(gmap_cli, "find_regions_bulk"),
+             (gmap_cli, "align_cdna_windows_dispatch"),
+             (engine, "align_cdna_windows_dispatch"),
+             (gmap_cli, "align_cdna_windows_finish"),
+             (engine, "align_cdna_windows_finish"), (engine, "refine_chain")]
+    keys = ["stage 1", "chain enqueue", "chain enqueue", "finish", "finish",
+            "refine_chain"]
+    old = [getattr(m, n) for m, n in saved]
+    for (m, n), key, fn in zip(saved, keys, old):
+        setattr(m, n, timed(key, fn))
+    try:
+        t0 = time.perf_counter()
+        hits = gmap_cli.align_queries_bulk(db, index, enc)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for (m, n), fn in zip(saved, old):
+            setattr(m, n, fn)
+    recs = [Record(f"q{i}", "", s) for i, s in enumerate(queries)]
+    t0 = time.perf_counter()
+    gmap_cli.write_hits(db, "gff3_match_cdna", io.StringIO(), "bench", recs,
+                        enc, hits)
+    emit = time.perf_counter() - t0
+    wait = spent["finish"] - spent["refine_chain"]
+    other = total - spent["stage 1"] - spent["chain enqueue"] - spent["finish"]
+    log(f"GMAP host layers of one {len(enc)}-cDNA call ({total * 1e3:.1f} "
+        f"ms): stage 1 {spent['stage 1'] * 1e3:.1f} ms, chain enqueue "
+        f"{spent['chain enqueue'] * 1e3:.1f}, wait for the chains and the "
+        f"windows' host codes {wait * 1e3:.1f}, refine_chain "
+        f"{spent['refine_chain'] * 1e3:.1f}, the rest (rounds, retries) "
+        f"{other * 1e3:.1f}; GFF3 emission of the hits {emit * 1e3:.1f} ms "
+        f"[{smi}]")
+
+
+def gmap_gff3(db, index, queries, enc):
+    """GFF3 (-f 3 and -f 2 bodies) of the first GMAP_WARM cDNAs, one
+    align_queries_bulk call as gmap_cli.main makes for a batch."""
+    from tpumap_torch.cli import gmap_cli
+    from tpumap_torch.io.fasta import Record
+    recs = [Record(f"q{i}", "", s) for i, s in enumerate(queries[:GMAP_WARM])]
+    enc = enc[:GMAP_WARM]
+    hits = gmap_cli.align_queries_bulk(db, index, enc)
+    out = []
+    for fmt in ("gff3_match_cdna", "gff3_gene"):
+        buf = io.StringIO()
+        gmap_cli.write_hits(db, fmt, buf, "bench", recs, enc, hits)
+        out.append(buf.getvalue())
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -1238,7 +1573,8 @@ def main():
     from tpumap_torch.gsnap.params import INDEL_BAND
     k2 = f"banded_kernel<{-(-(2 * INDEL_BAND + 1) // 32)}>"
     for name in (k2, "traceback_kernel", "localscan_kernel<0, 4>",
-                 "localscan_kernel<0, 8>", "exact_sites_kernel"):
+                 "localscan_kernel<0, 8>", "exact_sites_kernel",
+                 "chain_segments_kernel", "region_anchors_kernel"):
         if name not in ptxas or any(ptxas[name][1:]):
             raise AssertionError(f"{name}: no ptxas report, or stack or "
                                  f"spills: {ptxas.get(name)}")
@@ -1246,6 +1582,7 @@ def main():
         raise AssertionError("the port's native host library is not loaded")
     log("native host library loaded")
     chain_ns = shared_chain_ns(chain_lib, chain_proc, smi)
+    reduce_ns = block_reduce_ns(chain_lib, smi)
 
     bench_data, db, rfa = load_index(smi)
     torch.cuda.synchronize()
@@ -1293,12 +1630,12 @@ def main():
     truth = bench_data.rna_truth()
     rna_launches = run_e2e("RNA", rna_reads, RB, smi, index,
                            single(novelsplicing=True),
-                           lambda buf: check_rna(buf, truth), tuple(SOURCES),
+                           lambda buf: check_rna(buf, truth), GSNAP_KERNELS,
                            jobs)
     known_launches = run_e2e("RNA -s", rna_reads, RB, smi, index,
                              single(novelsplicing=True, known=known),
                              lambda buf: check_rna(buf, truth),
-                             tuple(SOURCES), jobs)
+                             GSNAP_KERNELS, jobs)
     f1, f2 = bench_data.ensure_pe_files()
     pe_pairs = list(zip(read_fasta(f1), read_fasta(f2)))
     pe_launches = run_e2e("PE", pe_pairs, PB, smi, index,
@@ -1318,7 +1655,7 @@ def main():
     if not (rep_stats.get("repair_rows", 0) > 0
             and rep_stats.get("repaired", 0) > 0):
         raise AssertionError("PE RNA: the pairs never reached the repair")
-    missing = [k for k in SOURCES if rep_launches[k] <= 0]
+    missing = [k for k in GSNAP_KERNELS if rep_launches[k] <= 0]
     if missing:
         raise AssertionError(f"PE RNA repair: never launched: {missing}")
 
@@ -1332,6 +1669,9 @@ def main():
     snp_launches = run_e2e("SNP", s_reads, B, smi, mindex, snp_run,
                            lambda buf: check_snp(buf, bench_data, n_alt),
                            ("verify_diagonals",), jobs)
+    gmap_launches, k7, gmap_q, gmap_enc = gmap_phase(db, index, smi, jobs)
+    rows += gmap_kernel_rows(db, index, k7, reduce_ns)
+    del k7
 
     # GPU vs CPU (plain versions) on the first reads, same batching; the
     # last four on the mode index
@@ -1358,9 +1698,12 @@ def main():
         gbuf = io.BytesIO()
         run(mindex if modes else index, sub, len(sub), gbuf.write)
         gpu_sam.append(gbuf.getvalue())
+    gpu_gff = gmap_gff3(db, index, gmap_q, gmap_enc)
+    gmap_layers(db, index, gmap_q, gmap_enc, smi)
     profile_rows(rows, smi, chain_ns)
     for job in jobs:
-        profile_batch(*job, smi)
+        profile_batch(*job, smi, GMAP_PARTS if job[0] == "GMAP"
+                      else BATCH_PARTS)
         if job[0] in ("RNA", "RNA -s"):
             frag_lengths(job[0], job[1], smi)
     frag_lengths("PE RNA repair", lambda: rep_run(
@@ -1379,6 +1722,14 @@ def main():
             f"GPU run: {same} ({len(want)} bytes) [{smi}]")
         if not same:
             raise AssertionError(f"{name}: CPU and GPU SAM differ")
+    t0 = time.perf_counter()
+    cpu_gff = gmap_gff3(db, cpu_index, gmap_q, gmap_enc)
+    for fmt, c, g in zip(("-f 3", "-f 2"), cpu_gff, gpu_gff):
+        log(f"GMAP {fmt}: CPU plain run of {GMAP_WARM} cDNAs (both formats "
+            f"{time.perf_counter() - t0:.1f} s): GFF3 byte-identical to the "
+            f"GPU run: {c == g} ({len(g)} bytes) [{smi}]")
+        if c != g or g.count("\n") < GMAP_WARM:
+            raise AssertionError(f"GMAP {fmt}: CPU and GPU GFF3 differ")
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("JAX was imported")
     loaded = [m for m in sys.modules if m.split(".")[0] == "tpumap"
@@ -1389,12 +1740,12 @@ def main():
     phases = {"dna": dna_launches, "rna": rna_launches,
               "rna_known": known_launches, "pe": pe_launches,
               "pe_repair": rep_launches, "cmet": cmet_launches,
-              "snp": snp_launches}
+              "snp": snp_launches, "gmap": gmap_launches}
     n_batches = {"dna": -(-len(reads) // B), "rna": -(-len(rna_reads) // RB),
                  "rna_known": -(-len(rna_reads) // RB),
                  "pe": -(-len(pe_pairs) // PB), "pe_repair": 1,
                  "cmet": -(-len(cmet_reads) // B),
-                 "snp": -(-len(s_reads) // B)}
+                 "snp": -(-len(s_reads) // B), "gmap": 1}
     per_batch = {name: {ph: launches[name] / n_batches[ph]
                         for ph, launches in phases.items()}
                  for name in SOURCES}
@@ -1405,9 +1756,12 @@ def main():
                                          for ph, v in pb.items()))
 
     # one entry per kernel, at its first (largest) main-path shape, with
-    # all its rows; launches from the RNA run, which drives all seven,
-    # and each phase's launches per batch beside them. No single PyTorch
-    # call computes any of these functions, so library_ms is null.
+    # all its rows; launches from the RNA run, which drives all seven
+    # GSNAP kernels, or from the GMAP run (K7a, K7b), and each phase's
+    # launches per batch beside them (a GMAP batch: the 2,048-cDNA call).
+    # No single PyTorch call computes any of the GSNAP kernels' or K7a's
+    # functions (library_ms null); K7b's is the stable sort of the
+    # window's (oligo, position) pairs that region_index computes.
     table, seen = [], set()
     for r in rows:
         name = r["name"]
@@ -1416,16 +1770,19 @@ def main():
         seen.add(name)
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": rna_launches[name],
+            "replaces": SOURCES[name][1],
+            "launches": (gmap_launches if name in GMAP_KERNELS
+                         else rna_launches)[name],
             "max_abs_err": max(x["max_abs_err"] for x in rows
                                if x["name"] == name),
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "shape": r["shape"],
+            "library_ms": r.get("library_ms"), "shape": r["shape"],
             "rows": [{k: x[k] for k in ("shape", "max_abs_err", "ms",
                                         "device_ms", "plain_ms", "bound_ms",
-                                        "bound_by", "walk_floor_ms")
+                                        "bound_by", "walk_floor_ms",
+                                        "reduce_floor_ms", "library_ms")
                       if k in x}
                      for x in rows if x["name"] == name],
             "launches_per_batch": per_batch[name]})

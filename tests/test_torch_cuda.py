@@ -22,12 +22,16 @@ from tpumap_torch.gsnap.engine import AlignConfig
 from tpumap_torch.gsnap.knownsplicing import KnownSplicing, known_to_device
 from tpumap_torch.gsnap.paired import align_paired_records, rescue_mate
 from tpumap_torch.index.device import DeviceIndex
-from tpumap_torch.ops import dp, localscan, pack, pathdp, verify
+from tpumap_torch.ops import chain, dp, localscan, pack, pathdp, verify
 from tpumap_torch.utils import dna
-from torch_workloads import (mixed_workload, mode_pairs, mode_reads,
+from torch_workloads import (gmap_segments, gmap_windows, gmap_world,
+                             mixed_workload, mode_pairs, mode_reads,
                              mode_world, sam_text, stream_pairs, tie_rows)
 
 DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
+# the kernels of the GSNAP paths (GMAP's K7a and K7b never launch there)
+GSNAP_KERNELS = DNA_KERNELS + ("chain_dp", "scan_fragment",
+                               "scan_exact_sites", "scan_fragment_runs")
 
 pytestmark = pytest.mark.cuda
 
@@ -414,7 +418,8 @@ def test_rna_on_gpu_matches_cpu(dev, tmp_path):
     align_records(db, gpu_index, reads, cfg, novelsplicing=True,
                   batch_size=32, sink=chunks.append)
     assert b"".join(bytes(c) for c in chunks) == want
-    assert min(kernels.LAUNCHES.values()) > 0, kernels.LAUNCHES
+    assert min(kernels.LAUNCHES[k] for k in GSNAP_KERNELS) > 0, \
+        kernels.LAUNCHES
 
 
 @pytest.mark.parametrize("R,window", [(512, 1000), (64, 2000)])
@@ -506,7 +511,8 @@ def test_paired_and_known_on_gpu_match_cpu(dev, tmp_path):
                                                          cfg, **kw))
     kernels.reset_launches()
     assert pair_sam(gpu) == pair_sam(cpu)
-    assert min(kernels.LAUNCHES.values()) > 0, kernels.LAUNCHES
+    assert min(kernels.LAUNCHES[k] for k in GSNAP_KERNELS) > 0, \
+        kernels.LAUNCHES
     ks = KnownSplicing.from_junctions([30100], [31000], [1])
     want = sam_text(align_records(db, cpu, reads, cfg, known=ks,
                                   batch_size=32))
@@ -593,3 +599,87 @@ def test_modes_on_gpu_match_cpu(dev, tmp_path, run):
     kernels.reset_launches()
     assert sam(gpu) == want
     assert kernels.LAUNCHES["verify_diagonals"] > 0, kernels.LAUNCHES
+
+
+# ------------------------------------------------------------ GMAP (K7)
+
+@pytest.mark.parametrize("N,S,case", [
+    (64, 64, "random"), (64, 64, "ties"), (300, 1, "random"),
+    (16, 64, "invalid"), (8, 512, "random"), (8, 512, "ties"),
+    (32, 128, "full")])
+def test_chain_segments_kernel_matches_plain(dev, N, S, case):
+    """K7a against chain_compact_plain on the same CUDA tensors, at the
+    pipeline's compaction (CHAIN_M) and with every member (m = S): the
+    members, their order and the padding exactly."""
+    rng = np.random.default_rng(S + N)
+    segs = gmap_segments(rng, N, S,
+                         n_valid={"invalid": 0, "full": S}.get(case),
+                         tie_q=case == "ties", tie_w=case == "ties")
+    segs = {k: torch.from_numpy(v).to(dev) for k, v in segs.items()}
+    for m in (128, S):
+        kernels.reset_launches()
+        got = chain.chain_compact(segs, m)
+        assert kernels.LAUNCHES["chain_segments"] == 1
+        want = chain.chain_compact_plain(segs, m)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        if case == "invalid":
+            assert not got[3].any()
+
+
+@pytest.mark.parametrize("N,R,Q,k,max_occ,keep,case", [
+    (32, 32768, 512, 8, 8, False, "random"),
+    (32, 32768, 512, 8, 8, True, "random"),
+    (4, 8192, 256, 8, 128, True, "poly_a"),
+    (4, 8192, 256, 8, 8, False, "poly_a"),
+    (4, 4096, 256, 12, 8, False, "random"),
+    (2, 524288, 1024, 8, 8, False, "random"),
+    (3, 256, 256, 8, 128, True, "random")])
+def test_region_anchors_kernel_matches_plain(dev, N, R, Q, k, max_occ, keep,
+                                             case):
+    """K7b against region_anchors_plain (tpumap's stable index and
+    direct table) on the same CUDA tensors: every anchor lane exactly,
+    so positions of one oligo come out in increasing order; a poly-A
+    window puts all R positions in one bucket."""
+    rng = np.random.default_rng(R + k)
+    arrays = gmap_windows(rng, N, R, Q, k, poly_a=case == "poly_a")
+    rc, rv, qo, qv = (torch.from_numpy(a).to(dev) for a in arrays)
+    kernels.reset_launches()
+    got = chain.region_anchors(rc, rv, qo, qv, k, max_occ, keep)
+    assert kernels.LAUNCHES["region_anchors"] == 1
+    want = chain.region_anchors_plain(rc, rv, qo, qv, k, max_occ, keep)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(got[2].any()) == (case != "poly_a" or keep)
+
+
+def test_gmap_on_gpu_matches_cpu(dev, tmp_path):
+    """align_queries_bulk and main -f 3 / samse through K7a and K7b give
+    the plain CPU run's chains and bytes."""
+    import io
+    from contextlib import redirect_stdout
+    from dataclasses import asdict
+
+    from tpumap_torch.cli import gmap_cli
+
+    db, recs, qfa = gmap_world(tmp_path, port=True)
+    enc = [dna.encode(r.sequence) for r in recs]
+    want = gmap_cli.align_queries_bulk(db, DeviceIndex.from_host(db, "cpu"),
+                                       enc)
+    kernels.reset_launches()
+    got = gmap_cli.align_queries_bulk(db, DeviceIndex.from_host(db, dev), enc)
+    assert kernels.LAUNCHES["chain_segments"] > 0
+    assert kernels.LAUNCHES["region_anchors"] > 0
+    assert [None if h is None else (asdict(h[0]), h[1]) for h in got] == \
+        [None if h is None else (asdict(h[0]), h[1]) for h in want]
+    assert sum(h is not None for h in got) >= len(recs) - 1
+    db.save(str(tmp_path / "db"))
+    for fmt in ("3", "samse"):
+        outs = []
+        for device in ("cpu", "cuda"):
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                gmap_cli.main(["-D", str(tmp_path / "db"), "-f", fmt,
+                               str(qfa), "--device", device])
+            outs.append(buf.getvalue().replace(f"--device {device}", ""))
+        assert outs[0] == outs[1] and outs[0].count("\n") > len(recs)

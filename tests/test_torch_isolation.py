@@ -11,13 +11,17 @@ modules give tpumap's results on the same inputs.
     tpumap's own SAM);
 (c) the copies against tpumap: build_db, FASTA/FASTQ reading, the IIT
     reader with KnownSplicing.from_splicing_iit, the host library's batch
-    encoder, and the SAM header and records as text;
-and DeviceIndex.from_host's default device, the card.
+    encoder, the SAM header and records as text, and GMAP's MaxEnt
+    models (read from the port's own copy of the tables), translation
+    and canonical splice scoring;
+and DeviceIndex.from_host's default device, the card; and the port's
+GMAP main (--device cpu) where JAX and tpumap cannot be imported.
 """
 import ast
 import dataclasses
 import gzip
 import io
+from contextlib import redirect_stdout
 import pathlib
 import pkgutil
 import subprocess
@@ -28,6 +32,8 @@ import pytest
 import torch
 
 import tpumap_torch
+from tpumap.gmap import maxent as jmaxent
+from tpumap.gmap import translation as jtranslation
 from tpumap.gsnap import driver as jdriver
 from tpumap.gsnap.knownsplicing import KnownSplicing as JKnownSplicing
 from tpumap.index import build as jbuild
@@ -35,12 +41,16 @@ from tpumap.io import fasta as jfasta
 from tpumap.io import iit as jiit
 from tpumap.io import sam as jsam
 from tpumap.io import sam_bulk as jsam_bulk
+from tpumap.ops import splice as jsplice
+from tpumap_torch.gmap import maxent, translation
 from tpumap_torch.gsnap import driver
 from tpumap_torch.gsnap.knownsplicing import KnownSplicing
 from tpumap_torch.index import build
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.io import fasta, iit, sam, sam_bulk
-from torch_workloads import NO_TPUMAP, mixed_workload, sam_text, stream_pairs
+from tpumap_torch.ops import splice
+from torch_workloads import (NO_TPUMAP, gmap_world, mixed_workload, sam_text,
+                             stream_pairs)
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -112,6 +122,7 @@ torch.set_num_threads(1)
 for m in {mods!r}:
     importlib.import_module(m)
 from torch_workloads import mixed_workload, stream_pairs
+from tpumap_torch.gmap import maxent, translation
 from tpumap_torch.gsnap import driver
 from tpumap_torch.gsnap.paired import align_paired_records
 from tpumap_torch.index.device import DeviceIndex
@@ -344,3 +355,82 @@ def test_device_index_defaults_to_the_card(dbs):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DeviceIndex.from_jax_arrays({})
     assert DeviceIndex.from_host(tdb, "cpu").genome_packed.device.type == "cpu"
+
+
+def test_gmap_main_runs_without_tpumap_and_jax(tmp_path):
+    """gmap_cli.main --device cpu where JAX and tpumap cannot be
+    imported gives the in-process run's GFF3 and PSL."""
+    from tpumap_torch.cli import gmap_cli
+    db, _recs, qfa = gmap_world(tmp_path, port=True)
+    db.save(str(tmp_path / "db"))
+    argvs = [["-D", str(tmp_path / "db"), "-f", fmt, str(qfa), "--device",
+              "cpu"] for fmt in ("3", "1")]
+    want = []
+    for argv in argvs:
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            gmap_cli.main(argv)
+        want.append(buf.getvalue())
+    script = NO_TPUMAP + f"""
+import io
+from contextlib import redirect_stdout
+sys.path[:0] = [{str(REPO)!r}]
+import torch
+torch.set_num_threads(1)
+from tpumap_torch.cli import gmap_cli
+for argv in {argvs!r}:
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        gmap_cli.main(argv)
+    sys.stdout.write(buf.getvalue() + "=====\\n")
+assert sys.modules["jax"] is None
+assert not [m for m in sys.modules if m.split(".")[0] == "tpumap"]
+"""
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       timeout=600)
+    assert r.returncode == 0, r.stderr.decode()[-3000:]
+    got = r.stdout.decode().split("=====\n")[:2]
+    assert got == want and "cDNA_match" in want[0]
+
+
+def test_gmap_host_copies_match():
+    """MaxEnt donor/acceptor (sense and antisense), translation and the
+    canonical splice scores of the port's copies equal tpumap's."""
+    rng = np.random.default_rng(12)
+    codes = rng.integers(0, 4, 5000).astype(np.uint8)
+    nmask = rng.random(5000) < 0.01
+    pos = rng.integers(-30, 5030, 400)
+    for name in ("donor_prob_at", "acceptor_prob_at", "antidonor_prob_at",
+                 "antiacceptor_prob_at"):
+        want = getattr(jmaxent, name)(codes, nmask, pos)
+        got = getattr(maxent, name)(codes, nmask, pos)
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+    for a, b in ((0, 1), (7, 5), (900, 1100)):
+        cand = np.arange(a, b)
+        assert [x.tolist() if hasattr(x, "tolist") else x for x in
+                splice.splice_score_canonical(codes, 10, 700, cand)] == \
+            [x.tolist() if hasattr(x, "tolist") else x for x in
+             jsplice.splice_score_canonical(codes, 10, 700, cand)]
+    for alt in (False, True):
+        translation.set_alt_start_codons(alt)
+        jtranslation.set_alt_start_codons(alt)
+        for n in (0, 2, 99, 1000):
+            c = codes[:n]
+            assert translation.translate_codes(c) == \
+                jtranslation.translate_codes(c)
+            assert translation.best_orf(c) == jtranslation.best_orf(c)
+            assert translation.best_orf(c, fulllength=True) == \
+                jtranslation.best_orf(c, fulllength=True)
+    translation.set_alt_start_codons(False)
+    jtranslation.set_alt_start_codons(False)
+
+
+def test_maxent_tables_are_the_ports_own():
+    """The port loads tpumap_torch/data/maxent_tables.npz, a copy of
+    tpumap's, never tpumap/data/."""
+    path = pathlib.Path(maxent._DATA)
+    assert path == REPO / "tpumap_torch" / "data" / "maxent_tables.npz"
+    assert path.read_bytes() == pathlib.Path(jmaxent._DATA).read_bytes()
+    tabs = maxent.tables()
+    for k, v in jmaxent.tables().items():
+        assert np.array_equal(tabs[k], v), k

@@ -220,3 +220,100 @@ def tie_rows(rng, d, K, L):
     diags = np.stack([d[r] + np.array(_tie_offsets(int(shift[r]))[:K])
                       for r in range(R)]).astype(np.int64)
     return codes, lengths, diags
+
+
+def gmap_segments(rng, N, S, n_valid=None, qspan=2000, tie_q=False,
+                  tie_w=False):
+    """Random chain-stage segments as anchors_to_segments leaves them
+    (int32[N, S] diag, qstart, qend, weight and bool valid; zeros where
+    not valid), numpy. A row's first n_valid (default: a random count)
+    are valid; tie_q draws qstarts from a few values, tie_w weights
+    from two."""
+    diag = np.zeros((N, S), np.int32)
+    qs = np.zeros((N, S), np.int32)
+    qe = np.zeros((N, S), np.int32)
+    w = np.zeros((N, S), np.int32)
+    valid = np.zeros((N, S), bool)
+    for i in range(N):
+        n = int(rng.integers(0, S + 1)) if n_valid is None else n_valid
+        # exon-like runs on increasing diagonals, plus noise segments
+        starts = (rng.integers(0, 8, n) * 25 if tie_q
+                  else rng.integers(0, qspan, n))
+        lens = rng.integers(0, 120, n)
+        base = (1 << 20) + rng.integers(0, 4000)
+        d = base + np.where(rng.random(n) < 0.7, starts * 3,
+                            rng.integers(-500, 60_000, n))
+        valid[i, :n] = True
+        diag[i, :n] = d
+        qs[i, :n] = starts
+        qe[i, :n] = starts + lens
+        w[i, :n] = (rng.integers(1, 3, n) if tie_w
+                    else rng.integers(1, 40, n))
+    return {"diag": diag, "qstart": qs, "qend": qe, "weight": w,
+            "valid": valid}
+
+
+def gmap_windows(rng, N, R, Q, k, n_frac=0.01, poly_a=False):
+    """Window codes and valid flags (uint8/bool[N, R]) and query oligos
+    and flags (int64/bool[N, Q]) for the anchor stage, numpy: each query
+    copies pieces of its window (so anchors exist), with N bases and a
+    tail past each window's length; poly_a makes every window and query
+    all A."""
+    codes = rng.integers(0, 4, (N, R)).astype(np.uint8)
+    valid = rng.random((N, R)) >= n_frac
+    lens = rng.integers(R // 2, R + 1, N)
+    valid &= np.arange(R)[None, :] < lens[:, None]
+    qc = rng.integers(0, 4, (N, Q)).astype(np.uint8)
+    for i in range(N):
+        for _ in range(4):
+            a = int(rng.integers(0, max(1, R - Q // 4)))
+            b = int(rng.integers(0, Q - Q // 4))
+            qc[i, b:b + Q // 4] = codes[i, a:a + Q // 4]
+    if poly_a:
+        codes[:] = 0
+        qc[:] = 0
+    qv = rng.random((N, Q)) >= n_frac
+    acc = np.zeros((N, Q), np.int64)
+    ok = np.ones((N, Q), bool)
+    for j in range(k):
+        acc = ((acc << 2) & 0xFFFFFFFF) | np.roll(qc, -j, 1)
+        ok &= np.roll(qv, -j, 1)
+    ok &= np.arange(Q)[None, :] < Q - k + 1
+    return codes, valid, acc, ok
+
+
+def gmap_world(root, port=False, seed=5, n=24):
+    """A 120 kb genome of two chromosomes, saved as a db (k = 12), and n
+    cDNAs of 2-5 exons (100-399 bp, introns 200-4,999 bp, GT..AG), every
+    third reverse-complemented and one pure tandem-repeat query.
+    Returns (db, records, fasta path of the queries)."""
+    h = host(port)
+    rng = np.random.default_rng(seed)
+    g = list("ACGT"[i] for i in rng.integers(0, 4, 120_000))
+    unit = "".join("ACGT"[i] for i in rng.integers(0, 4, 31))
+    g[100_000:106_200] = list(unit * 200)
+    recs = []
+    for i in range(n):
+        ne = int(rng.integers(2, 6))
+        pos = int(rng.integers(1000, 80_000))
+        parts = []
+        for e in range(ne):
+            el = int(rng.integers(100, 400))
+            parts.append("".join(g[pos:pos + el]))
+            nxt = pos + el + int(rng.integers(200, 5000))
+            if e < ne - 1:
+                g[pos + el:pos + el + 2] = list("GT")
+                g[nxt - 2:nxt] = list("AG")
+                parts[-1] = "".join(g[pos:pos + el])
+            pos = nxt
+        q = "".join(parts)
+        recs.append(h.dna.revcomp(q) if i % 3 == 2 else q)
+    recs.append(unit * 8)
+    genome = "".join(g)
+    fa = root / "g.fa"
+    fa.write_text(f">chr1\n{genome[:70_000]}\n>chr2\n{genome[70_000:]}\n")
+    db = h.build_db(fa, name="gw", k=12, interval=3)
+    qfa = root / "q.fa"
+    qfa.write_text("".join(f">c{i} cdna\n{s}\n" for i, s in enumerate(recs)))
+    return db, [h.Record(f"c{i}", "cdna", s)
+                for i, s in enumerate(recs)], qfa

@@ -8,10 +8,16 @@ plain PyTorch version beside it, which is what runs for CPU tensors.
 Package layout:
   tpumap_torch.index   GenomeDB (host build/load) and its DeviceIndex
   tpumap_torch.ops     pack / verify / seed / trim / banded DP / chain DP /
-                       window scans
+                       window scans / GMAP anchor chaining
   tpumap_torch.gsnap   cascade, fused ladder, host driver (single and
                        paired end, novel and known splicing)
-  tpumap_torch.io      FASTA/FASTQ, IIT maps, SAM records and bulk emitters
+  tpumap_torch.gmap    GMAP cDNA alignment: stage 1, the chain stage's
+                       device half, the host exon refinement
+  tpumap_torch.cli     the GMAP entry point (gmap_cli: the bulk path)
+  tpumap_torch.io      FASTA/FASTQ, IIT maps, SAM records and bulk
+                       emitters, GFF3 and GMAP's PSL/SAM printers
+  tpumap_torch/data/   the MaxEnt splice-model tables (a copy of
+                       tpumap/data/maxent_tables.npz)
   tpumap_torch.native  the C++ tokenizer and SAM emitters (g++ at first use)
   tpumap_torch.utils   DNA encoding, result-dict wire dtypes
 

@@ -7,6 +7,8 @@ computed from the alignment structure plus the host genome.
 """
 from __future__ import annotations
 
+import re
+import sys
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -328,3 +330,35 @@ def ungapped_record(db: GenomeDB, qname: str, seq: str, qual: str | None,
     return SamRecord(
         qname=qname, flag=flag, rname=rname, pos=chrpos + 1, mapq=mapq,
         cigar=cigar, seq=oriented, qual=q, tags=tags)
+
+
+_CIGAR_RE = re.compile(r"(\d+)([MIDNSHP=X])")
+
+
+def _cigar_ops(cigar: str):
+    return [(int(n), op) for n, op in _CIGAR_RE.findall(cigar)]
+
+
+def cigar_query_length(cigar: str) -> int:
+    """Query bases consumed by the CIGAR (M/I/S/=/X)."""
+    return sum(n for n, op in _cigar_ops(cigar) if op in "MIS=X")
+
+
+def check_cigar(rec: SamRecord, action: str = "warning") -> bool:
+    """--action-if-cigar-error: verify CIGAR length against SEQ length.
+    Returns False if the record should not be printed."""
+    if rec.cigar == "*" or rec.seq == "*":
+        return True
+    if cigar_query_length(rec.cigar) == len(rec.seq):
+        return True
+    if action == "ignore":
+        return True
+    if action == "warning":
+        sys.stderr.write(f"warning: CIGAR length disagrees with sequence "
+                         f"length for {rec.qname}\n")
+        return True
+    if action == "noprint":
+        rec.cigar = "*"
+        return True
+    raise ValueError(f"CIGAR length disagrees with sequence length for "
+                     f"{rec.qname}")

@@ -25,7 +25,8 @@ import torch
 
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent / "_build"
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 # the three window scans share one argument list (csrc/localscan.cu)
 _SCAN_ARGS = [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
 
@@ -47,7 +48,15 @@ _ENTRY = {
     "scan_fragment": ("tt_scan_fragment", _SCAN_ARGS),
     "scan_exact_sites": ("tt_scan_exact_sites", _SCAN_ARGS),
     "scan_fragment_runs": ("tt_scan_fragment_runs", _SCAN_ARGS),
+    "chain_segments": ("tt_chain_segments",
+                       [_P] * 5 + [_I] * 4 + [_F] + [_P] * 4),
+    "region_anchors": ("tt_region_anchors",
+                       [_P] * 4 + [_I] * 8 + [_P] * 3),
 }
+
+# K7b keeps its 16-bit count table in shared memory up to this size (the
+# 4^8 entries of GMAP's k = 8); a larger table lives in its scratch
+GMAP_SMEM_TABLE = 2 << 16
 
 LAUNCHES = {name: 0 for name in _ENTRY}
 _lib = None
@@ -57,6 +66,11 @@ build_log = ""
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def n_sms(device) -> int:
+    """The card's streaming multiprocessors (persistent grids)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nvcc() -> str:

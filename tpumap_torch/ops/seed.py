@@ -1,4 +1,4 @@
-"""Seed finding (port of tpumap/ops/seed.py, merge_slop=0 only).
+"""Seed finding (port of tpumap/ops/seed.py).
 
 Gather the genomic positions of a read's k-mers, turn them into
 univdiagonals (genome coordinate of query base 0), and rank diagonals by
@@ -37,14 +37,16 @@ def _take_clip(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def lookup_diagonals(offsets, positions, oligos, valid, qpos,
-                     max_occ: int) -> torch.Tensor:
+                     max_occ: int, keep_overabundant: bool = False
+                     ) -> torch.Tensor:
     """Up to max_occ genomic positions per oligo as univdiagonals
     int64[B, NQ, max_occ]; oligos with more hits are dropped (the
-    overabundance cap), INVALID pads."""
+    overabundance cap), or with keep_overabundant keep their first
+    max_occ hits (the repetitive-region fallback); INVALID pads."""
     oligos_c = torch.where(valid, oligos, 0)
     start = _take_clip(offsets, oligos_c)
     count = _take_clip(offsets, oligos_c + 1) - start
-    ok = valid & (count <= max_occ)
+    ok = valid if keep_overabundant else valid & (count <= max_occ)
     lane = torch.arange(max_occ, dtype=torch.int64,
                         device=oligos.device)[None, None, :]
     pos = _take_clip(positions, start[..., None] + lane)
@@ -53,24 +55,40 @@ def lookup_diagonals(offsets, positions, oligos, valid, qpos,
     return torch.where(bad, INVALID, pos - qp)
 
 
-def prevalent_diagonals(diags: torch.Tensor, top_k: int):
+def prevalent_diagonals(diags: torch.Tensor, top_k: int,
+                        merge_slop: int = 0, return_last: bool = False):
     """Top-k diagonals per read by k-mer support: (int64[B, top_k]
     diagonals, int32[B, top_k] counts), count-descending with ties to
-    the lower sorted position (lax.top_k)."""
+    the lower sorted position (lax.top_k). With merge_slop > 0 a
+    diagonal within slop of its predecessor in sorted order joins the
+    predecessor's run, so a run ends where the next element starts one;
+    return_last adds each run's last (largest) diagonal. tpumap's uint32
+    difference d - prev never wraps past the first column (the sort puts
+    prev <= d), so the int64 difference gives the same starts."""
     B, N = diags.shape
     d = torch.sort(diags, dim=1).values
     inv = torch.full((B, 1), INVALID, dtype=d.dtype, device=d.device)
-    is_start = d != torch.cat([inv, d[:, :-1]], dim=1)
+    prev = torch.cat([inv, d[:, :-1]], dim=1)
+    is_start = d != prev if merge_slop == 0 else (d - prev) > merge_slop
     is_start[:, 0] = True
     i = torch.arange(N, dtype=torch.int64, device=d.device)[None, :]
     run_start = torch.cummax(torch.where(is_start, i, 0), dim=1).values
-    is_last = d != torch.cat([d[:, 1:], inv], dim=1)
+    if merge_slop == 0:
+        is_last = d != torch.cat([d[:, 1:], inv], dim=1)
+    else:
+        is_last = torch.cat([is_start[:, 1:],
+                             torch.ones_like(is_start[:, :1])], dim=1)
     count = torch.where(is_last & (d != INVALID), i - run_start + 1,
                         0).to(torch.int32)
     rep = torch.gather(d, 1, run_start)
     top_counts, top_idx = stable_topk(count, top_k)
-    top_diags = torch.gather(rep, 1, top_idx)
-    return torch.where(top_counts > 0, top_diags, INVALID), top_counts
+    found = top_counts > 0
+    top_diags = torch.where(found, torch.gather(rep, 1, top_idx), INVALID)
+    if return_last:
+        # count is nonzero only at a run's last element
+        top_last = torch.where(found, torch.gather(d, 1, top_idx), INVALID)
+        return top_diags, top_counts, top_last
+    return top_diags, top_counts
 
 
 def seed_reads(index, codes, nmask, lengths, max_occ: int = 32,
