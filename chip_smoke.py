@@ -12,11 +12,13 @@ any phase fails:
 1. card name and power limit; build the CUDA kernels from csrc/ (each
    kernel instance's ptxas registers, stack and spills; no K5 instance,
    not the K2 instance of the indel band, not K3, no K6a instance and
-   not K6b, not K7a nor K7b may have a stack frame or spills); the
-   port's native host library must load; the latency of a chain of
+   not K6b, no K7a instance nor K7b function may have a stack frame or
+   spills); the port's native host library must load; the latency of a
+   chain of
    dependent shared-memory loads (one and two a step, one thread), for
-   the floor of K3's walk, and of a dependent block-wide first-maximum
-   reduction (at 64, 128 and 512 threads), for the floor of K7a's DP;
+   the floor of K3's walk, and of a dependent first-maximum reduction
+   (one warp with shuffles only, and blocks of 64-512 threads), for the
+   floor of K7a's DP;
 2. the chr21-scale bench genome (46.7 Mbp, tools/bench_data.py) and
    its k=14, interval-3 index, uploaded to the card;
 3. every kernel at its main-path shapes against its plain PyTorch
@@ -100,7 +102,9 @@ SNP standard path's [65,536, 8] x 3, and cmet with SNPs at [32,768, 8]
 x 8.
 
 Every profile waits until the timed runs and the GPU half of 11 are
-over: each kernel row's device time per launch (torch.profiler), and one
+over: each kernel row's device time per call (torch.profiler, all the
+kernel's functions; K7b's library call, torch.sort, is timed the same
+way beside its CUDA-event time), K7a's gap-cost table fill, and one
 batch of phases 4-7, 9 and 10 (its device time and the parts of K5, K3,
 each K6a instance and K6b against the timed run's wall time per batch)
 and the GMAP call (with the parts of K7a and K7b),
@@ -171,28 +175,36 @@ GMAP_WARM = 256         # cDNAs of the GMAP warm-up call and of the CPU run
 # same 2,048 cDNAs, 0.923828125 (gmap_bench.py, JAX on the CPU of the
 # H100 machine), less 0.01
 GMAP_FLOOR = 0.913828125
-# each kernel's source, the TPU function it replaces, and the name of
-# its __global__ function (for its device time in the profile)
+# K7b's four kernels, launched in turn by each call
+K7B_FUNCS = ("region_anchors_count_kernel", "region_anchors_scan_kernel",
+             "region_anchors_place_kernel", "region_anchors_fill_kernel")
+# each kernel's source, the TPU function it replaces, and the names of
+# its __global__ functions (for its device time in the profile), each
+# launched once a call but K7a's gap-cost table fill, which runs once a
+# device (its time logged apart)
 SOURCES = {
     "verify_diagonals": ("tpumap_torch/csrc/verify.cu",
                          "tools/pallas_verify_experiment.py:100",
-                         "verify_kernel"),
+                         ("verify_kernel",)),
     "banded_align": ("tpumap_torch/csrc/dp.cu", "tpumap/ops/dp.py:53",
-                     "banded_kernel"),
+                     ("banded_kernel",)),
     "traceback": ("tpumap_torch/csrc/traceback.cu", "tpumap/ops/dp.py:154",
-                  "traceback_kernel"),
+                  ("traceback_kernel",)),
     "chain_dp": ("tpumap_torch/csrc/chain.cu", "tpumap/ops/pathdp.py:110",
-                 "chain_kernel"),
+                 ("chain_kernel",)),
     "scan_fragment": ("tpumap_torch/csrc/localscan.cu",
-                      "tpumap/ops/localscan.py:68", "localscan_kernel"),
+                      "tpumap/ops/localscan.py:68", ("localscan_kernel",)),
     "scan_exact_sites": ("tpumap_torch/csrc/localscan.cu",
-                         "tpumap/ops/localscan.py:118", "exact_sites_kernel"),
+                         "tpumap/ops/localscan.py:118",
+                         ("exact_sites_kernel",)),
     "scan_fragment_runs": ("tpumap_torch/csrc/localscan.cu",
-                           "tpumap/ops/localscan.py:148", "localscan_kernel"),
+                           "tpumap/ops/localscan.py:148",
+                           ("localscan_kernel",)),
     "chain_segments": ("tpumap_torch/csrc/gmapchain.cu",
-                       "tpumap/ops/chain.py:166", "chain_segments_kernel"),
+                       "tpumap/ops/chain.py:166",
+                       ("chain_segments_kernel", "chain_gap_table_kernel")),
     "region_anchors": ("tpumap_torch/csrc/gmapchain.cu",
-                       "tpumap/ops/chain.py:63", "region_anchors_kernel"),
+                       "tpumap/ops/chain.py:63", K7B_FUNCS),
 }
 
 
@@ -226,8 +238,9 @@ extern "C" int smem_chain(const void* init, int n, int steps, int loads,
                        (uint32_t*)sink);
   return (int)cudaGetLastError();
 }
-// K7a's step without its arithmetic: steps dependent block-wide
-// first-maximum reductions in one block, each thread's candidate read
+// A first-maximum DP's step without its arithmetic: steps dependent
+// block-wide first-maximum reductions in one block, each thread's
+// candidate read
 // from the score the step before wrote (shuffles in the warps, one
 // thread over the warp maxima, two barriers)
 __device__ __forceinline__ void better(float& v, int& i, float v2, int i2) {
@@ -262,9 +275,32 @@ __global__ void reduce_chain(int steps, long long* cycles, float* sink) {
   }
   if (t == 0) { cycles[0] = clock64() - t0; sink[0] = score[0]; }
 }
+// the same step in one warp, shuffles only (K7a's step: a problem a
+// warp): each lane's score in a register, an xor-shuffle first maximum
+// that every lane gets, the step's lane keeping it
+__global__ void warp_chain(int steps, long long* cycles, float* sink) {
+  const int t = threadIdx.x;
+  float score = (float)(t * 7 % 13);
+  const long long t0 = clock64();
+  for (int j = 0; j < steps; ++j) {
+    float v = __fsub_rn(score, 0.01f * (float)(t & 7));
+    int i = t;
+    for (int off = 16; off; off >>= 1) {
+      const float v2 = __shfl_xor_sync(0xFFFFFFFFu, v, off);
+      const int i2 = __shfl_xor_sync(0xFFFFFFFFu, i, off);
+      better(v, i, v2, i2);
+    }
+    if (t == ((j + i) & 31)) score = v + 1.0f;
+  }
+  if (t == 0) cycles[0] = clock64() - t0;
+  sink[t] = score;
+}
 extern "C" int block_reduce(int threads, int steps, void* cycles,
                             void* sink) {
-  reduce_chain<<<1, threads>>>(steps, (long long*)cycles, (float*)sink);
+  if (threads == 32)
+    warp_chain<<<1, 32>>>(steps, (long long*)cycles, (float*)sink);
+  else
+    reduce_chain<<<1, threads>>>(steps, (long long*)cycles, (float*)sink);
   return (int)cudaGetLastError();
 }
 """
@@ -322,23 +358,24 @@ def shared_chain_ns(lib, proc, smi):
 
 def block_reduce_ns(lib, smi):
     """{threads: ns per step} of a chain of dependent block-wide
-    first-maximum reductions (CHAIN_SRC's reduce_chain) in one block of
-    64, 128, 256 and 512 threads over 4,096 steps (CUDA events around the
-    launch; clock64's cycles a step logged beside): the floor of a K7a
-    step at that many segments."""
+    first-maximum reductions in one warp with shuffles only (CHAIN_SRC's
+    warp_chain) and in one block of 64, 128, 256 and 512 threads
+    (reduce_chain) over 4,096 steps (CUDA events around the launch;
+    clock64's cycles a step logged beside). The one-warp step is the
+    floor of a K7a step at any S."""
     fn = ctypes.CDLL(str(lib)).block_reduce
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p]
     steps = 4096
     cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
-    sink = torch.zeros(1, dtype=torch.float32, device="cuda")
+    sink = torch.zeros(32, dtype=torch.float32, device="cuda")
     out = {}
-    for threads in (64, 128, 256, 512):
+    for threads in (32, 64, 128, 256, 512):
         def run():
             if fn(threads, steps, cycles.data_ptr(), sink.data_ptr()):
                 raise AssertionError("the reduction probe did not launch")
         out[threads] = cuda_ms(run, 5) * 1e6 / steps
-        log(f"block-wide first-maximum reduction, {threads} threads: "
+        log(f"dependent first-maximum reduction, {threads} threads: "
             f"{out[threads]:.2f} ns, {int(cycles) / steps:.1f} cycles a "
             f"dependent step [{smi}]")
     return out
@@ -484,18 +521,38 @@ def profile_ms(fn, reps: int = 1) -> dict:
     return out
 
 
-def device_ms(fn, reps: int, symbol: str):
-    """Device milliseconds per launch of the kernels whose name holds
-    symbol, over reps runs of fn() after one warm-up run (their device
-    time over the launches the profile holds); None if three profiles in
-    a row hold none (the profiler drops a kernel's events at times)."""
+def device_ms(fn, reps: int, symbols):
+    """Device milliseconds per call of a kernel whose __global__
+    functions (each launched once a call) have names holding symbols,
+    over reps runs of fn() after one warm-up run (their device time over
+    the calls the profile holds, each function's launches counted
+    apart), and each function's part of it; (None, {}) if three
+    profiles in a row hold none (the profiler drops a kernel's events at
+    times)."""
     fn()
     for _ in range(3):
         prof = profile_ms(fn, reps)
-        names = [k for k in prof if isinstance(k, str) and symbol in k]
-        n = sum(prof[("n", k)] for k in names)
+        names = [k for k in prof if isinstance(k, str)
+                 and any(s in k for s in symbols)]
+        n = max(sum(prof[("n", k)] for k in names if s in k)
+                for s in symbols)
         if n:
-            return sum(prof[k] for k in names) / n
+            return (sum(prof[k] for k in names) / n,
+                    {s: sum(prof[k] for k in names if s in k) / n
+                     for s in symbols})
+    return None, {}
+
+
+def call_device_ms(fn, reps: int):
+    """Device milliseconds per call of fn(), every kernel, copy and
+    memset it launches, over reps calls after one warm-up call; None if
+    three profiles in a row hold none."""
+    fn()
+    for _ in range(3):
+        total = sum(v for k, v in profile_ms(fn, reps).items()
+                    if isinstance(k, str))
+        if total:
+            return total / reps
     return None
 
 
@@ -886,16 +943,19 @@ def traceback_rows(index):
     return rows
 
 
-def profile_rows(rows, gpu, chain_ns):
-    """Each kernel row's device time per launch, then its log line; for
+def profile_rows(rows, gpu, chain_ns, symbols=None):
+    """Each kernel row's device time per call (its functions as SOURCES
+    names them, or as symbols, {kernel: names}, does), then its log
+    line; for
     K3's rows also the floor of the walk: its longest walk times the
     measured step of a chain of dependent shared-memory loads
     (chain_ns[1]: one load a step, the cell, which any design that keeps
     the cells in shared memory pays; chain_ns[2]: the cell, then a
     decode-table entry, as K3 reads them)."""
     for r in rows:
-        dev = r["device_ms"] = device_ms(r.pop("fn"), r.pop("reps"),
-                                         SOURCES[r["name"]][2])
+        syms = (symbols or {}).get(r["name"], SOURCES[r["name"]][2])
+        dev, parts = device_ms(r.pop("fn"), r.pop("reps"), syms)
+        r["device_ms"] = dev
         log(f"kernel {r['name']:17s} {r['shape']:34s} "
             f"max_abs_err={r['max_abs_err']:g} kernel {r['ms']:.4f} ms "
             f"per call ("
@@ -904,10 +964,21 @@ def profile_rows(rows, gpu, chain_ns):
             f")  plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), share of bound "
             f"{r['bound_ms'] / (dev or r['ms']):.3f}  [{gpu}]")
+        if len(syms) > 1 and dev is not None:
+            log("  device ms a call by function: " + ", ".join(
+                f"{s} {v:.4f}" for s, v in parts.items()))
+        if "library_fn" in r:
+            lib = r["library_device_ms"] = call_device_ms(
+                r.pop("library_fn"), 10)
+            log(f"  library call {r['library_ms']:.4f} ms per call (CUDA "
+                f"events, as the kernel's {r['ms']:.4f}), "
+                + ("device time not measured" if lib is None else
+                   f"{lib:.4f} on the device (all its kernels, as the "
+                   f"kernel's {dev or float('nan'):.4f})") + f"  [{gpu}]")
         if "reduce_floor_ms" in r:
             f = r["reduce_floor_ms"]
-            log(f"  K7a floor at {r['shape']}: S dependent block-wide "
-                f"reductions in waves of resident blocks = {f:.4f} ms, "
+            log(f"  K7a floor at {r['shape']}: S dependent one-warp "
+                f"reductions in waves of resident warps = {f:.4f} ms, "
                 f"share {f / (dev or r['ms']):.3f}  [{gpu}]")
         if "walk_steps" in r:
             n = r["walk_steps"]
@@ -922,23 +993,23 @@ def profile_rows(rows, gpu, chain_ns):
 
 # kernel instances whose device time per batch is logged: K5, K3, K6a's
 # two (a kept list of 4 keys, of 8) and K6b
-BATCH_PARTS = (("K5", "chain_kernel"), ("K3", "traceback_kernel"),
-               ("K6a<4>", "localscan_kernel<0, 4>"),
-               ("K6a<8>", "localscan_kernel<0, 8>"),
-               ("K6b", "exact_sites_kernel"))
-GMAP_PARTS = (("K7a", "chain_segments_kernel"),
-              ("K7b", "region_anchors_kernel"))
+BATCH_PARTS = (("K5", ("chain_kernel",)), ("K3", ("traceback_kernel",)),
+               ("K6a<4>", ("localscan_kernel<0, 4>",)),
+               ("K6a<8>", ("localscan_kernel<0, 8>",)),
+               ("K6b", ("exact_sites_kernel",)))
+GMAP_PARTS = (("K7a", SOURCES["chain_segments"][2]),
+              ("K7b", SOURCES["region_anchors"][2]))
 
 
 def profile_batch(name, one_batch, wall, smi, parts=BATCH_PARTS):
     """The device time of one batch (every kernel, copy and memset) and
-    the parts of each (label, kernel name) of parts, against the timed
+    the parts of each (label, kernel names) of parts, against the timed
     run's wall time per batch."""
     prof = profile_ms(one_batch)
     dev = sum(v for k, v in prof.items() if isinstance(k, str))
     parts = ", ".join(
-        f"{label} {sum(v for k, v in prof.items() if isinstance(k, str) and sym in k):.4f}"
-        for label, sym in parts)
+        f"{label} {sum(v for k, v in prof.items() if isinstance(k, str) and any(s in k for s in syms)):.4f}"
+        for label, syms in parts)
     log(f"{name} device time of one batch "
         + (f"{dev:.3f} ms ({parts}) against {wall:.1f} ms of wall per "
            f"batch in the timed run: idle {1 - dev / wall:.3f}" if dev else
@@ -1415,18 +1486,18 @@ def gmap_kernel_rows(db, index, calls, reduce_ns):
         N, R = r_codes.shape
         Q = qolig.shape[1]
         # the function needs ~5 integer operations a window position (the
-        # rolling oligo, its valid flag, a count, a scatter), 2 a table
-        # entry (the scan) and 4 an anchor lane (the lookup and the diag)
+        # rolling oligo, its valid flag, a count, a scatter) and 4 an
+        # anchor lane (the lookup and the diag); no table scan
         row = measure(
             "region_anchors", f"{label}: N={N}, Rp={R}, Q={Q}, "
             f"max_occ={max_occ}" + (", keep" if keep else ""),
             lambda a=args: chain.region_anchors(*a)[0::2],
             lambda a=args: chain.region_anchors_plain(*a)[0::2], 10, 1,
             tensor_bytes((r_codes, r_valid, qvalid)) + 4 * qolig.numel(),
-            N * (5 * R + 2 * 4 ** k + 4 * Q * max_occ))
+            N * (5 * R + 4 * Q * max_occ))
         olig = chain.region_oligos(r_codes, r_valid, k)
-        row["library_ms"] = cuda_ms(
-            lambda: torch.sort(olig, dim=1, stable=True), 10)
+        row["library_fn"] = lambda o=olig: torch.sort(o, dim=1, stable=True)
+        row["library_ms"] = cuda_ms(row["library_fn"], 10)
         rows.append(row)
     picks = [("most problems", max(cc, key=lambda a: a[0]["valid"].shape[0])),
              ("most segments", max(cc, key=lambda a: a[0]["valid"].shape[1])),
@@ -1446,15 +1517,10 @@ def gmap_kernel_rows(db, index, calls, reduce_ns):
                       lambda a=args: chain.chain_compact(*a),
                       lambda a=args: chain.chain_compact_plain(*a), 20, 1,
                       tensor_bytes(segs), 0)
-        # the floor: S dependent block-wide reductions a problem (the
-        # probe's step at the block's threads), in waves of the blocks
-        # resident on the card (a block takes (12 S + 65) ints of shared
-        # memory and S threads, rounded up to a warp)
-        threads = -(-S // 32) * 32
-        per_sm = max(1, min(32, 2048 // threads,
-                            228 * 1024 // ((12 * S + 65) * 4 + 1024)))
-        step = reduce_ns[min(x for x in reduce_ns if x >= min(threads, 512))]
-        floor = -(-N // (nsm * per_sm)) * S * step / 1e6
+        # the floor: S dependent first-maximum steps a problem at the
+        # least width the probe measures (one warp, shuffles only), in
+        # waves of as many problems as the card holds warps (64 an SM)
+        floor = -(-N // (nsm * 64)) * S * reduce_ns[min(reduce_ns)] / 1e6
         row["reduce_floor_ms"] = floor
         if floor > row["bound_ms"]:
             row["bound_ms"], row["bound_by"] = floor, "operations"
@@ -1464,6 +1530,22 @@ def gmap_kernel_rows(db, index, calls, reduce_ns):
             raise AssertionError(f"{r['name']} disagrees with its plain "
                                  f"version at {r['shape']}")
     return rows
+
+
+def gap_table_fill(args, smi):
+    """The device time of K7a's one fill of its gap-cost table (a
+    device's first chain_compact call at a max_intron), each profiled
+    call on args (a GMAP call's chain_compact arguments) refilling it."""
+    from tpumap_torch.ops import chain
+
+    def refill():
+        chain._gap_tables.clear()
+        chain.chain_compact(*args)
+    fill = device_ms(refill, 3, ("chain_gap_table_kernel",))[0]
+    log(f"K7a's gap-cost table fill (once a device, max_intron "
+        f"{args[2]:,}): " + ("device time not measured" if fill is None
+                             else f"{fill:.4f} ms on the device")
+        + f"  [{smi}]")
 
 
 def gmap_layers(db, index, queries, enc, smi):
@@ -1572,9 +1654,13 @@ def main():
     # lane
     from tpumap_torch.gsnap.params import INDEL_BAND
     k2 = f"banded_kernel<{-(-(2 * INDEL_BAND + 1) // 32)}>"
+    k7 = ([f"chain_segments_kernel<{p}>" for p in (1, 2, 4, 8, 16, 32)]
+          + ["chain_gap_table_kernel"]
+          + [f"region_anchors_count_kernel<{g}>" for g in (0, 1)]
+          + ["region_anchors_scan_kernel", "region_anchors_place_kernel"]
+          + [f"region_anchors_fill_kernel<{v}>" for v in (1, 4)])
     for name in (k2, "traceback_kernel", "localscan_kernel<0, 4>",
-                 "localscan_kernel<0, 8>", "exact_sites_kernel",
-                 "chain_segments_kernel", "region_anchors_kernel"):
+                 "localscan_kernel<0, 8>", "exact_sites_kernel", *k7):
         if name not in ptxas or any(ptxas[name][1:]):
             raise AssertionError(f"{name}: no ptxas report, or stack or "
                                  f"spills: {ptxas.get(name)}")
@@ -1671,6 +1757,7 @@ def main():
                            ("verify_diagonals",), jobs)
     gmap_launches, k7, gmap_q, gmap_enc = gmap_phase(db, index, smi, jobs)
     rows += gmap_kernel_rows(db, index, k7, reduce_ns)
+    gap_args = next(a for n, a in k7 if n == "chain_segments")
     del k7
 
     # GPU vs CPU (plain versions) on the first reads, same batching; the
@@ -1701,6 +1788,8 @@ def main():
     gpu_gff = gmap_gff3(db, index, gmap_q, gmap_enc)
     gmap_layers(db, index, gmap_q, gmap_enc, smi)
     profile_rows(rows, smi, chain_ns)
+    gap_table_fill(gap_args, smi)
+    del gap_args
     for job in jobs:
         profile_batch(*job, smi, GMAP_PARTS if job[0] == "GMAP"
                       else BATCH_PARTS)
@@ -1761,7 +1850,8 @@ def main():
     # launches per batch beside them (a GMAP batch: the 2,048-cDNA call).
     # No single PyTorch call computes any of the GSNAP kernels' or K7a's
     # functions (library_ms null); K7b's is the stable sort of the
-    # window's (oligo, position) pairs that region_index computes.
+    # window's (oligo, position) pairs that region_index computes
+    # (library_ms by CUDA events, as ms; library_device_ms as device_ms).
     table, seen = [], set()
     for r in rows:
         name = r["name"]
@@ -1782,7 +1872,8 @@ def main():
             "rows": [{k: x[k] for k in ("shape", "max_abs_err", "ms",
                                         "device_ms", "plain_ms", "bound_ms",
                                         "bound_by", "walk_floor_ms",
-                                        "reduce_floor_ms", "library_ms")
+                                        "reduce_floor_ms", "library_ms",
+                                        "library_device_ms")
                       if k in x}
                      for x in rows if x["name"] == name],
             "launches_per_batch": per_batch[name]})

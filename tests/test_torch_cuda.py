@@ -24,9 +24,10 @@ from tpumap_torch.gsnap.paired import align_paired_records, rescue_mate
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops import chain, dp, localscan, pack, pathdp, verify
 from tpumap_torch.utils import dna
-from torch_workloads import (gmap_segments, gmap_windows, gmap_world,
-                             mixed_workload, mode_pairs, mode_reads,
-                             mode_world, sam_text, stream_pairs, tie_rows)
+from torch_workloads import (gmap_repeat_query, gmap_segments, gmap_straddle,
+                             gmap_windows, gmap_world, mixed_workload,
+                             mode_pairs, mode_reads, mode_world, query_oligos,
+                             sam_text, stream_pairs, tie_rows)
 
 DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
 # the kernels of the GSNAP paths (GMAP's K7a and K7b never launch there)
@@ -606,7 +607,8 @@ def test_modes_on_gpu_match_cpu(dev, tmp_path, run):
 @pytest.mark.parametrize("N,S,case", [
     (64, 64, "random"), (64, 64, "ties"), (300, 1, "random"),
     (16, 64, "invalid"), (8, 512, "random"), (8, 512, "ties"),
-    (32, 128, "full")])
+    (32, 128, "full"), (1, 1, "random"), (5, 31, "ties"), (5, 33, "ties"),
+    (1, 128, "ties"), (2, 1024, "random"), (2, 1024, "ties")])
 def test_chain_segments_kernel_matches_plain(dev, N, S, case):
     """K7a against chain_compact_plain on the same CUDA tensors, at the
     pipeline's compaction (CHAIN_M) and with every member (m = S): the
@@ -634,23 +636,58 @@ def test_chain_segments_kernel_matches_plain(dev, N, S, case):
     (4, 8192, 256, 8, 8, False, "poly_a"),
     (4, 4096, 256, 12, 8, False, "random"),
     (2, 524288, 1024, 8, 8, False, "random"),
-    (3, 256, 256, 8, 128, True, "random")])
+    (3, 256, 256, 8, 128, True, "random"),
+    (1, 131072, 8192, 8, 8, False, "random"),
+    (1, 8192, 256, 8, 8, False, "straddle"),
+    (1, 8192, 256, 8, 8, True, "straddle"),
+    (2, 32768, 512, 8, 128, True, "poly_a"),
+    (2, 32768, 512, 8, 128, False, "poly_a"),
+    (3, 300, 64, 8, 8, False, "random"),
+    (3, 5, 64, 8, 8, True, "random"),
+    (3, 4096, 512, 8, 8, False, "repeat"),
+    (3, 4096, 512, 8, 8, True, "repeat"),
+    (2, 8192, 512, 12, 8, True, "random"),
+    (3, 4096, 256, 8, 5, True, "random"),
+    (0, 4096, 256, 8, 8, False, "random")])
 def test_region_anchors_kernel_matches_plain(dev, N, R, Q, k, max_occ, keep,
                                              case):
     """K7b against region_anchors_plain (tpumap's stable index and
     direct table) on the same CUDA tensors: every anchor lane exactly,
     so positions of one oligo come out in increasing order; a poly-A
-    window puts all R positions in one bucket."""
+    window puts all R positions in one bucket over several chunks; an
+    oligo's max_occ-th and (max_occ + 1)-th hits straddle a chunk
+    boundary; the query repeats one oligo at many positions; windows
+    shorter than a chunk and than k; max_occ not a multiple of 4 (lanes
+    filled one a thread); no problem at all (no launch)."""
     rng = np.random.default_rng(R + k)
-    arrays = gmap_windows(rng, N, R, Q, k, poly_a=case == "poly_a")
+    if case == "straddle":
+        C = chain.anchor_chunks(N, R, kernels.n_sms(dev))[0]
+        arrays = gmap_straddle(rng, R, Q, C, max_occ)
+    elif case == "repeat":
+        arrays = gmap_repeat_query(rng, N, R, Q, k)
+    elif R < k:
+        arrays = (rng.integers(0, 4, (N, R)).astype(np.uint8),
+                  np.ones((N, R), bool)) + query_oligos(
+            rng.integers(0, 4, (N, Q)).astype(np.uint8),
+            np.ones((N, Q), bool), k)
+    else:
+        arrays = gmap_windows(rng, N, R, Q, k, poly_a=case == "poly_a")
     rc, rv, qo, qv = (torch.from_numpy(a).to(dev) for a in arrays)
     kernels.reset_launches()
     got = chain.region_anchors(rc, rv, qo, qv, k, max_occ, keep)
+    if N == 0:                      # the plain version takes no N = 0
+        assert kernels.LAUNCHES["region_anchors"] == 0
+        assert all(g.shape == (0, Q, max_occ) for g in got)
+        return
     assert kernels.LAUNCHES["region_anchors"] == 1
     want = chain.region_anchors_plain(rc, rv, qo, qv, k, max_occ, keep)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
-    assert bool(got[2].any()) == (case != "poly_a" or keep)
+    # random windows and straddling hits always give anchors; a poly-A
+    # window's or a repeated oligo's only hits are overabundant, kept
+    # with keep_overabundant; a window shorter than k holds no oligo
+    assert bool(got[2].any()) == (R >= k and (
+        keep or case in ("random", "straddle")))
 
 
 def test_gmap_on_gpu_matches_cpu(dev, tmp_path):

@@ -24,7 +24,8 @@ from tpumap.ops import seed as jseed
 from tpumap_torch.gmap import engine
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops import chain, seed
-from torch_workloads import gmap_segments, gmap_windows
+from torch_workloads import (gmap_repeat_query, gmap_segments, gmap_straddle,
+                             gmap_windows)
 
 torch.set_num_threads(2)
 INVALID = 0xFFFFFFFF
@@ -182,6 +183,45 @@ def test_anchors_from_query(windows, k, max_occ, keep):
         assert (first == np.arange(max_occ)).all()
 
 
+@pytest.mark.parametrize("world,max_occ,keep", [
+    ("straddle", 8, False), ("straddle", 8, True), ("straddle", 32, True),
+    ("repeat", 8, False), ("repeat", 8, True), ("repeat", 128, True)])
+def test_anchors_at_chunk_edges_and_repeats(world, max_occ, keep):
+    """The contract K7b is held to on the card, here for the plain
+    version against tpumap: hits of one oligo on both sides of a chunk
+    boundary (its max_occ-th and (max_occ + 1)-th, and one with exactly
+    max_occ), and a query that repeats one oligo at many positions."""
+    rng = np.random.default_rng(max_occ + keep)
+    k = 8
+    if world == "straddle":
+        C = 1024 if max_occ == 8 else 2048
+        codes, valid, acc, ok = gmap_straddle(rng, 2 * C, 256, C, max_occ)
+    else:
+        codes, valid, acc, ok = gmap_repeat_query(rng, 3, 4096, 512, k)
+
+    def jax_one(c, v, a, o):
+        so, sp = jchain.region_index(c, v, k)
+        return jchain.anchors_from_query(so, sp, a, o, max_occ,
+                                         keep_overabundant=keep, k=k)
+    want = jax.jit(jax.vmap(jax_one))(codes, valid, acc.astype(np.uint32),
+                                      ok)
+    got = chain.region_anchors_plain(torch.from_numpy(codes),
+                                     torch.from_numpy(valid), t64(acc),
+                                     torch.from_numpy(ok), k, max_occ, keep)
+    for g, w in zip(got, want):
+        same(g, w)
+    o = got[2].numpy()
+    if world == "straddle":
+        # X (q 10) has max_occ + 4 hits: dropped, or its first max_occ
+        # under keep; Y (q 30) exactly max_occ, kept
+        assert o[0, 10].all() == keep and o[0, 30].sum() == max_occ
+        if keep:
+            pos = got[0][0, 10].numpy().astype(np.int64) - chain.DIAG_BIAS + 10
+            assert (np.diff(pos) > 0).all() and pos[-1] < C
+    else:
+        assert o.any() == (keep or max_occ >= 50)
+
+
 @pytest.mark.parametrize("ties", [False, True])
 def test_anchors_to_segments(windows, ties):
     """Segments from real anchors; with ties, weights tie everywhere
@@ -209,7 +249,8 @@ def test_anchors_to_segments(windows, ties):
         assert (np.diff(w[w > 0]) == 0).sum() >= 8
 
 
-@pytest.mark.parametrize("S,ties", [(64, False), (64, True), (512, True)])
+@pytest.mark.parametrize("S,ties", [(64, False), (64, True), (512, True),
+                                    (1, False), (31, True), (33, True)])
 def test_chain_segments_and_compaction(S, ties):
     """The DP with tied qstarts (and weights): order, chain members and
     the compaction at CHAIN_M and at S, against tpumap's chain_segments

@@ -55,7 +55,7 @@ from torch_workloads import (NO_TPUMAP, gmap_world, mixed_workload, sam_text,
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "tpumap_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "phase_ab.py"]
+    REPO / "chip_smoke.py", REPO / "phase_ab.py", REPO / "k7_stamps.py"]
 
 
 def imported_modules(path: pathlib.Path) -> list[str]:

@@ -273,13 +273,60 @@ def gmap_windows(rng, N, R, Q, k, n_frac=0.01, poly_a=False):
         codes[:] = 0
         qc[:] = 0
     qv = rng.random((N, Q)) >= n_frac
-    acc = np.zeros((N, Q), np.int64)
-    ok = np.ones((N, Q), bool)
+    return (codes, valid) + query_oligos(qc, qv, k)
+
+
+def query_oligos(qc, qv, k):
+    """Rolled k-mer oligos (int64[N, Q]) of query codes and their ok
+    flags (bool[N, Q]), as engine._chain_pipeline rolls them."""
+    Q = qc.shape[1]
+    acc = np.zeros(qc.shape, np.int64)
+    ok = np.ones(qc.shape, bool)
     for j in range(k):
         acc = ((acc << 2) & 0xFFFFFFFF) | np.roll(qc, -j, 1)
         ok &= np.roll(qv, -j, 1)
     ok &= np.arange(Q)[None, :] < Q - k + 1
-    return codes, valid, acc, ok
+    return acc, ok
+
+
+def gmap_straddle(rng, R, Q, C, max_occ):
+    """One window (N = 1) whose hits of an oligo straddle position C, a
+    chunk boundary of the anchor kernel: on a background of C bases,
+    8-mer X at max_occ positions before C and 4 after it (its max_occ-th
+    and (max_occ + 1)-th hits on either side), 8-mer Y at 5 before and
+    max_occ - 5 after (max_occ hits in all); a random query holding X
+    and Y at several positions. gmap_windows' four arrays at k = 8."""
+    assert C >= 20 * max_occ + 400 and R >= C + 200 + 20 * max_occ
+    codes = np.ones((1, R), np.uint8)
+    x = np.array([0, 1, 2, 3, 3, 2, 1, 0], np.uint8)
+    y = np.array([3, 3, 0, 0, 2, 1, 2, 0], np.uint8)
+    at_x = [C - 20 * (max_occ - i) for i in range(max_occ)] + \
+        [C + 7 + 20 * i for i in range(4)]
+    at_y = [C - 20 * max_occ - 300 + 20 * i for i in range(5)] + \
+        [C + 200 + 20 * i for i in range(max_occ - 5)]
+    for at, olig in [(a, x) for a in at_x] + [(a, y) for a in at_y]:
+        codes[0, at:at + 8] = olig
+    qc = rng.integers(0, 4, (1, Q)).astype(np.uint8)
+    for at, olig in ((10, x), (50, x), (90, x), (30, y), (70, y)):
+        qc[0, at:at + 8] = olig
+    return (codes, np.ones((1, R), bool)) + query_oligos(
+        qc, np.ones((1, Q), bool), 8)
+
+
+def gmap_repeat_query(rng, N, R, Q, k, period=6):
+    """gmap_windows' windows with a tandem repeat of `period` bases
+    (taken from the window, 300 bases long) and a query that is that
+    repeat throughout: each of its oligos at ~Q / period positions, with
+    ~300 / period hits in the window."""
+    codes, valid, _acc, _ok = gmap_windows(rng, N, R, Q, k)
+    qc = np.zeros((N, Q), np.uint8)
+    for i in range(N):
+        unit = codes[i, 100:100 + period]
+        b = int(rng.integers(200, R // 2 - 300))
+        codes[i, b:b + 300] = np.tile(unit, 300 // period + 1)[:300]
+        valid[i, b:b + 300] = True
+        qc[i] = np.tile(unit, Q // period + 1)[:Q]
+    return (codes, valid) + query_oligos(qc, np.ones((N, Q), bool), k)
 
 
 def gmap_world(root, port=False, seed=5, n=24):

@@ -49,14 +49,10 @@ _ENTRY = {
     "scan_exact_sites": ("tt_scan_exact_sites", _SCAN_ARGS),
     "scan_fragment_runs": ("tt_scan_fragment_runs", _SCAN_ARGS),
     "chain_segments": ("tt_chain_segments",
-                       [_P] * 5 + [_I] * 4 + [_F] + [_P] * 4),
+                       [_P] * 5 + [_I] * 4 + [_F, _P, _I] + [_P] * 4),
     "region_anchors": ("tt_region_anchors",
-                       [_P] * 4 + [_I] * 8 + [_P] * 3),
+                       [_P] * 4 + [_I] * 9 + [_P] * 8),
 }
-
-# K7b keeps its 16-bit count table in shared memory up to this size (the
-# 4^8 entries of GMAP's k = 8); a larger table lives in its scratch
-GMAP_SMEM_TABLE = 2 << 16
 
 LAUNCHES = {name: 0 for name in _ENTRY}
 _lib = None

@@ -32,9 +32,15 @@ DIAG_BIAS = 1 << 20  # keeps a leading query overhang's diagonal positive
 ANCHOR_INVALID = 0x7FFFFFFF
 QKEY_INVALID = 2 ** 30   # chain_segments' sort key of an invalid segment
 KERNEL_MAX_K = 12        # K7b serves the direct-table branch
-# K7b's scratch: at most this many bytes, one table and one bucket list
-# per persistent block
-ANCHOR_SCRATCH = 1 << 30
+# K7b's slot table: 16-bit entries in shared memory up to 4^8 oligos and
+# 65,535 query positions, else 32-bit entries in each persistent block's
+# scratch, at most this many bytes of them
+ANCHOR_TABLE_SCRATCH = 1 << 30
+ANCHOR_CHUNK = (1024, 16384)  # K7b's chunks of window positions
+# K7a looks up the cost of every gap below max_intron in a table it
+# fills once a device (2 MB at the default 500,000), up to this size
+GAP_TABLE_MAX = 1 << 26
+_gap_tables = {}
 
 
 def rolled_oligos(codes: torch.Tensor, valid: torch.Tensor, k: int):
@@ -120,13 +126,29 @@ def region_anchors_plain(r_codes, r_valid, q_oligos, q_valid, k: int,
                               keep_overabundant, k)
 
 
+def anchor_chunks(N: int, R: int, n_sms: int):
+    """K7b's chunk of window positions and chunks a window: the largest
+    power of two in ANCHOR_CHUNK whose N x chunks still gives every SM
+    two work items, so a long window spreads over the card and many
+    short ones go one to a chunk."""
+    C, top = ANCHOR_CHUNK
+    while C < min(R, top) and N * -(-R // (2 * C)) >= 2 * n_sms:
+        C *= 2
+    return C, max(1, -(-R // C))
+
+
 def region_anchors(r_codes, r_valid, q_oligos, q_valid, k: int,
                    max_occ: int, keep_overabundant: bool = False):
     """region_anchors_plain for CPU tensors; for CUDA kernel K7b where
     k <= 12, and the torch version of tpumap's searchsorted branch on
     the card for larger k (a setting no entry point uses). r_codes
     uint8[N, R], r_valid bool[N, R], q_oligos int64[N, Q], q_valid
-    bool[N, Q]."""
+    bool[N, Q]. K7b is four kernels a call (count, scan, place, fill;
+    csrc/gmapchain.cu) over chunks of C window positions, with their
+    scratch from here, in one allocation: each chunk's count a slot
+    pair (two 16-bit counts a word), its hits (slot, position), their
+    number, each query position's slot and each slot's total, and with
+    the 32-bit slot table each persistent block's table."""
     dev = r_codes.device
     if dev.type == "cpu" or k > KERNEL_MAX_K:
         return region_anchors_plain(r_codes, r_valid, q_oligos, q_valid, k,
@@ -145,19 +167,24 @@ def region_anchors(r_codes, r_valid, q_oligos, q_valid, k: int,
     ok = torch.empty((N, Q, max_occ), dtype=torch.bool, device=dev)
     q = torch.arange(Q, dtype=torch.int32, device=dev)[:, None].expand(
         N, Q, max_occ)
-    if N == 0:
+    if N == 0 or Q == 0:
         return diag, q, ok
+    n_sms = kernels.n_sms(dev)
+    C, nch = anchor_chunks(N, R, n_sms)
     T = 1 << (2 * k)
-    # per block: starts of the bucket lists (T + 1), the lists (R), and,
-    # where the 16-bit count table does not fit in shared memory, that
-    table_global = 2 * T > kernels.GMAP_SMEM_TABLE
-    per_block = 4 * (T + 1 + R) + (2 * T if table_global else 0)
-    G = max(1, min(N, kernels.n_sms(dev), ANCHOR_SCRATCH // per_block))
-    scratch = torch.empty(G * per_block // 4 + 1, dtype=torch.int32,
-                          device=dev)
+    gt = k > 8 or Q > 0xFFFF
+    # the count pass's persistent blocks: one an SM (its shared table)
+    G = min(N * nch, n_sms)
+    if gt:
+        G = max(1, min(G, ANCHOR_TABLE_SCRATCH // (4 * T)))
+    # the scratch in one allocation, the int2 hits first (aligned)
+    sizes = (N * max(R, 1) * 2, N * nch * ((Q + 1) // 2), N * nch, N * Q,
+             N * Q, G * T if gt else 1)
+    hits, cnt, nhit, rep, tot, table = torch.empty(
+        sum(sizes), dtype=torch.int32, device=dev).split(sizes)
     kernels.launch("region_anchors", dev, r_codes, r_valid, qo, q_valid,
-                   N, R, Q, k, max_occ, int(keep_overabundant), G,
-                   int(table_global), scratch, diag, ok)
+                   N, R, Q, k, max_occ, int(keep_overabundant), C, G,
+                   int(gt), cnt, hits, nhit, rep, tot, table, diag, ok)
     return diag, q, ok
 
 
@@ -292,8 +319,10 @@ def chain_compact_plain(segs: dict, m: int, max_intron: int = 500_000,
 def chain_compact(segs: dict, m: int, max_intron: int = 500_000,
                   max_qoverlap_frac: float = 0.5):
     """chain_compact_plain for CPU tensors; kernel K7a for CUDA: one
-    block a problem, the DP's S steps each a block-wide first-maximum
-    reduction, the backtrack and the compaction in the same block."""
+    warp a problem, the DP's S steps each a one-warp first-maximum
+    reduction, the backtrack and the compaction in the same warp. Its
+    table of gap costs (gap_cost of 0 .. max_intron - 1) is filled by
+    the first call on a device for that max_intron and kept."""
     valid = segs["valid"]
     dev = valid.device
     if dev.type == "cpu":
@@ -303,15 +332,23 @@ def chain_compact(segs: dict, m: int, max_intron: int = 500_000,
                        *((segs[f], torch.int32, (N, S))
                          for f in ("diag", "qstart", "qend", "weight")),
                        (valid, torch.bool, (N, S)))
-    if not 1 <= S <= 1024 or m < 1:
-        raise ValueError(f"chain_compact: needs 1 <= S <= 1024 segments "
-                         f"and m >= 1 (S = {S}, m = {m})")
+    if not 1 <= S <= 1024 or m < 1 or max_intron > GAP_TABLE_MAX:
+        raise ValueError(f"chain_compact: needs 1 <= S <= 1024 segments, "
+                         f"m >= 1 and max_intron <= {GAP_TABLE_MAX} (S = "
+                         f"{S}, m = {m}, max_intron = {max_intron})")
     M = min(S, m)
     out = [torch.empty((N, M), dtype=torch.int32, device=dev)
            for _ in range(3)]
     ok = torch.empty((N, M), dtype=torch.bool, device=dev)
     if N:
+        TG = max(0, max_intron)
+        tab = _gap_tables.get((dev, TG))
+        fill = tab is None
+        if fill:
+            tab = torch.empty(max(TG, 1), dtype=torch.float32, device=dev)
         kernels.launch("chain_segments", dev, segs["diag"], segs["qstart"],
                        segs["qend"], segs["weight"], valid, N, S, M,
-                       max_intron, float(max_qoverlap_frac), *out, ok)
+                       max_intron, float(max_qoverlap_frac), tab, int(fill),
+                       *out, ok)
+        _gap_tables[(dev, TG)] = tab
     return (*out, ok)
