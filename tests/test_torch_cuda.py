@@ -18,6 +18,7 @@ import torch
 
 from tpumap_torch import kernels
 from tpumap_torch.gsnap.driver import align_records
+from tpumap_torch.gsnap import engine
 from tpumap_torch.gsnap.engine import AlignConfig
 from tpumap_torch.gsnap.knownsplicing import KnownSplicing, known_to_device
 from tpumap_torch.gsnap.paired import align_paired_records, rescue_mate
@@ -602,31 +603,140 @@ def test_modes_on_gpu_match_cpu(dev, tmp_path, run):
     assert kernels.LAUNCHES["verify_diagonals"] > 0, kernels.LAUNCHES
 
 
+# ------------------------------------------------------- staged path
+
+def test_refine_splices_on_gpu_matches_cpu(dev):
+    """refine_splices (torch ops) on CUDA tensors against the CPU, with
+    and without known sites: the same boundaries, bonuses and senses."""
+    glen, R, P, L = 200_000, 256, 8, 100
+    # the same random index on each device (the same draws)
+    idx_c = random_index(np.random.default_rng(17), glen, "cpu", 0.01)
+    idx_g = random_index(np.random.default_rng(17), glen, dev, 0.01)
+    rng = np.random.default_rng(18)
+    codes = rng.integers(0, 4, (R, L)).astype(np.uint8)
+    nmask = rng.random((R, L)) < 0.01
+    lengths = rng.integers(60, L + 1, R).astype(np.int32)
+    dA = rng.integers(0, glen - 200, (R, P)).astype(np.int64)
+    dB = dA + rng.integers(30, 5000, (R, P))
+    dA[rng.random((R, P)) < 0.2] = 0xFFFFFFFF
+    ks = KnownSplicing.from_junctions(dA[:, 0] + 50, dB[:, 0] + 50,
+                                      np.ones(R, np.int32))
+    for known in (None, ks):
+        outs = [engine.refine_splices(
+            index, *(torch.from_numpy(a).to(d)
+                     for a in (codes, nmask, lengths, dA, dB)),
+            known=None if known is None else known_to_device(known, d))
+            for index, d in ((idx_c, "cpu"), (idx_g, dev))]
+        for k in outs[0]:
+            assert torch.equal(outs[1][k].cpu(), outs[0][k]), k
+
+
+def test_staged_on_gpu_matches_cpu(dev, tmp_path):
+    """The stream workload through the staged path (fusions and an empty
+    KnownIndels, with novel splicing), single-end and paired, and
+    through the transcriptome rung, on the card and on the CPU: the same
+    SAM, through the cascade (K1), the indel stage (K2, K3) and the
+    chain stage (K5)."""
+    import io
+
+    from tpumap_torch.gsnap.knownindels import KnownIndels
+    from tpumap_torch.gsnap.transcriptome import build_transcriptome
+    from tpumap_torch.io.iit import build_iit, parse_map_fasta
+
+    db, reads, _gfa = mixed_workload(tmp_path, port=True)
+    cfg = AlignConfig(top_k=4, max_occ=8)
+    cpu, gpu = DeviceIndex.from_host(db, "cpu"), DeviceIndex.from_host(db, dev)
+    ki = KnownIndels(np.zeros(0, np.uint64), np.zeros(0, np.int32),
+                     np.zeros(0, np.int64))
+    kw = dict(batch_size=32, novelsplicing=True, known_indels=ki)
+    want = sam_text(align_records(db, cpu, reads, cfg, find_fusions=True,
+                                  **kw))
+    kernels.reset_launches()
+    assert sam_text(align_records(db, gpu, reads, cfg, find_fusions=True,
+                                  **kw)) == want
+    assert min(kernels.LAUNCHES[k] for k in (
+        "verify_diagonals", "banded_align", "traceback", "chain_dp")) > 0, \
+        kernels.LAUNCHES
+    pairs = stream_pairs(db, port=True)
+
+    def pair_sam(index):
+        return b"".join((a.lines() + b.lines()).encode()
+                        for a, b in align_paired_records(
+                            db, index, pairs, cfg, pairmax=1000, **kw))
+    assert pair_sam(gpu) == pair_sam(cpu)
+    tr = build_transcriptome(db, build_iit(parse_map_fasta(io.StringIO(
+        ">TRA chr1:1001..3100 gene\nGENEA NM_A\n1001 1200\n3001 3100\n"))),
+        name="tr", k=10, interval=1)
+    outs = [sam_text(align_records(db, index, reads, cfg, batch_size=32,
+                                   tr=(tr, DeviceIndex.from_host(tr.trdb, d))))
+            for index, d in ((cpu, "cpu"), (gpu, dev))]
+    assert outs[1] == outs[0]
+
+
 # ------------------------------------------------------------ GMAP (K7)
 
 @pytest.mark.parametrize("N,S,case", [
     (64, 64, "random"), (64, 64, "ties"), (300, 1, "random"),
     (16, 64, "invalid"), (8, 512, "random"), (8, 512, "ties"),
     (32, 128, "full"), (1, 1, "random"), (5, 31, "ties"), (5, 33, "ties"),
-    (1, 128, "ties"), (2, 1024, "random"), (2, 1024, "ties")])
+    (1, 128, "ties"), (2, 1024, "random"), (2, 1024, "ties"),
+    (2, 1025, "random"), (2, 2048, "random"), (2, 2048, "ties"),
+    (64, 64, "far"), (8, 512, "far"), (2, 2048, "far")])
 def test_chain_segments_kernel_matches_plain(dev, N, S, case):
     """K7a against chain_compact_plain on the same CUDA tensors, at the
     pipeline's compaction (CHAIN_M) and with every member (m = S): the
-    members, their order and the padding exactly."""
+    members, their order and the padding exactly. Past 1,024 segments
+    the wide kernel; "far" at max_intron = 10^8 with genomic gaps past
+    2^26 (gap costs past the table, computed in the kernel)."""
     rng = np.random.default_rng(S + N)
+    far = 100_000_000 if case == "far" else 0
+    max_intron = far or 500_000
     segs = gmap_segments(rng, N, S,
                          n_valid={"invalid": 0, "full": S}.get(case),
-                         tie_q=case == "ties", tie_w=case == "ties")
+                         tie_q=case == "ties", tie_w=case == "ties", far=far)
     segs = {k: torch.from_numpy(v).to(dev) for k, v in segs.items()}
     for m in (128, S):
         kernels.reset_launches()
-        got = chain.chain_compact(segs, m)
+        got = chain.chain_compact(segs, m, max_intron)
         assert kernels.LAUNCHES["chain_segments"] == 1
-        want = chain.chain_compact_plain(segs, m)
+        want = chain.chain_compact_plain(segs, m, max_intron)
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w)
         if case == "invalid":
             assert not got[3].any()
+
+
+def test_gap_costs_match_the_host(dev):
+    """K7a's device gap cost (the table fill, the same function that
+    costs gaps past the table) against the host's float64 log1p rounded
+    to float32, at every integer gap below 10^8 (past 2^26)."""
+    top = 100_000_000
+    tab = torch.empty(top, dtype=torch.float32, device=dev)
+    one = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    out = [torch.empty((1, 1), dtype=torch.int32, device=dev)
+           for _ in range(3)]
+    kernels.launch("chain_segments", dev, one, one, one, one,
+                   one.to(torch.bool), 1, 1, 1, top, 0.5, tab, top, 1, tab,
+                   0, *out, torch.empty((1, 1), dtype=torch.bool,
+                                        device=dev))
+    got = tab.cpu()
+    bad = 0
+    for lo in range(0, top, 10_000_000):
+        want = chain.gap_cost(torch.arange(lo, lo + 10_000_000))
+        bad += int((got[lo:lo + 10_000_000] != want).sum())
+    assert bad == 0
+
+
+def test_anchor_lanes_limit_on_the_card(dev):
+    """Past ANCHOR_MAX_LANES the card raises as the CPU does."""
+    N, Q = 2, 4096
+    max_occ = chain.ANCHOR_MAX_LANES // (N * Q) + 1
+    with pytest.raises(ValueError, match="lanes"):
+        chain.region_anchors(
+            torch.zeros((N, 64), dtype=torch.uint8, device=dev),
+            torch.ones((N, 64), dtype=torch.bool, device=dev),
+            torch.zeros((N, Q), dtype=torch.int64, device=dev),
+            torch.ones((N, Q), dtype=torch.bool, device=dev), 8, max_occ)
 
 
 @pytest.mark.parametrize("N,R,Q,k,max_occ,keep,case", [
@@ -648,7 +758,15 @@ def test_chain_segments_kernel_matches_plain(dev, N, S, case):
     (3, 4096, 512, 8, 8, True, "repeat"),
     (2, 8192, 512, 12, 8, True, "random"),
     (3, 4096, 256, 8, 5, True, "random"),
-    (0, 4096, 256, 8, 8, False, "random")])
+    (0, 4096, 256, 8, 8, False, "random"),
+    (1, 4_400_000, 256, 8, 255, False, "straddle"),
+    (1, 4_400_000, 256, 8, 256, True, "straddle"),
+    (32, 32768, 512, 8, 255, False, "random"),
+    (4, 8192, 256, 8, 1000, True, "poly_a"),
+    (2, 32768, 512, 8, 1000, True, "poly_a"),
+    (2, 32768, 512, 8, 1000, False, "poly_a"),
+    (3, 4096, 512, 8, 256, True, "repeat"),
+    (2, 8192, 512, 12, 1000, True, "random")])
 def test_region_anchors_kernel_matches_plain(dev, N, R, Q, k, max_occ, keep,
                                              case):
     """K7b against region_anchors_plain (tpumap's stable index and
@@ -658,7 +776,8 @@ def test_region_anchors_kernel_matches_plain(dev, N, R, Q, k, max_occ, keep,
     oligo's max_occ-th and (max_occ + 1)-th hits straddle a chunk
     boundary; the query repeats one oligo at many positions; windows
     shorter than a chunk and than k; max_occ not a multiple of 4 (lanes
-    filled one a thread); no problem at all (no launch)."""
+    filled one a thread); no problem at all (no launch); max_occ past
+    254 (32-bit counts)."""
     rng = np.random.default_rng(R + k)
     if case == "straddle":
         C = chain.anchor_chunks(N, R, kernels.n_sms(dev))[0]

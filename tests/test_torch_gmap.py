@@ -262,6 +262,37 @@ def test_bulk_world(tmp_path):
     assert any(h[0].strand == 1 for h in got if h is not None)
 
 
+def test_bulk_world_past_the_gap_table(tmp_path):
+    """align_queries_bulk at max_intron = 10^8 (past K7a's gap-cost
+    table on the card, queue 3 F1): tpumap's chains and -f 3 GFF3."""
+    from tpumap.io import gff3 as jgff3
+    from tpumap_torch.io import gff3
+
+    db, recs, _qfa = gmap_world(tmp_path)
+    enc = [dna.encode(r.sequence) for r in recs]
+    want = jcli.align_queries_bulk(
+        db, JDeviceIndex.from_host(db), enc,
+        jengine.GmapConfig(max_intron=100_000_000))
+    got = gmap_cli.align_queries_bulk(
+        db, DeviceIndex.from_host(db, "cpu"), enc,
+        engine.GmapConfig(max_intron=100_000_000))
+    assert hits(got) == hits(want)
+
+    def text(mod, res):
+        out = []
+        for rec, h in zip(recs, res):
+            if h is not None:
+                c, off = h
+                ci = db.chrnum(off + c.exons[0].gstart)
+                out.append(mod.match_cdna(
+                    c, rec.accession, db.chrom_names[ci], "tpumap",
+                    chrom_offset=off - int(db.chrom_offsets[ci]),
+                    qlen=len(rec.sequence)))
+        return "".join(out)
+    assert text(gff3, got) == text(jgff3, want)
+    assert sum(h is not None for h in got) >= len(recs) - 1
+
+
 # ---------------------------------------------------------------- main
 
 @pytest.fixture(scope="module")

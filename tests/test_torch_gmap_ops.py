@@ -272,6 +272,85 @@ def test_chain_segments_and_compaction(S, ties):
     assert tin.sum() >= N
 
 
+@pytest.mark.parametrize("S,N,far,max_intron", [
+    (1025, 2, 0, 500_000), (2048, 1, 0, 500_000),
+    (64, 6, 100_000_000, 100_000_000), (512, 2, 100_000_000, 100_000_000)])
+def test_chain_past_the_kernel_tables(S, N, far, max_intron):
+    """The settings K7a once refused on the card (queue 3, F1): more
+    than 1,024 segments, and max_intron = 10^8 with genomic gaps past
+    2^26 between members; the plain versions against tpumap."""
+    rng = np.random.default_rng(S + far)
+    segs = gmap_segments(rng, N, S, far=far)
+    if far:
+        d = segs["diag"].astype(np.int64)
+        assert (d.max(1) - d.min(1) > chain.GAP_TABLE_MAX).all()
+    jsegs = {k: jnp.asarray(v) for k, v in segs.items()}
+    order, in_chain = jax.jit(jax.vmap(
+        lambda x: jchain.chain_segments(x, max_intron)))(jsegs)
+    tsegs = {k: torch.from_numpy(v) for k, v in segs.items()}
+    torder, tin = chain.chain_segments(tsegs, max_intron)
+    same(torder, order)
+    same(tin, in_chain)
+    want = jengine._compact_chain(jsegs, order, in_chain)
+    for g, w in zip(chain.chain_compact(tsegs, engine.CHAIN_M, max_intron),
+                    want):
+        same(g, w)
+    if far:
+        # chains that join members across more than 2^26 bases
+        gs = (segs["diag"] + segs["qstart"]).astype(np.int64)
+        ge = (segs["diag"] + segs["qend"]).astype(np.int64)
+        o, m = torder.numpy(), tin.numpy()
+        gaps = [int(gs[r, o[r, b]] - ge[r, o[r, a]])
+                for r in range(N) for a, b in zip(*[
+                    np.nonzero(m[r])[0][:-1], np.nonzero(m[r])[0][1:]])]
+        assert max(gaps) > chain.GAP_TABLE_MAX
+
+
+@pytest.mark.parametrize("max_occ,keep", [
+    (255, False), (255, True), (256, False), (256, True), (1000, False),
+    (1000, True)])
+def test_anchors_past_254(max_occ, keep):
+    """max_occ past K7b's 16-bit counts (queue 3, F1): an oligo with
+    max_occ + 4 hits and one with exactly max_occ, on both sides of a
+    chunk boundary; the plain version against tpumap."""
+    rng = np.random.default_rng(max_occ)
+    k = 8
+    C = -(-(20 * max_occ + 400) // 1024) * 1024
+    codes, valid, acc, ok = gmap_straddle(rng, C + 220 + 20 * max_occ, 256,
+                                          C, max_occ)
+
+    def jax_one(c, v, a, o):
+        so, sp = jchain.region_index(c, v, k)
+        return jchain.anchors_from_query(so, sp, a, o, max_occ,
+                                         keep_overabundant=keep, k=k)
+    want = jax.jit(jax.vmap(jax_one))(codes, valid, acc.astype(np.uint32),
+                                      ok)
+    got = chain.region_anchors_plain(torch.from_numpy(codes),
+                                     torch.from_numpy(valid), t64(acc),
+                                     torch.from_numpy(ok), k, max_occ, keep)
+    for g, w in zip(got, want):
+        same(g, w)
+    o = got[2].numpy()
+    assert o[0, 10].all() == keep and o[0, 30].sum() == max_occ
+
+
+def test_anchor_lanes_limit():
+    """Past ANCHOR_MAX_LANES both paths raise the same error (the card's
+    in tests/test_torch_cuda.py)."""
+    N, Q = 2, 4096
+    max_occ = chain.ANCHOR_MAX_LANES // (N * Q) + 1
+    codes = torch.zeros((N, 64), dtype=torch.uint8)
+    valid = torch.ones((N, 64), dtype=torch.bool)
+    qo = torch.zeros((N, Q), dtype=torch.int64)
+    qv = torch.ones((N, Q), dtype=torch.bool)
+    for fn in (chain.region_anchors, chain.region_anchors_plain):
+        with pytest.raises(ValueError, match="ANCHOR_MAX_LANES|lanes"):
+            fn(codes, valid, qo, qv, 8, max_occ)
+    d, _q, o = chain.region_anchors(codes, valid, qo[:, :8], qv[:, :8], 8,
+                                    300)
+    assert d.shape == (N, 8, 300) and o[:, 0, :57].all()
+
+
 @pytest.fixture(scope="module")
 def small_db(tmp_path_factory):
     d = tmp_path_factory.mktemp("gops")

@@ -5,10 +5,11 @@ modules give tpumap's results on the same inputs.
 (a) an AST walk of every module of tpumap_torch, of chip_smoke.py and of
     phase_ab.py, function-local imports included;
 (b) a subprocess where JAX and tpumap are refused: every port module
-    imports, and align_records (DNA and RNA), align_paired_records and
-    main --device cpu give the SAM of the port's in-process runs on
-    tpumap's objects (which test_torch_slice/splice/paired hold to
-    tpumap's own SAM);
+    imports (the staged path's knownindels, transcriptome, remap and
+    twopass among them), and align_records (DNA, RNA and the staged path
+    with fusions), align_paired_records and main --device cpu give the
+    SAM of the port's in-process runs on tpumap's objects (which
+    test_torch_slice/splice/paired/staged hold to tpumap's own SAM);
 (c) the copies against tpumap: build_db, FASTA/FASTQ reading, the IIT
     reader with KnownSplicing.from_splicing_iit, the host library's batch
     encoder, the SAM header and records as text, and GMAP's MaxEnt
@@ -77,6 +78,33 @@ def test_no_tpumap_or_jax_import(path):
     assert not bad, bad
 
 
+def test_chip_smoke_helpers_import_no_tpumap(tmp_path):
+    """The repo scripts chip_smoke.py imports from (gmap_bench.py,
+    staged_bench.py; their main() runs tpumap as the reference, and
+    chip_smoke.py refuses JAX and tpumap) import neither at module level,
+    and each name chip_smoke.py takes from them is defined there."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    taken = {}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.ImportFrom) and node.level == 0
+                and (REPO / f"{node.module}.py").exists()):
+            taken.setdefault(node.module, set()).update(
+                a.name for a in node.names)
+    assert {"gmap_bench", "staged_bench"} <= set(taken)
+    for mod, names in taken.items():
+        body = ast.parse((REPO / f"{mod}.py").read_text()).body
+        top = [n for n in body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        mods = [a.name for n in top if isinstance(n, ast.Import)
+                for a in n.names] + [n.module for n in top
+                                     if isinstance(n, ast.ImportFrom)]
+        assert not [m for m in mods if m.split(".")[0] in ("tpumap", "jax")]
+        defined = {n.name for n in body if isinstance(
+            n, (ast.FunctionDef, ast.ClassDef))} | {
+            t.id for n in body if isinstance(n, ast.Assign)
+            for t in n.targets if isinstance(t, ast.Name)}
+        assert names <= defined, (mod, names - defined)
+
+
 def test_import_walk_sees_local_imports(tmp_path):
     """The walk catches an import inside a function body."""
     f = tmp_path / "m.py"
@@ -100,19 +128,24 @@ def mixed(tmp_path_factory):
     noq = sam_text(driver.align_records(
         db, ti, [jfasta.Record(r.accession, "", r.sequence) for r in reads],
         **kw))
+    staged = sam_text(driver.align_records(
+        db, ti, reads, novelsplicing=True, find_fusions=True, **kw))
     from tpumap_torch.gsnap.paired import align_paired_records
     chunks = []
     align_paired_records(db, ti, stream_pairs(db), batch_size=16,
                          pairmax=1000, sink=chunks.append,
                          config=kw["config"])
-    return dna, rna, b"".join(bytes(c) for c in chunks), noq
+    return dna, rna, b"".join(bytes(c) for c in chunks), noq, staged
 
 
 def test_port_runs_without_tpumap_and_jax(mixed, tmp_path):
-    dna, rna, pe, noq = mixed
+    dna, rna, pe, noq, staged = mixed
     mods = sorted(m.name for m in pkgutil.walk_packages(
         tpumap_torch.__path__, "tpumap_torch."))
-    assert "tpumap_torch.native" in mods and "tpumap_torch.io.sam" in mods
+    assert {"tpumap_torch.native", "tpumap_torch.io.sam",
+            "tpumap_torch.io.iit", "tpumap_torch.gsnap.knownindels",
+            "tpumap_torch.gsnap.transcriptome", "tpumap_torch.gsnap.remap",
+            "tpumap_torch.gsnap.twopass"} <= set(mods)
     script = NO_TPUMAP + f"""
 import importlib, io, pathlib
 from contextlib import redirect_stdout
@@ -138,6 +171,9 @@ for novel in (False, True):
 align_paired_records(db, ti, stream_pairs(db, port=True), cfg,
                      batch_size=16, pairmax=1000, sink=out.write)
 out.write(b"=====\\n")
+driver.align_records(db, ti, reads, cfg, batch_size=32, novelsplicing=True,
+                     find_fusions=True, sink=out.write)
+out.write(b"=====\\n")
 db.save(str(root / "db"))
 (root / "r.fa").write_text("".join(f">{{r.accession}}\\n{{r.sequence}}\\n"
                                    for r in reads))
@@ -152,8 +188,10 @@ assert not [m for m in sys.modules if m.split(".")[0] == "tpumap"]
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
                        timeout=600)
     assert r.returncode == 0, r.stderr.decode()[-3000:]
-    got_dna, got_rna, got_pe, got_main = r.stdout.split(b"=====\n")
+    got_dna, got_rna, got_pe, got_staged, got_main = r.stdout.split(
+        b"=====\n")
     assert got_dna == dna and got_rna == rna and got_pe == pe
+    assert got_staged == staged
     body = [ln for ln in got_main.decode().splitlines()
             if not ln.startswith("@")]
     assert body == noq.decode().splitlines()

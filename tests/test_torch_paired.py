@@ -433,21 +433,45 @@ def test_main_paired_refuses_missing_card(world, tmp_path, monkeypatch):
 @pytest.mark.parametrize("option", ["tr", "known_indels", "device_ctx",
                                     "mode", "snp_tolerant"])
 def test_unported_paired_options_raise(world, option):
-    """Options of later slices raise NotImplementedError. The alignment
-    mode and SNP tolerance are ported: the port accepts them and gives
-    tpumap's SAM on the same pairs (no mode or SNP tables here, so both
-    fall back to the standard ones, as in tpumap)."""
+    """Device meshes (device_ctx) are a later slice and raise
+    NotImplementedError. The staged paired path (tr, known_indels), the
+    alignment mode and SNP tolerance are ported: the port accepts them
+    and gives tpumap's SAM on the same pairs (no mode or SNP tables
+    here, so both fall back to the standard ones, as in tpumap; a
+    transcriptome of one two-exon gene over the world's genome)."""
     db, pairs, _owner, _ks, _want, _dicts = world
     ti = DeviceIndex.from_host(db, "cpu")
-    if option in ("tr", "known_indels", "device_ctx"):
+    if option == "device_ctx":
         with pytest.raises(NotImplementedError):
             paired.align_paired_records(db, ti, pairs[:2],
                                         engine.AlignConfig(),
-                                        **{option: object()})
+                                        device_ctx=object())
         return
+    jkw, tkw = {}, {}
+    if option == "known_indels":
+        from tpumap.gsnap.knownindels import KnownIndels as JKnownIndels
+        from tpumap_torch.gsnap.knownindels import KnownIndels
+        none = (np.zeros(0, np.uint64), np.zeros(0, np.int32),
+                np.zeros(0, np.int64))
+        jkw["known_indels"] = JKnownIndels(*none)
+        tkw["known_indels"] = KnownIndels(*none)
+    elif option == "tr":
+        from tpumap.gsnap.transcriptome import build_transcriptome as jbuild
+        from tpumap.io.iit import build_iit as jbuild_iit
+        from tpumap.io.iit import parse_map_fasta as jparse
+        from tpumap_torch.gsnap.transcriptome import build_transcriptome
+        from tpumap_torch.io.iit import build_iit, parse_map_fasta
+        genes = (f">TRA {db.chrom_names[0]}:1001..3100 gene\nGENEA NM_A\n"
+                 "1001 1200\n3001 3100\n")
+        jtr = jbuild(db, jbuild_iit(jparse(io.StringIO(genes))), name="tr",
+                     k=10, interval=1)
+        ttr = build_transcriptome(db, build_iit(parse_map_fasta(
+            io.StringIO(genes))), name="tr", k=10, interval=1)
+        jkw["tr"], tkw["tr"] = (jtr, None), (ttr, None)
     kw = ({"mode": "cmet-stranded"} if option == "mode"
-          else {"snp_tolerant": True})
+          else {"snp_tolerant": True} if option == "snp_tolerant" else {})
     want = pair_text(jpaired.align_paired_records(
-        db, JaxIndex.from_host(db), pairs[:2], jengine.AlignConfig(**kw)))
+        db, JaxIndex.from_host(db), pairs[:4], jengine.AlignConfig(**kw),
+        **jkw))
     assert pair_text(paired.align_paired_records(
-        db, ti, pairs[:2], engine.AlignConfig(**kw))) == want
+        db, ti, pairs[:4], engine.AlignConfig(**kw), **tkw)) == want

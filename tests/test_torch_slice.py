@@ -7,6 +7,7 @@ workload (substitutions, soft clips, deletions, insertions, unmapped
 reads, an N read, FASTQ qualities) and on the synthetic e2e fixture.
 The slice must also run where JAX cannot be imported.
 """
+import io
 import pathlib
 import re
 import subprocess
@@ -222,7 +223,12 @@ def test_secondaries_in_list_mode_match(repeats):
     assert got == want and b"HI:i:2" in got
 
 
-@pytest.mark.parametrize("kw", [{"known_indels": object()}, {"tr": object()},
+# a genes map for the transcriptome rung on mixed_workload's genome
+MIXED_GENES = (">TRA chr1:1001..3100 gene\nGENEA NM_A\n1001 1200\n"
+               "3001 3100\n")
+
+
+@pytest.mark.parametrize("kw", [{"known_indels": None}, {"tr": None},
                                 {"find_fusions": True},
                                 {"config": engine.AlignConfig(
                                     mode="cmet-stranded")},
@@ -230,19 +236,44 @@ def test_secondaries_in_list_mode_match(repeats):
                                 {"config": engine.AlignConfig(
                                     snp_tolerant=True)}])
 def test_later_slices_raise(mixed, kw):
-    """Options of later slices raise NotImplementedError. The alignment
-    mode and SNP tolerance are ported: the port accepts them and gives
-    tpumap's SAM (this db has no mode or SNP tables, so both fall back to
-    the standard ones, as tpumap's mode_index does)."""
+    """Device meshes (device_ctx) are a later slice and raise
+    NotImplementedError. The staged path (known_indels, find_fusions),
+    the transcriptome rung (tr), the alignment modes and SNP tolerance
+    are ported: the port accepts them and gives tpumap's SAM (this db has
+    no mode or SNP tables, so both fall back to the standard ones, as
+    tpumap's mode_index does)."""
     db, ji, ti, reads, _ = mixed
-    if "config" not in kw:
+    if "device_ctx" in kw:
         with pytest.raises(NotImplementedError):
             driver.align_records(db, ti, reads[:4], **kw)
         return
-    cfg = kw["config"]
-    jcfg = jengine.AlignConfig(mode=cfg.mode, snp_tolerant=cfg.snp_tolerant)
-    want = sam_text(jdriver.align_records(db, ji, reads[:4], jcfg))
-    assert sam_text(driver.align_records(db, ti, reads[:4], cfg)) == want
+    jkw, tkw = dict(kw), dict(kw)
+    if "known_indels" in kw:
+        from tpumap.gsnap.knownindels import KnownIndels as JKnownIndels
+        from tpumap_torch.gsnap.knownindels import KnownIndels
+        none = (np.zeros(0, np.uint64), np.zeros(0, np.int32),
+                np.zeros(0, np.int64))
+        jkw["known_indels"] = JKnownIndels(*none)
+        tkw["known_indels"] = KnownIndels(*none)
+    if "tr" in kw:
+        from tpumap.gsnap.transcriptome import build_transcriptome as jbuild
+        from tpumap.io.iit import build_iit as jbuild_iit
+        from tpumap.io.iit import parse_map_fasta as jparse
+        from tpumap_torch.gsnap.transcriptome import build_transcriptome
+        from tpumap_torch.io.iit import build_iit, parse_map_fasta
+        jtr = jbuild(db, jbuild_iit(jparse(io.StringIO(MIXED_GENES))),
+                     name="tr", k=10, interval=1)
+        ttr = build_transcriptome(
+            db, build_iit(parse_map_fasta(io.StringIO(MIXED_GENES))),
+            name="tr", k=10, interval=1)
+        jkw["tr"] = (jtr, JaxIndex.from_host(jtr.trdb))
+        tkw["tr"] = (ttr, DeviceIndex.from_host(ttr.trdb, "cpu"))
+    cfg = kw.get("config", engine.AlignConfig())
+    jkw["config"] = jengine.AlignConfig(mode=cfg.mode,
+                                        snp_tolerant=cfg.snp_tolerant)
+    tkw["config"] = cfg
+    want = sam_text(jdriver.align_records(db, ji, reads[:8], **jkw))
+    assert sam_text(driver.align_records(db, ti, reads[:8], **tkw)) == want
 
 
 def test_no_jax_import_in_port():

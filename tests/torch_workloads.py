@@ -223,12 +223,13 @@ def tie_rows(rng, d, K, L):
 
 
 def gmap_segments(rng, N, S, n_valid=None, qspan=2000, tie_q=False,
-                  tie_w=False):
+                  tie_w=False, far=0):
     """Random chain-stage segments as anchors_to_segments leaves them
     (int32[N, S] diag, qstart, qend, weight and bool valid; zeros where
     not valid), numpy. A row's first n_valid (default: a random count)
     are valid; tie_q draws qstarts from a few values, tie_w weights
-    from two."""
+    from two; far > 0 moves half the segments' diagonals up by 0.7 far
+    to far bases (genomic gaps of that size between members)."""
     diag = np.zeros((N, S), np.int32)
     qs = np.zeros((N, S), np.int32)
     qe = np.zeros((N, S), np.int32)
@@ -243,6 +244,9 @@ def gmap_segments(rng, N, S, n_valid=None, qspan=2000, tie_q=False,
         base = (1 << 20) + rng.integers(0, 4000)
         d = base + np.where(rng.random(n) < 0.7, starts * 3,
                             rng.integers(-500, 60_000, n))
+        if far:
+            d = d + np.where(rng.random(n) < 0.5,
+                             rng.integers(far * 7 // 10, far, n), 0)
         valid[i, :n] = True
         diag[i, :n] = d
         qs[i, :n] = starts

@@ -27,13 +27,21 @@
 // xor-shuffle argmax that leaves score_j and prev_j in every lane. The
 // gap cost (log1p in double, rounded, as the plain version computes it)
 // depends only on the gap, below max_intron for every candidate: it
-// comes from a table of every gap's cost that the first call on a device
-// fills (a double log1p for each of S(S-1)/2 pairs inside one warp's
-// steps was slower than the one-block-a-problem kernel at S = 512),
-// and step j loads step j + 1's costs beside its own reduction. Lane 0 walks
-// the chain back and the warp writes the members it marked, in q order,
-// with a ballot prefix. Float arithmetic uses the _rn intrinsics, so
-// nvcc contracts nothing into an FMA the plain version does not have.
+// comes from a table of every gap's cost below TG = min(max_intron,
+// 2^26) that the first call on a device fills (a double log1p for each
+// of S(S-1)/2 pairs inside one warp's steps was slower than the
+// one-block-a-problem kernel at S = 512), and step j loads step j + 1's
+// costs beside its own reduction; past the table (max_intron > TG, the
+// BIG instances) a gap's cost is computed in the step, as log(x + 1) in
+// double (x + 1 is exact; equal to the host's rounded log1p at every
+// integer gap from 2^26 to 10^8 on the H100, tests/test_torch_cuda.py).
+// Lane 0 walks the chain back and the warp writes
+// the members it marked, in q order, with a ballot prefix. Float
+// arithmetic uses the _rn intrinsics, so nvcc contracts nothing into an
+// FMA the plain version does not have. More than 1,024 segments (past
+// P = 32's registers and shared slice) go to the wide kernel: one warp a
+// problem as well, its sorted segments, scores and links in a global
+// scratch, each step testing its pairs as it goes (no pair bitmap).
 //
 // K7b. Bound: the window's codes (R bytes and R valid flags) and the
 // query's oligos in, the anchors (Q x max_occ x 5 bytes) out. Design:
@@ -56,7 +64,10 @@
 //   (2) scan: one thread a slot pair walks a window's chunks: each
 //       chunk's base rank for a slot (an exclusive scan, saturated at
 //       255) and the slot's total (a window of one chunk: the count
-//       pass's block does it, and the scan kernel is not launched);
+//       pass's block does it, and the scan kernel is not launched).
+//       The counts are 16 bits, two a word, for max_occ <= 254; past
+//       that (the W32 instances of (1)-(3)) each is a word of its own,
+//       its base and total exact;
 //   (3) place: a block a chunk ranks its hits by (slot, position), in
 //       tiles of 256: a warp ranks equal slots with __match_any_sync,
 //       and a leader whose slot an earlier warp of the tile holds (a
@@ -89,6 +100,7 @@ constexpr int PB = 256;             // place threads a block, hits a tile
 constexpr int HM = 1024;            // place: warp masks, hashed by slot
 constexpr int SLOT_ABSENT = 0x7FFFFFFF;
 constexpr int SMEM_MAX = 227 * 1024;
+constexpr int GAP_TABLE_MAX = 1 << 26;  // ops/chain.py: GAP_TABLE_MAX
 
 // (v, i) becomes the better of itself and (v2, i2): the larger value,
 // the lower index on a tie (jnp.argmax's first maximum)
@@ -142,22 +154,50 @@ __device__ __forceinline__ float gap_cost(int x) {
   return __fmul_rn((float)log1p((double)x), 0.01f);
 }
 
-// tab[x] = gap_cost(x) for x < TG: the costs the DP looks up
+// the same past the table (x >= GAP_TABLE_MAX): x + 1 is exact in double,
+// and log takes fewer registers than log1p in the DP step (whose P = 8
+// instance spills with log1p)
+__device__ __forceinline__ float gap_cost_big(int x) {
+  return __fmul_rn((float)log((double)x + 1.0), 0.01f);
+}
+
+// a candidate's gap cost: from the table below TG, computed past it
+template <bool BIG>
+__device__ __forceinline__ float gap_lookup(const float* tab, int TG,
+                                            int gap) {
+  if (BIG && gap >= TG) return gap_cost_big(gap);
+  return __ldg(tab + gap);
+}
+
+// j may follow i (both in q order): the pair test of the plain version
+// (chain_segments_kernel writes it out in its pair loop, whose code the
+// compiler keeps unrolled and unbranched there)
+__device__ __forceinline__ bool may_follow(int4 ai, int4 bi, int4 aj, int4 bj,
+                                           int max_intron, float frac) {
+  const int overlap = max(ai.y - aj.x + 1, 0);
+  const int lim = (int)__fmul_rn((float)min(bi.x, bj.x), frac);
+  return bj.y && bi.y && aj.x > ai.x && aj.z > ai.w &&
+         aj.z - ai.w < max_intron && overlap < lim;
+}
+
+// tab[x] = the cost of gap x for x < TG: the costs the DP looks up
+// (past GAP_TABLE_MAX, which no production table reaches, the DP's own
+// function, so a test fill holds it against the host too)
 __global__ void chain_gap_table_kernel(int TG, float* __restrict__ tab) {
   for (int x = blockIdx.x * blockDim.x + threadIdx.x; x < TG;
        x += gridDim.x * blockDim.x)
-    tab[x] = gap_cost(x);
+    tab[x] = x < GAP_TABLE_MAX ? gap_cost(x) : gap_cost_big(x);
 }
 
 // step j's candidates for the lane's segments i = lane + 32 p: bit p of
 // the returned mask where j may follow i (from s.follows), g[p] its gap
-// cost, looked up in tab (every gap j may follow i across is below
-// max_intron; tab[0] where it may not). The loads are unconditional and
-// used a step later, so their latency hides behind a step of the chain
-template <int P>
+// cost (every gap j may follow i across is below max_intron; tab[0]
+// where it may not). The loads are unconditional and used a step later,
+// so their latency hides behind a step of the chain
+template <int P, bool BIG>
 __device__ __forceinline__ unsigned step_gaps(const ChainSlice<P>& s, int j,
                                               int lane, const float* tab,
-                                              float (&g)[P]) {
+                                              int TG, float (&g)[P]) {
   const int gsj = s.a[j].z;
   unsigned allowed = 0;
 #pragma unroll
@@ -165,7 +205,7 @@ __device__ __forceinline__ unsigned step_gaps(const ChainSlice<P>& s, int j,
     if (P > 4 && 32 * q >= j) break;   // many rows: skip those past j
     const bool ok = (s.follows[j][q] >> lane) & 1;
     allowed |= (unsigned)ok << q;
-    g[q] = __ldg(tab + (ok ? gsj - s.ge[lane + 32 * q] : 0));
+    g[q] = gap_lookup<BIG>(tab, TG, ok ? gsj - s.ge[lane + 32 * q] : 0);
   }
   return allowed;
 }
@@ -203,13 +243,46 @@ __device__ __forceinline__ void dp_step(const ChainSlice<P>& s, int j,
     }
 }
 
-template <int P>
+// the wide kernel's write-out (chain_segments_kernel's, from a global
+// scratch): the first M valid members of the chain ending at cur, in q
+// order, to the problem's outputs at ob, zeros past them (member: S / 32
+// zeroed words)
+__device__ __forceinline__ void chain_members(
+    const int* prev, unsigned* member, const int4* a, const int4* b, int cur,
+    int lane, int S, int M, long long ob, int32_t* out_diag, int32_t* out_qs,
+    int32_t* out_qe, bool* out_ok) {
+  if (lane == 0)
+    for (; cur >= 0; cur = prev[cur]) member[cur >> 5] |= 1u << (cur & 31);
+  __syncwarp();
+  int n = 0;
+  for (int r0 = 0; r0 < S; r0 += 32) {
+    const unsigned word = member[r0 >> 5];
+    const int m = n + __popc(word & lanemask_lt());
+    if (((word >> lane) & 1) && m < M) {
+      const int4 ar = a[r0 + lane], br = b[r0 + lane];
+      const bool ok = br.y;
+      out_diag[ob + m] = ok ? br.w : 0;
+      out_qs[ob + m] = ok ? ar.x : 0;
+      out_qe[ob + m] = ok ? ar.y : 0;
+      out_ok[ob + m] = ok;
+    }
+    n += __popc(word);
+  }
+  for (int m = n + lane; m < M; m += 32) {
+    out_diag[ob + m] = 0;
+    out_qs[ob + m] = 0;
+    out_qe[ob + m] = 0;
+    out_ok[ob + m] = false;
+  }
+}
+
+template <int P, bool BIG>
 __global__ void __launch_bounds__(32 * chain_warps<P>())
     chain_segments_kernel(
     const int32_t* __restrict__ diag, const int32_t* __restrict__ qstart,
     const int32_t* __restrict__ qend, const int32_t* __restrict__ weight,
     const bool* __restrict__ valid, int N, int S, int M, int max_intron,
-    float frac, const float* __restrict__ tab,
+    float frac, const float* __restrict__ tab, int TG,
     int32_t* __restrict__ out_diag, int32_t* __restrict__ out_qs,
     int32_t* __restrict__ out_qe, bool* __restrict__ out_ok) {
   constexpr int L = 32 * P;
@@ -284,9 +357,9 @@ __global__ void __launch_bounds__(32 * chain_warps<P>())
   unsigned ma = 0, mb;              // step 0 has no candidate
   int j = 0;
   for (; j + 1 < S; j += 2) {
-    mb = step_gaps<P>(s, j + 1, lane, tab, gb);
+    mb = step_gaps<P, BIG>(s, j + 1, lane, tab, TG, gb);
     dp_step<P>(s, j, lane, sc, pv, ma, ga);
-    ma = step_gaps<P>(s, min(j + 2, S - 1), lane, tab, ga);
+    ma = step_gaps<P, BIG>(s, min(j + 2, S - 1), lane, tab, TG, ga);
     dp_step<P>(s, j + 1, lane, sc, pv, mb, gb);
   }
   if (j < S) dp_step<P>(s, j, lane, sc, pv, ma, ga);
@@ -329,23 +402,122 @@ __global__ void __launch_bounds__(32 * chain_warps<P>())
   }
 }
 
-template <int P>
+// Any S (the wrapper sends S > 1,024 here): one warp a problem, its
+// arrays in the problem's stretch of a global scratch (chain_wide_bytes):
+// L >= S sort keys (L a power of two), the segments in q order, scores,
+// links and member bits. Step j's lanes test their i < j as they go and
+// keep their first best candidate; one xor-shuffle argmax, then lane 0
+// stores score_j and prev_j, which a later step reads after a __syncwarp
+template <bool BIG>
+__global__ void __launch_bounds__(32) chain_segments_wide_kernel(
+    const int32_t* __restrict__ diag, const int32_t* __restrict__ qstart,
+    const int32_t* __restrict__ qend, const int32_t* __restrict__ weight,
+    const bool* __restrict__ valid, int N, int S, int M, int L,
+    long long stride, int max_intron, float frac,
+    const float* __restrict__ tab, int TG, unsigned char* __restrict__ scratch,
+    int32_t* __restrict__ out_diag, int32_t* __restrict__ out_qs,
+    int32_t* __restrict__ out_qe, bool* __restrict__ out_ok) {
+  const int lane = threadIdx.x;
+  const long long p = blockIdx.x;
+  unsigned char* base = scratch + p * stride;
+  auto* key = reinterpret_cast<unsigned long long*>(base);
+  auto* a = reinterpret_cast<int4*>(key + L);
+  int4* b = a + S;
+  auto* sc = reinterpret_cast<float*>(b + S);
+  auto* prev = reinterpret_cast<int*>(sc + S);
+  auto* member = reinterpret_cast<unsigned*>(prev + S);
+  const long long o0 = p * S;
+  for (int r = lane; r < L; r += 32)
+    key[r] = r < S ? ((unsigned long long)(valid[o0 + r] ? qstart[o0 + r]
+                                                         : QKEY_INVALID)
+                      << 32) | (unsigned)r
+                   : ~0ull;
+  for (int r = lane; r < (S + 31) / 32; r += 32) member[r] = 0;
+  __syncwarp();
+  for (int size = 2; size <= L; size <<= 1)
+    for (int stride2 = size >> 1; stride2; stride2 >>= 1) {
+      for (int x = lane; x < L / 2; x += 32) {
+        const int i = 2 * x - (x & (stride2 - 1)), i2 = i + stride2;
+        const unsigned long long u = key[i], v = key[i2];
+        if ((u > v) == ((i & size) == 0)) {
+          key[i] = v;
+          key[i2] = u;
+        }
+      }
+      __syncwarp();
+    }
+  for (int r = lane; r < S; r += 32) {
+    const long long o = o0 + (int)(key[r] & 0xFFFFFFFFu);
+    const int d = diag[o], qs = qstart[o], qe = qend[o];
+    a[r] = make_int4(qs, qe, d + qs, d + qe);
+    b[r] = make_int4(max(qe - qs + 1, 1), valid[o], weight[o], d);
+  }
+  __syncwarp();
+  for (int j = 0; j < S; ++j) {
+    const int4 aj = a[j], bj = b[j];
+    float bv = -CUDART_INF_F;
+    int bi = 0x7FFFFFFF;
+    for (int i = lane; i < j; i += 32) {
+      const int4 ai = a[i];
+      if (may_follow(ai, b[i], aj, bj, max_intron, frac)) {
+        const float v = __fsub_rn(sc[i], gap_lookup<BIG>(tab, TG,
+                                                         aj.z - ai.w));
+        if (v > bv) {
+          bv = v;
+          bi = i;
+        }
+      }
+    }
+    warp_argmax(bv, bi);
+    if (lane == 0) {
+      sc[j] = bj.y ? __fadd_rn((float)bj.z, fmaxf(bv, 0.0f)) : (float)NEG;
+      prev[j] = bv > 0.0f ? bi : -1;
+    }
+    __syncwarp();
+  }
+  float bv = -CUDART_INF_F;
+  int cur = 0x7FFFFFFF;
+  for (int j = lane; j < S; j += 32)
+    if (sc[j] > bv) {
+      bv = sc[j];
+      cur = j;
+    }
+  warp_argmax(bv, cur);
+  chain_members(prev, member, a, b, cur, lane, S, M, p * M, out_diag, out_qs,
+                out_qe, out_ok);
+}
+
+// the wide kernel's sort keys a problem (a power of two), and its
+// scratch bytes a problem (ops/chain.py: chain_wide_bytes computes the same)
+inline int chain_wide_keys(int S) {
+  int L = 32;
+  while (L < S) L <<= 1;
+  return L;
+}
+
+inline long long chain_wide_bytes(int S) {
+  const long long b = 8LL * chain_wide_keys(S) + 32LL * S + 8LL * S +
+                      4LL * ((S + 31) / 32);
+  return (b + 15) & ~15LL;
+}
+
+template <int P, bool BIG>
 int launch_chain(const int32_t* diag, const int32_t* qstart,
                  const int32_t* qend, const int32_t* weight,
                  const bool* valid, int N, int S, int M, int max_intron,
-                 float frac, const float* tab, int32_t* od,
+                 float frac, const float* tab, int TG, int32_t* od,
                  int32_t* oqs, int32_t* oqe, bool* ook, cudaStream_t stream) {
   constexpr int W = chain_warps<P>();
   const int bytes = (int)sizeof(ChainSlice<P>) * W;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        chain_segments_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        chain_segments_kernel<P, BIG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  chain_segments_kernel<P><<<(N + W - 1) / W, 32 * W, bytes, stream>>>(
-      diag, qstart, qend, weight, valid, N, S, M, max_intron, frac, tab, od,
-      oqs, oqe, ook);
+  chain_segments_kernel<P, BIG><<<(N + W - 1) / W, 32 * W, bytes, stream>>>(
+      diag, qstart, qend, weight, valid, N, S, M, max_intron, frac, tab, TG,
+      od, oqs, oqe, ook);
   return (int)cudaGetLastError();
 }
 
@@ -393,6 +565,23 @@ struct SlotTable {
   }
 };
 
+// The count of a (chunk, slot): two 16-bit counts a word, the totals
+// saturated at 255 (max_occ <= 254), or with W32 (a larger max_occ) one
+// 32-bit count a word, the totals exact
+template <bool W32>
+struct SlotCount {
+  static constexpr int SAT = W32 ? 0x7FFFFFFF : 255;
+  __host__ __device__ static int words(int Q) { return W32 ? Q : (Q + 1) / 2; }
+  __device__ static int word(int s) { return W32 ? s : s >> 1; }
+  // n hits of slot s, as added to its word
+  __device__ static uint32_t add(int s, uint32_t n) {
+    return W32 ? n : n << (16 * (s & 1));
+  }
+  __device__ static int get(uint32_t v, int s) {
+    return W32 ? (int)v : (int)((v >> (16 * (s & 1))) & 0xFFFF);
+  }
+};
+
 // query position q's oligo where it can have hits (valid, below 4^k),
 // else -1
 __device__ __forceinline__ int query_oligo(const int32_t* qolig,
@@ -402,7 +591,7 @@ __device__ __forceinline__ int query_oligo(const int32_t* qolig,
   return qvalid[nq] && (unsigned)o < (unsigned)T ? o : -1;
 }
 
-template <bool GT>
+template <bool GT, bool W32>
 __global__ void __launch_bounds__(AB, 1) region_anchors_count_kernel(
     const uint8_t* __restrict__ codes, const bool* __restrict__ rvalid,
     const int32_t* __restrict__ qolig, const bool* __restrict__ qvalid,
@@ -410,6 +599,7 @@ __global__ void __launch_bounds__(AB, 1) region_anchors_count_kernel(
     int32_t* __restrict__ table, uint32_t* __restrict__ cnt,
     int2* __restrict__ hits, int32_t* __restrict__ nhit,
     int32_t* __restrict__ rep, int32_t* __restrict__ tot) {
+  using SC = SlotCount<W32>;
   extern __shared__ uint32_t smem[];
   const int T = 1 << (2 * k);
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -597,10 +787,10 @@ __global__ void __launch_bounds__(AB, 1) region_anchors_count_kernel(
         if (__popc(hm) > 4) {
           const unsigned peers = __match_any_sync(FULL, s[x]);
           if (s[x] >= 0 && lane == __ffs(peers) - 1)
-            atomicAdd(&row[s[x] >> 1], (uint32_t)__popc(peers)
-                                           << (16 * (s[x] & 1)));
+            atomicAdd(&row[SC::word(s[x])],
+                      SC::add(s[x], (uint32_t)__popc(peers)));
         } else if (s[x] >= 0) {
-          atomicAdd(&row[s[x] >> 1], 1u << (16 * (s[x] & 1)));
+          atomicAdd(&row[SC::word(s[x])], SC::add(s[x], 1u));
         }
       }
       // the tile's hits compacted in position order: a block prefix
@@ -633,16 +823,22 @@ __global__ void __launch_bounds__(AB, 1) region_anchors_count_kernel(
       __syncthreads();
       for (int w = t; w < Qw; w += AB) {
         const uint32_t v = __ldcg(&row[w]);
-        tot[n * Q + 2 * w] = min((int)(v & 0xFFFF), 255);
-        if (2 * w + 1 < Q) tot[n * Q + 2 * w + 1] = min((int)(v >> 16), 255);
+        if (W32) {
+          tot[n * Q + w] = (int)v;
+        } else {
+          tot[n * Q + 2 * w] = min((int)(v & 0xFFFF), 255);
+          if (2 * w + 1 < Q)
+            tot[n * Q + 2 * w + 1] = min((int)(v >> 16), 255);
+        }
         row[w] = 0;
       }
     }
   }
 }
 
-// per (window, slot pair): each chunk's count becomes its base rank
-// (exclusive, saturated at 255), and the slots' totals
+// per (window, count word): each chunk's count becomes its base rank
+// (exclusive, saturated at SAT), and the slots' totals
+template <bool W32>
 __global__ void region_anchors_scan_kernel(int N, int Q, int nch, int Qw,
                                            uint32_t* __restrict__ cnt,
                                            int32_t* __restrict__ tot) {
@@ -652,6 +848,16 @@ __global__ void region_anchors_scan_kernel(int N, int Q, int nch, int Qw,
     const int w = (int)(x % Qw);
     uint32_t* col = cnt + n * nch * (long long)Qw + w;
     int r0 = 0, r1 = 0;
+    if (W32) {
+#pragma unroll 8
+      for (int c = 0; c < nch; ++c) {
+        const uint32_t v = col[(long long)c * Qw];
+        col[(long long)c * Qw] = (uint32_t)r0;
+        r0 += (int)v;
+      }
+      tot[n * Q + w] = r0;
+      continue;
+    }
 #pragma unroll 8
     for (int c = 0; c < nch; ++c) {
       const uint32_t v = col[(long long)c * Qw];
@@ -665,11 +871,13 @@ __global__ void region_anchors_scan_kernel(int N, int Q, int nch, int Qw,
   }
 }
 
+template <bool W32>
 __global__ void __launch_bounds__(PB) region_anchors_place_kernel(
     int R, int Q, int C, int nch, int Qw, int max_occ, int keep,
     uint32_t* __restrict__ cnt, const int2* __restrict__ hits,
     const int32_t* __restrict__ nhit, const int32_t* __restrict__ tot,
     int32_t* __restrict__ diag_out) {
+  using SC = SlotCount<W32>;
   __shared__ int tslot[PB];
   __shared__ uint32_t wm[HM];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -687,7 +895,7 @@ __global__ void __launch_bounds__(PB) region_anchors_place_kernel(
       const int2 e = hl[base + t];
       s = e.x;
       pos = e.y;
-      cur = (__ldcg(&row[s >> 1]) >> (16 * (s & 1))) & 0xFFFF;
+      cur = SC::get(__ldcg(&row[SC::word(s)]), s);
       if (cur >= max_occ || (!keep && tot[n * Q + s] > max_occ)) s = -1;
     }
     tslot[t] = s;
@@ -718,7 +926,7 @@ __global__ void __launch_bounds__(PB) region_anchors_place_kernel(
     }
     __syncthreads();
     if (lead) {
-      atomicAdd(&row[s >> 1], (uint32_t)__popc(peers) << (16 * (s & 1)));
+      atomicAdd(&row[SC::word(s)], SC::add(s, (uint32_t)__popc(peers)));
       wm[s & (HM - 1)] = 0;
     }
     __syncthreads();
@@ -776,18 +984,22 @@ __global__ void region_anchors_fill_kernel(
 
 }  // namespace
 
-// tab: the gap costs of x < max(max_intron, 0), filled here first where
-// fill is set (the wrapper keeps the table between calls)
+// tab: the gap costs of x < TG (TG <= max(max_intron, 0)), filled here
+// first where fill is set (the wrapper keeps the table between calls);
+// scratch: the wide kernel's for S > 1,024, N x stride bytes (stride at
+// least chain_wide_bytes(S), a multiple of 16), else unused
 extern "C" int tt_chain_segments(const void* diag, const void* qstart,
                                  const void* qend, const void* weight,
                                  const void* valid, int N, int S, int M,
                                  int max_intron, float frac, void* tab,
-                                 int fill, void* out_diag,
+                                 int TG, int fill, void* scratch,
+                                 long long stride, void* out_diag,
                                  void* out_qs, void* out_qe, void* out_ok,
                                  void* stream) {
-  if (S < 1 || S > 1024 || M < 1 || M > S) return (int)cudaErrorInvalidValue;
+  if (S < 1 || M < 1 || M > S || TG < 0 || TG > max(max_intron, 0) ||
+      (S > 1024 && (stride < chain_wide_bytes(S) || stride % 16)))
+    return (int)cudaErrorInvalidValue;
   const auto st = (cudaStream_t)stream;
-  const int TG = max(max_intron, 0);
   if (fill && TG) {
     chain_gap_table_kernel<<<grid_for(TG, 256), 256, 0, st>>>(TG,
                                                              (float*)tab);
@@ -804,19 +1016,31 @@ extern "C" int tt_chain_segments(const void* diag, const void* qstart,
   auto* oqs = (int32_t*)out_qs;
   auto* oqe = (int32_t*)out_qe;
   auto* ook = (bool*)out_ok;
-#define K7A(P)                                                          \
-  if (S <= 32 * P)                                                      \
-    return launch_chain<P>(d, qs, qe, w, v, N, S, M, max_intron, frac, t, \
-                           od, oqs, oqe, ook, st);
+  const bool big = max_intron > TG;
+  if (S > 1024) {
+    auto wide = big ? chain_segments_wide_kernel<true>
+                    : chain_segments_wide_kernel<false>;
+    wide<<<N, 32, 0, st>>>(d, qs, qe, w, v, N, S, M, chain_wide_keys(S),
+                           stride, max_intron, frac, t, TG,
+                           (unsigned char*)scratch, od, oqs, oqe, ook);
+    return (int)cudaGetLastError();
+  }
+#define K7A(P)                                                               \
+  if (S <= 32 * P)                                                           \
+    return big ? launch_chain<P, true>(d, qs, qe, w, v, N, S, M, max_intron, \
+                                       frac, t, TG, od, oqs, oqe, ook, st)   \
+               : launch_chain<P, false>(d, qs, qe, w, v, N, S, M,           \
+                                        max_intron, frac, t, TG, od, oqs,   \
+                                        oqe, ook, st);
   K7A(1) K7A(2) K7A(4) K7A(8) K7A(16) K7A(32)
 #undef K7A
   return (int)cudaErrorInvalidValue;
 }
 
 // scratch (the wrapper allocates it): cnt N x nch x Qw words (two 16-bit
-// counts each, Qw = ceil(Q / 2)), hits N x R int2 (8-byte aligned), nhit
-// N x nch, rep and
-// tot N x Q, and with gt G x 4^k table entries
+// counts each, Qw = ceil(Q / 2), for max_occ <= 254; one 32-bit count
+// each, Qw = Q, past it), hits N x R int2 (8-byte aligned), nhit N x nch,
+// rep and tot N x Q, and with gt G x 4^k table entries
 extern "C" int tt_region_anchors(const void* codes, const void* rvalid,
                                  const void* qolig, const void* qvalid, int N,
                                  int R, int Q, int k, int max_occ, int keep,
@@ -824,18 +1048,21 @@ extern "C" int tt_region_anchors(const void* codes, const void* rvalid,
                                  void* nhit, void* rep, void* tot,
                                  void* table, void* diag, void* ok,
                                  void* stream) {
-  if (k < 1 || k > 12 || max_occ < 1 || max_occ > 254 || G < 1 || C < AB ||
-      C % AB || C > 16384 || (!gt && (k > 8 || Q > 0xFFFF)))
+  if (k < 1 || k > 12 || max_occ < 1 || G < 1 || C < AB || C % AB ||
+      C > 16384 || (!gt && (k > 8 || Q > 0xFFFF)))
     return (int)cudaErrorInvalidValue;
   const auto st = (cudaStream_t)stream;
   const int nch = R > 0 ? (R + C - 1) / C : 1;
-  const int Qw = (Q + 1) / 2;
+  const bool w32 = max_occ > 254;
+  const int Qw = w32 ? SlotCount<true>::words(Q) : SlotCount<false>::words(Q);
   const int T = 1 << (2 * k);
   const int bytes =
       ((gt ? 0 : ((T + 1) / 2 + 3) & ~3) + (TILE + 16) / 4 + AW) * 4;
   if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  auto count = gt ? region_anchors_count_kernel<true>
-                  : region_anchors_count_kernel<false>;
+  auto count = gt ? (w32 ? region_anchors_count_kernel<true, true>
+                        : region_anchors_count_kernel<true, false>)
+                  : (w32 ? region_anchors_count_kernel<false, true>
+                         : region_anchors_count_kernel<false, false>);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         count, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -849,13 +1076,16 @@ extern "C" int tt_region_anchors(const void* codes, const void* rvalid,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (nch > 1 && (long long)N * Qw) {
-    region_anchors_scan_kernel<<<grid_for((long long)N * Qw, 256), 256, 0,
-                                 st>>>(N, Q, nch, Qw, (uint32_t*)cnt,
-                                       (int32_t*)tot);
+    auto scan = w32 ? region_anchors_scan_kernel<true>
+                    : region_anchors_scan_kernel<false>;
+    scan<<<grid_for((long long)N * Qw, 256), 256, 0, st>>>(
+        N, Q, nch, Qw, (uint32_t*)cnt, (int32_t*)tot);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  region_anchors_place_kernel<<<N * nch, PB, 0, st>>>(
+  auto place = w32 ? region_anchors_place_kernel<true>
+                   : region_anchors_place_kernel<false>;
+  place<<<N * nch, PB, 0, st>>>(
       R, Q, C, nch, Qw, max_occ, keep, (uint32_t*)cnt, (const int2*)hits,
       (const int32_t*)nhit, (const int32_t*)tot, (int32_t*)diag);
   err = cudaGetLastError();

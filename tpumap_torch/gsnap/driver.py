@@ -1,6 +1,6 @@
-"""Host driver of the port: batching, the fused ladder, SAM output
-(port of the fused single-end path of tpumap/gsnap/driver.py) and the
-command line, single and paired end.
+"""Host driver of the port: batching, the fused ladder and the staged
+path, SAM output (port of the single-end path of
+tpumap/gsnap/driver.py) and the command line, single and paired end.
 
 The host half here is a JAX-free copy of tpumap's: `make_batch` packs a
 batch in one C pass, the fused ladder runs on the index's device, and
@@ -16,8 +16,16 @@ every chain row through the Python path_record for its XS tag. The
 alignment modes (--mode) and SNP tolerance (-v) change the cascade; as
 in tpumap they turn the native emitters off, and the Python records
 count NM/MD in the strand's base space (XW/XV with -v).
-Transcriptome-guided runs, fusions, known indels and device meshes are
-later slices of the port and raise NotImplementedError.
+
+Fusions and learned indels take the staged path (tpumap's use_fused):
+the cascade alone in the batch's program, then refine_unsolved's
+stages, each its own launches: the indel DP (K2, K3), the chain stage
+(K5) with its salvage scans (K6a), the splice-end review
+(find_splice_ends, K6b), the fusion joins (refine_splices, torch ops);
+the next batch is dispatched after them. The transcriptome rung (tr)
+is a cascade of its own a batch (K1) on the transcript db's index;
+its records carry the XX/XY remap tags. Device meshes (device_ctx) are
+a later slice of the port and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -29,10 +37,19 @@ import torch
 
 from tpumap_torch import native
 from tpumap_torch.gsnap import ladder
-from tpumap_torch.gsnap.engine import AlignConfig, mapq_from_scores
+from tpumap_torch.gsnap import remap as remap_mod
+from tpumap_torch.gsnap.engine import (AlignConfig, align_batch_cascaded,
+                                       align_batch_cascaded_packed,
+                                       mapq_from_scores, refine_indels,
+                                       refine_splices)
 from tpumap_torch.gsnap.knownsplicing import KnownSplicing, known_to_device
-from tpumap_torch.gsnap.params import MIN_INTRON
+from tpumap_torch.gsnap.params import (CHAIN_K, CLIP_INDEL_TRIGGER,
+                                       CLIP_SPLICE_TRIGGER, INDEL_BAND,
+                                       INDEL_MARGIN, INDEL_NMM_TRIGGER,
+                                       MAX_CAND_PAIRS, MIN_INTRON,
+                                       SPLICE_NMM_TRIGGER)
 from tpumap_torch.gsnap.spliceends import (AMB_MAX, NC_REVIEW_MAX,
+                                           find_splice_ends,
                                            pool_device_results, xa_tag)
 from tpumap_torch.index.build import GenomeDB
 from tpumap_torch.index.device import DeviceIndex
@@ -40,10 +57,14 @@ from tpumap_torch.io import sam, sam_bulk
 from tpumap_torch.io.fasta import Record, read_seqs
 from tpumap_torch.io.iit import IIT
 from tpumap_torch.ops import dp as dp_ops
+from tpumap_torch.ops import localscan, pathdp, verify
 from tpumap_torch.ops.mode import MODE_SPACES
-from tpumap_torch.ops import pathdp
 from tpumap_torch.ops.pack import words_for
 from tpumap_torch.utils import dna
+
+
+MIN_FUSION_PIECE = 20     # src/path-fusion.c requires substantial ends
+KNOWN_INDEL_BONUS = 12    # score credit for an indel at a learned site
 
 
 def pad_to_bucket(n: int, buckets=(32, 64, 96, 128, 160, 192, 256, 384, 512)) -> int:
@@ -186,21 +207,54 @@ def _indel_limits_ok(ops, max_insertions: int, max_deletions: int,
     return True
 
 
-def refine_unsolved(db, batch, res, config, novelsplicing=False,
-                    max_intron=200_000, L=None, max_insertions=6,
-                    max_deletions=9, indel_endlength=4, amb_out=None,
-                    known=None, dict_all=False):
-    """Host acceptance of the fused ladder's results (tpumap's fused
-    branch of refine_unsolved): the chain solutions (splice_result dicts
-    for rows the per-row path emits, res["sp_sel"] for the array-form
-    rest; dicts for every row with known splicing or dict_all, the
-    paired emitter's need), the indel rows, then the ambiguous
-    splice-end review. Returns (dp_result, splice_result); dp_result
-    maps a batch row to (genome start, forward ops, score)."""
+def refine_unsolved(db, index, batch, res, config, novelsplicing=False,
+                    max_intron=200_000, known=None, find_fusions=False,
+                    tr_records=None, L=None, max_insertions=6,
+                    max_deletions=9, indel_endlength=4, use_localdb=True,
+                    known_indels=None, quals=None, amb_out=None,
+                    dict_all=False):
+    """The refinement ladder after the cascade, shared by the single-end
+    and paired drivers (tpumap driver.py:271-680). On the fused ladder's
+    results (res holds in_idx) the host acceptance of its chain and indel
+    blocks; on the staged path's (a cascade dict) the stages themselves,
+    each its own launches on the index's device: the indel DP (K2, K3)
+    with the known-indel trigger, the chain stage (K5) over the ranked
+    candidates, known partners and the salvage scans (K6a). Then the
+    ambiguous splice-end review and the fusions (_late_stages). Returns
+    (dp_result, splice_result, fusion_result) keyed by batch row:
+    dp_result[i] = (genome start, forward ops, score); splice_result
+    dicts (every chain row with known splicing or dict_all, the paired
+    emitter's need; res["sp_sel"] the fused ladder's array-form rest)."""
+    tr_records = tr_records or {}
     if L is None:
         L = batch["codes"].shape[1]
     chunk_len = res["nmismatch"].shape[0]
     len_v = np.asarray(batch["lengths"])[:chunk_len].astype(np.int32)
+    if "in_idx" in res:
+        dp_result, splice_result = _fused_acceptance(
+            batch, res, known, dict_all, chunk_len, len_v, max_insertions,
+            max_deletions, indel_endlength)
+    else:
+        dp_result = _staged_indels(
+            index, batch, res, tr_records, L, chunk_len, len_v,
+            max_insertions, max_deletions, indel_endlength, known_indels)
+        splice_result = {}
+        if novelsplicing or known is not None:
+            splice_result = _staged_chains(
+                db, index, batch, res, dp_result, tr_records, L, chunk_len,
+                len_v, novelsplicing, max_intron, known, use_localdb, quals)
+    return _late_stages(db, index, batch, res, config, dp_result,
+                        splice_result, novelsplicing, max_intron, known,
+                        find_fusions, tr_records, L, amb_out, chunk_len,
+                        len_v)
+
+
+def _fused_acceptance(batch, res, known, dict_all, chunk_len, len_v,
+                      max_insertions, max_deletions, indel_endlength):
+    """Host acceptance of the fused ladder's chain and indel blocks
+    (tpumap's fused branch of refine_unsolved): (dp_result,
+    splice_result), and res["sp_sel"] for the chain rows the native
+    emitters take as arrays."""
     diag_v = res["diag"][:chunk_len]
     dp_result = {}
     splice_result = {}
@@ -272,19 +326,335 @@ def refine_unsolved(db, batch, res, config, novelsplicing=False,
                     continue
                 dp_result[i] = (int(diag_v[i]) + start_l[row], ops,
                                 score_l[row])
-    if (novelsplicing or known is not None) and "trim_qstart" in res:
-        _splice_ends_review(db, batch, res, config, dp_result, splice_result,
-                            max_intron, L, amb_out, chunk_len, len_v, known)
     return dp_result, splice_result
 
 
-def _oriented_rows(batch, idx, strands, L):
-    """Host rows idx of the batch as (codes, nmask), strand-1 rows
-    reverse-complemented (past the read length zero-padded)."""
+def _put(index, a: np.ndarray) -> torch.Tensor:
+    """A host array on the index's device (uint32 as int64)."""
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(index.device)
+
+
+def _staged_indels(index, batch, res, tr_records, L, chunk_len, len_v,
+                   max_insertions, max_deletions, indel_endlength,
+                   known_indels):
+    """The staged indel stage (tpumap driver.py:398-474): banded DP and
+    traceback (refine_indels: K2, K3) on the rows at or past the
+    mismatch or clip trigger, or (known_indels) with a mismatch over a
+    learned indel site; an indel placed at a learned site relaxes the
+    end length and gets a score bonus."""
+    diag_v = np.asarray(res["diag"])[:chunk_len]
+    nmm_v = np.asarray(res["nmismatch"])[:chunk_len]
+    strand_v = np.asarray(res["strand"])[:chunk_len]
+    valid_v = diag_v != 0xFFFFFFFF
+    nmm_l = nmm_v.tolist()
+    need_m = valid_v & (nmm_v >= INDEL_NMM_TRIGGER)
+    if "trim_qstart" in res:
+        # clipped ends can hide an end indel under the mismatch trigger
+        tqs_c = np.asarray(res["trim_qstart"])[:chunk_len]
+        tqe_c = np.minimum(np.asarray(res["trim_qend"])[:chunk_len], len_v)
+        need_m |= valid_v & ((tqs_c + (len_v - tqe_c))
+                             >= CLIP_INDEL_TRIGGER)
+    if known_indels is not None:
+        for i in np.nonzero(valid_v & ~need_m & (nmm_v >= 1))[0]:
+            d = int(diag_v[i])
+            if known_indels.any_in(d, d + int(len_v[i])):
+                need_m[i] = True
+    for i in tr_records:
+        if i < chunk_len:
+            need_m[i] = False
+    need = np.nonzero(need_m)[0]
+    dp_result = {}
+    if not len(need):
+        return dp_result
+    nb = pad_to_bucket(len(need))
+    codes = np.zeros((nb, L), dtype=np.uint8)
+    lengths = np.ones(nb, dtype=np.int32)
+    diags = np.zeros(nb, dtype=np.uint32)
+    codes[:len(need)], _ = _oriented_rows(batch, need, strand_v[need], L)
+    lengths[:len(need)] = len_v[need]
+    diags[:len(need)] = diag_v[need]
+    ref = refine_indels(index, _put(index, codes), _put(index, lengths),
+                        _put(index, diags), INDEL_BAND, INDEL_MARGIN)
+    ops_l = ref["ops"].cpu().tolist()
+    score_l = ref["score"].cpu().tolist()
+    start_l = ref["start_off"].cpu().tolist()
+    trim_score_l = (np.asarray(res["trim_score"]).tolist()
+                    if "trim_score" in res else None)
+    for row, i in enumerate(need):
+        li = int(len_v[i])
+        sub_score = 3 * li - 6 * nmm_l[i]
+        if trim_score_l is not None:
+            # an end-trimmed soft clip may already explain the read
+            sub_score = max(sub_score, trim_score_l[i] * 3 // 8)
+        ops = [o for o in ops_l[row][::-1] if o != dp_ops.T_END]
+        # an indel placed at a learned site relaxes the end length and
+        # gets a score bonus (src/knownindels.c)
+        eff_endlength = indel_endlength
+        bonus = 0
+        if known_indels is not None:
+            g = int(diag_v[i]) + start_l[row]
+            goff = 0
+            for o in ops:
+                if o != dp_ops.T_MATCH and known_indels.near(g + goff):
+                    eff_endlength = min(indel_endlength, 2)
+                    bonus = KNOWN_INDEL_BONUS
+                    break
+                if o != dp_ops.T_INS:
+                    goff += 1
+        if score_l[row] + bonus > sub_score:
+            if not _indel_limits_ok(ops, max_insertions, max_deletions,
+                                    eff_endlength):
+                continue
+            dp_result[i] = (int(diag_v[i]) + start_l[row], ops,
+                            score_l[row])
+    return dp_result
+
+
+def _staged_chains(db, index, batch, res, dp_result, tr_records, L,
+                   chunk_len, len_v, novelsplicing, max_intron, known,
+                   use_localdb, quals):
+    """The staged chain stage (tpumap driver.py:476-668): each row at
+    the splice trigger (mismatches or clipped bases) gets its ranked
+    candidates, known-junction partners and, with one candidate, the
+    salvage scans' placements of its unseeded end (K6a over a window
+    of the localdb scale), solved by the chain DP (K5); a solution that
+    beats the row's other paths and stays on one chromosome goes to
+    splice_result."""
+    diag_v = np.asarray(res["diag"])[:chunk_len]
+    strand_v = np.asarray(res["strand"])[:chunk_len]
+    valid_v = diag_v != 0xFFFFFFFF
+    nmm_l = np.asarray(res["nmismatch"])[:chunk_len].tolist()
+    trim_nmm = res.get("trim_nmm", res["nmismatch"])
+    trim_qs = res.get("trim_qstart")
+    trim_qe = res.get("trim_qend")
+    chain_m = valid_v & (np.asarray(trim_nmm)[:chunk_len]
+                         >= SPLICE_NMM_TRIGGER)
+    if trim_qs is not None:
+        clipped_v = (np.asarray(trim_qs)[:chunk_len]
+                     + (len_v - np.asarray(trim_qe)[:chunk_len]))
+        chain_m |= valid_v & (clipped_v >= CLIP_SPLICE_TRIGGER)
+    for i in tr_records:
+        if i < chunk_len:
+            chain_m[i] = False
+    sneed = np.nonzero(chain_m)[0]
+    splice_result = {}
+    if not len(sneed):
+        return splice_result
+    cd_rows = np.asarray(res["cand_diags"])[sneed]
+    keep = ((cd_rows != 0xFFFFFFFF)
+            & (np.asarray(res["cand_strands"])[sneed]
+               == strand_v[sneed, None]))
+    cands_per_read = []
+    for j, i in enumerate(sneed):
+        # first-occurrence dedupe, order kept
+        cands = list(dict.fromkeys(cd_rows[j][keep[j]].tolist()))
+        if known is not None:
+            li = int(len_v[i])
+            for a in list(cands):
+                for (_da, db_) in known.derived_pairs(a, li, max_intron):
+                    if db_ not in cands:
+                        cands.append(db_)
+        cands_per_read.append((int(strand_v[i]), cands[:CHAIN_K]))
+    # one oriented gather serves the salvage and the chain rows
+    sc_codes, sc_nmask = _oriented_rows(batch, sneed, strand_v[sneed], L)
+    sc_quals = None
+    if quals is not None:
+        _c, _m, sc_quals = _oriented_rows(batch, sneed, strand_v[sneed], L,
+                                          quals=np.asarray(quals))
+    if novelsplicing and use_localdb:
+        _salvage(db, index, sneed, cands_per_read, sc_codes, len_v,
+                 max_intron)
+    row_js = [j for j, (_st0, cands) in enumerate(cands_per_read) if cands]
+    rows = [(int(sneed[j]),) + cands_per_read[j] for j in row_js]
+    if not rows:
+        return splice_result
+    nb = pad_to_bucket(len(rows))
+    codes = np.zeros((nb, L), dtype=np.uint8)
+    nmask = np.zeros((nb, L), dtype=bool)
+    lengths = np.ones(nb, dtype=np.int32)
+    cdiags = np.full((nb, CHAIN_K), 0xFFFFFFFF, dtype=np.uint32)
+    cquals = np.full((nb, L), 30, dtype=np.uint8)
+    codes[:len(rows)] = sc_codes[row_js]
+    nmask[:len(rows)] = sc_nmask[row_js]
+    lengths[:len(rows)] = len_v[sneed[row_js]]
+    if quals is not None:
+        cquals[:len(rows)] = sc_quals[row_js]
+    for row, (_i, _st0, cands) in enumerate(rows):
+        cdiags[row, :len(cands)] = cands
+    cres = pathdp.chain_solve(
+        index, _put(index, codes), _put(index, nmask),
+        _put(index, lengths), _put(index, cdiags),
+        scoring=pathdp.PathScoring(max_intron=max(max_intron, MIN_INTRON)),
+        with_quals=quals is not None,
+        quals=_put(index, cquals) if quals is not None else None,
+        known=(known_to_device(known, index.device) if known is not None
+               else None))
+    cres = {k: v.cpu().numpy() for k, v in cres.items()}
+    nsegs_l = cres["nsegs"].tolist()
+    score_l8 = cres["score"].tolist()
+    qs_l = cres["q_start"].tolist()
+    qe_l = cres["q_end"].tolist()
+    nmm_cl = cres["nmm"].tolist()
+    segq_l = cres["seg_q"].tolist()
+    segd_l = cres["seg_diag"].tolist()
+    trim_score_l2 = (np.asarray(res["trim_score"]).tolist()
+                     if trim_qs is not None else None)
+    for row, (i, st0, cands) in enumerate(rows):
+        li = int(len_v[i])
+        nsegs = nsegs_l[row]
+        if nsegs < 1:
+            continue
+        score8 = score_l8[row]
+        # the alternatives on the same 8-scale: the trimmed (or full)
+        # substitution path and the indel path
+        if trim_score_l2 is not None:
+            best_other = trim_score_l2[i]
+        else:
+            best_other = 8 * li - 32 * nmm_l[i]
+        if i in dp_result:
+            best_other = max(best_other, dp_result[i][2] * 8 // 3)
+        if score8 <= best_other:
+            continue
+        q_start = qs_l[row]
+        q_end = qe_l[row]
+        segs = list(zip(segq_l[row][:nsegs], segd_l[row][:nsegs]))
+        # every segment on one chromosome
+        chroms = {db.chrnum(d + q) for q, d in segs}
+        chroms.add(db.chrnum(segs[-1][1] + q_end - 1))
+        if len(chroms) != 1:
+            continue
+        splice_result[i] = {
+            "segs": segs, "q_start": q_start, "q_end": q_end,
+            "strand": st0, "score": score8, "nmm": nmm_cl[row],
+        }
+    return splice_result
+
+
+def _salvage(db, index, sneed, cands_per_read, sc_codes, len_v,
+             max_intron):
+    """The localdb salvage of the staged chain stage (tpumap
+    driver.py:531-606): a row with one candidate has its unaligned
+    ends (past its first and last 20-base exact runs, native
+    anchor_runs) located by fragment scans (K6a) in a window of the
+    localdb scale; placements within the intron range join its
+    candidates (cands_per_read, in place)."""
+    one = [j for j, (_st0, cands) in enumerate(cands_per_read)
+           if len(cands) == 1]
+    if not one:
+        return
+    adiag = np.array([cands_per_read[j][1][0] for j in one],
+                     dtype=np.uint64)
+    alen = len_v[sneed[one]].astype(np.int32)
+    u_arr, e_arr = _anchor_runs(db, adiag,
+                                np.ascontiguousarray(sc_codes[one]), alen)
+    salv = []
+    for k, j in enumerate(one):
+        if u_arr[k] < 0:
+            continue
+        salv.append((j, int(adiag[k]), sc_codes[j], int(alen[k]),
+                     int(u_arr[k]), int(e_arr[k])))
+    if not salv:
+        return
+    F = 16
+    # the reference's localdb region scale (65,536-bp suffix arrays);
+    # splice distances past W are the seeded chain path's
+    W = min(65536, max(1024, max_intron))
+    R = pad_to_bucket(len(salv))
+    frag_s = np.zeros((R, F), dtype=np.uint8)
+    frag_p = np.zeros((R, F), dtype=np.uint8)
+    flen_s = np.ones(R, dtype=np.int32)
+    flen_p = np.ones(R, dtype=np.int32)
+    ws_s = np.zeros(R, dtype=np.uint32)
+    ws_p = np.zeros(R, dtype=np.uint32)
+    for row, (j, a, c, li, u, e) in enumerate(salv):
+        v = li - e                  # the unaligned suffix
+        if v >= 6:
+            fl = min(F, v)
+            frag_s[row, :fl] = c[e:e + fl]
+            flen_s[row] = fl
+            ws_s[row] = a + e + MIN_INTRON
+        if u >= 6:
+            fl = min(F, u)
+            frag_p[row, :fl] = c[u - fl:u]
+            flen_p[row] = fl
+            ws_p[row] = max(a - MIN_INTRON - W, 0)
+    pos_s, mm_s = localscan.scan_fragment(
+        index.genome_packed, _put(index, ws_s), _put(index, frag_s),
+        _put(index, flen_s), W, F)
+    pos_p, mm_p = localscan.scan_fragment(
+        index.genome_packed, _put(index, ws_p), _put(index, frag_p),
+        _put(index, flen_p), W, F)
+    pos_s, mm_s, pos_p, mm_p = (x.cpu().numpy()
+                                for x in (pos_s, mm_s, pos_p, mm_p))
+    for row, (j, a, c, li, u, e) in enumerate(salv):
+        v = li - e
+        st0, cands = cands_per_read[j]
+        if v >= 6:
+            for t in range(pos_s.shape[1]):
+                if mm_s[row, t] <= 1:
+                    dB = int(pos_s[row, t]) - e
+                    if (MIN_INTRON <= dB - a <= max_intron
+                            and dB not in cands):
+                        cands.append(dB)
+        if u >= 6:
+            fl = min(F, u)
+            for t in range(pos_p.shape[1]):
+                if mm_p[row, t] <= 1:
+                    dA = int(pos_p[row, t]) - (u - fl)
+                    if (MIN_INTRON <= a - dA <= max_intron
+                            and dA not in cands):
+                        cands.append(dA)
+        cands_per_read[j] = (st0, cands[:CHAIN_K])
+
+
+def _anchor_runs(db, diags, codes_rows, lengths, runlen: int = 20):
+    """Per row: the first 20-base exact run's start (u) and the last
+    run's end (e) of the read against the genome on its diagonal (the
+    native anchor_runs); u = -1 where there is no run."""
+    R, Lstride = codes_rows.shape
+    u_out = np.full(R, -1, dtype=np.int32)
+    e_out = np.full(R, -1, dtype=np.int32)
+    lib = native.get_lib()
+    if lib is not None:
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.anchor_runs(
+            db.genome_packed.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            len(db.genome_packed) << 4,
+            np.ascontiguousarray(diags, np.uint64).ctypes.data_as(
+                ctypes.POINTER(ctypes.c_uint64)),
+            codes_rows.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            Lstride,
+            np.ascontiguousarray(lengths, np.int32).ctypes.data_as(i32p),
+            R, runlen, u_out.ctypes.data_as(i32p),
+            e_out.ctypes.data_as(i32p))
+        return u_out, e_out
+    # without g++ (native.get_lib says so): tpumap's Python loop
+    for r in range(R):
+        li = int(lengths[r])
+        g = db.get_codes(int(diags[r]), li)
+        if len(g) < li:
+            continue
+        match = codes_rows[r, :li] == g
+        runs = np.convolve(match.astype(np.int32),
+                           np.ones(runlen, dtype=np.int32),
+                           mode="valid") == runlen
+        starts = np.nonzero(runs)[0]
+        if len(starts):
+            u_out[r] = int(starts[0])
+            e_out[r] = int(starts[-1]) + runlen
+    return u_out, e_out
+
+
+def _oriented_rows(batch, idx, strands, L, quals=None):
+    """Host rows idx of the batch as (codes, nmask[, quals]), strand-1
+    rows reverse-complemented (past the read length zero-padded)."""
     codes = np.asarray(batch["codes"])[idx]
     nmask = np.asarray(batch["nmask"])[idx]
     li = np.asarray(batch["lengths"])[idx].astype(np.int64)
     st = np.asarray(strands).astype(bool)
+    qv = quals[idx] if quals is not None else None
     if st.any():
         ar = np.arange(L)
         src = li[:, None] - 1 - ar[None, :]
@@ -296,6 +666,12 @@ def _oriented_rows(batch, idx, strands, L):
                       False)
         codes = np.where(st[:, None], rc, codes)
         nmask = np.where(st[:, None], rm, nmask)
+        if qv is not None:
+            rq = np.where(valid, np.take_along_axis(qv, srcc, axis=1),
+                          0).astype(np.uint8)
+            qv = np.where(st[:, None], rq, qv)
+    if quals is not None:
+        return codes, nmask, qv
     return codes, nmask
 
 
@@ -372,11 +748,14 @@ def _demote(s, side) -> None:
         s["segs"] = s["segs"][1:]
 
 
-def _splice_ends_review(db, batch, res, config, dp_result, splice_result,
-                        max_intron, L, amb_out, chunk_len, len_v, known):
+def _splice_ends_review(db, index, batch, res, config, dp_result,
+                        splice_result, max_intron, L, amb_out, chunk_len,
+                        len_v, known, tr_records):
     """Stage 3b of tpumap's _late_stages (src/altsplice.c,
     src/spliceends.c): short terminal residues (1..AMB_MAX bases) placed
-    by the ladder's exact-site scan. A unique distal placement extends a
+    by an exact-site scan: the fused ladder's in-program one, or on the
+    staged path find_splice_ends (one K6b launch). A unique distal
+    placement extends a
     trimmed row's path with the junction (into splice_result); tied
     placements keep the soft clip and go to amb_out (XA:Z:); a solved
     short terminal exon with tied placements, or with a noncanonical
@@ -401,7 +780,7 @@ def _splice_ends_review(db, batch, res, config, dp_result, splice_result,
         1, ((tqe_v - tqs_v).astype(np.float64)
             * config.max_mismatch_frac).astype(np.int64)))
     for i in sorted(set(np.nonzero(amb_m)[0].tolist()) | set(splice_result)):
-        if not valid_v[i]:
+        if i in tr_records or not valid_v[i]:
             continue
         li = int(len_v[i])
         if i in splice_result:
@@ -442,7 +821,12 @@ def _splice_ends_review(db, batch, res, config, dp_result, splice_result,
         ac, _m = _oriented_rows(batch, iis, sts, L)
         acodes = {int(ii): ac[k] for k, ii in enumerate(iis)}
     if amb_rows or review_rows:
-        se_res, se_amb = pool_device_results(res, max_intron)
+        if "amb_pos" in res:
+            # the fused ladder ran the review scan in its program
+            se_res, se_amb = pool_device_results(res, max_intron)
+        else:
+            se_res, se_amb = find_splice_ends(
+                db, index, acodes, amb_rows + review_rows, max_intron)
         for (i, a, tqs, tqe, li, _sides) in amb_rows:
             sides = se_res.get(i)
             if sides:
@@ -492,6 +876,205 @@ def _splice_ends_review(db, batch, res, config, dp_result, splice_result,
             _demote(s, side)
 
 
+def _late_stages(db, index, batch, res, config, dp_result, splice_result,
+                 novelsplicing, max_intron, known, find_fusions, tr_records,
+                 L, amb_out, chunk_len, len_v):
+    """The stages after the indel and chain stages on both paths (tpumap
+    driver.py:739-1089): the ambiguous splice-end review (stage 3b),
+    then the fusions. Returns the refine_unsolved triple."""
+    if (novelsplicing or known is not None) and "trim_qstart" in res:
+        _splice_ends_review(db, index, batch, res, config, dp_result,
+                            splice_result, max_intron, L, amb_out,
+                            chunk_len, len_v, known, tr_records)
+    fusion_result = {}
+    if find_fusions and "cand_diags" in res:
+        fusion_result = _fusions(index, db, batch, res, dp_result,
+                                 splice_result, tr_records, L, chunk_len,
+                                 max_intron)
+    return dp_result, splice_result, fusion_result
+
+
+def _cands_by_strand(res, i):
+    """Row i's distinct valid candidate diagonals by strand, in rank
+    order."""
+    cands = {0: [], 1: []}
+    for c in range(res["cand_diags"].shape[1]):
+        dg = int(res["cand_diags"][i, c])
+        st = int(res["cand_strands"][i, c])
+        if dg != 0xFFFFFFFF and dg not in cands[st]:
+            cands[st].append(dg)
+    return cands
+
+
+def _fusions(index, db, batch, res, dp_result, splice_result, tr_records,
+             L, chunk_len, max_intron):
+    """Fusions (stage 4, tpumap driver.py:915-1089, src/path-fusion.c):
+    for reads nothing else solved, same-strand candidate pairs on
+    different chromosomes or outside the intron window scored as one
+    junction (refine_splices), then inverted (cross-strand) joins from
+    the two orientations' mismatch masks over the genome windows of the
+    candidates (extract_codes_window). A join beating the row's other
+    paths goes to fusion_result."""
+    fusion_result = {}
+    fneed = []
+    for i in range(chunk_len):
+        solved = (i in tr_records or i in splice_result
+                  or (i in dp_result and (
+                      3 * int(batch["lengths"][i])
+                      - dp_result[i][2]) // 6 < SPLICE_NMM_TRIGGER))
+        if res["nmismatch"][i] >= SPLICE_NMM_TRIGGER and not solved:
+            fneed.append(i)
+    fpairs_per_read = []
+    for i in fneed:
+        cands = _cands_by_strand(res, i)
+        pairs = []
+        for st in (0, 1):
+            for a in cands[st]:
+                for b in cands[st]:
+                    if a == b:
+                        continue
+                    # a fusion pair is cross-chromosome, or outside the
+                    # intron window (distant or inverted order)
+                    same_chrom = db.chrnum(a) == db.chrnum(b)
+                    intronic = MIN_INTRON <= b - a <= max_intron
+                    if not same_chrom or not intronic:
+                        pairs.append((a, b, st))
+        fpairs_per_read.append(pairs[:MAX_CAND_PAIRS])
+    fneed_all = list(fneed)         # the inversions see every candidate
+    fneed = [i for i, p in zip(fneed, fpairs_per_read) if p]
+    fpairs_per_read = [p for p in fpairs_per_read if p]
+    if fneed:
+        nb = pad_to_bucket(len(fneed))
+        codes = np.zeros((nb, L), dtype=np.uint8)
+        nmask = np.zeros((nb, L), dtype=bool)
+        lengths = np.ones(nb, dtype=np.int32)
+        dA = np.full((nb, MAX_CAND_PAIRS), 0xFFFFFFFF, dtype=np.uint32)
+        dB = np.full((nb, MAX_CAND_PAIRS), 0xFFFFFFFF, dtype=np.uint32)
+        strands = np.zeros((nb, MAX_CAND_PAIRS), dtype=np.int32)
+        for row, (i, pairs) in enumerate(zip(fneed, fpairs_per_read)):
+            li = int(batch["lengths"][i])
+            st0 = pairs[0][2]
+            c = batch["codes"][i]
+            m = batch["nmask"][i]
+            if st0:
+                c = np.concatenate([dna.revcomp_codes(c[:li]),
+                                    np.zeros(L - li, np.uint8)])
+                m = np.concatenate([m[:li][::-1], np.zeros(L - li, bool)])
+            codes[row] = c
+            nmask[row] = m
+            lengths[row] = li
+            for pcol, (a, b, st) in enumerate(pairs):
+                if st != st0:
+                    continue
+                dA[row, pcol] = a
+                dB[row, pcol] = b
+                strands[row, pcol] = st
+        fres = refine_splices(index, _put(index, codes), _put(index, nmask),
+                              _put(index, lengths), _put(index, dA),
+                              _put(index, dB))
+        fres = {k: v.cpu().numpy() for k, v in fres.items()}
+        for row, i in enumerate(fneed):
+            li = int(batch["lengths"][i])
+            pcol = int(np.argmin(np.where(fres["valid"][row],
+                                          fres["nmm"][row], li + 1)))
+            if not fres["valid"][row][pcol]:
+                continue
+            qstar = int(fres["qstar"][row][pcol])
+            nmm = int(fres["nmm"][row][pcol])
+            if qstar < MIN_FUSION_PIECE or li - qstar < MIN_FUSION_PIECE:
+                continue
+            score = 3 * li - 6 * nmm - 24   # the distant-join penalty
+            best_other = 3 * li - 6 * int(res["nmismatch"][i])
+            if i in dp_result:
+                best_other = max(best_other, dp_result[i][2])
+            if score > best_other:
+                fusion_result[i] = {
+                    "dA": int(dA[row, pcol]), "dB": int(dB[row, pcol]),
+                    "qstar": qstar, "strand": int(strands[row, pcol]),
+                    "nmm": nmm, "score": score,
+                }
+    _inverted_fusions(index, batch, res, dp_result, fneed_all, L,
+                      fusion_result)
+    return fusion_result
+
+
+def _inverted_fusions(index, batch, res, dp_result, fneed_all, L,
+                      fusion_result):
+    """Cross-strand joins (src/path-fusion.c inversions): one piece
+    forward, the other reverse-complemented. For a (d_fwd, d_rc) pair
+    the breakpoint cost needs only the two orientations' mismatch masks:
+    fwd-first cost[q] = prefF[q] + prefR[L-q], rc-first cost[q] =
+    (prefR[L] - prefR[L-q]) + (prefF[L] - prefF[q]), since read[q:] ==
+    rc(read)[:L-q]. Fills fusion_result in place."""
+    inv_rows = []           # (i, orient, diag): one mask row each
+    inv_need = []
+    for i in fneed_all:
+        if i in fusion_result:
+            continue
+        cands = _cands_by_strand(res, i)
+        if cands[0] and cands[1]:
+            inv_need.append((i, cands[0][:4], cands[1][:4]))
+    if not inv_need:
+        return
+    row_of = {}
+    for i, cf, cr in inv_need:
+        for st, cc in ((0, cf), (1, cr)):
+            for dg in cc:
+                row_of[(i, st, dg)] = len(inv_rows)
+                inv_rows.append((i, st, dg))
+    nb = pad_to_bucket(len(inv_rows))
+    rcodes = np.zeros((nb, L), np.uint8)
+    rnm = np.zeros((nb, L), bool)
+    rdiags = np.zeros(nb, np.uint32)
+    for row, (i, st, dg) in enumerate(inv_rows):
+        li = int(batch["lengths"][i])
+        c = batch["codes"][i]
+        m = batch["nmask"][i]
+        if st:
+            c = np.concatenate([dna.revcomp_codes(c[:li]),
+                                np.zeros(L - li, np.uint8)])
+            m = np.concatenate([m[:li][::-1], np.zeros(L - li, bool)])
+        rcodes[row] = c
+        rnm[row] = m
+        rdiags[row] = dg
+    gwin = verify.extract_codes_window(index.genome_packed,
+                                       _put(index, rdiags), L).cpu().numpy()
+    n = len(inv_rows)
+    masks = (gwin[:n] != rcodes[:n]) | rnm[:n]
+    for i, cf, cr in inv_need:
+        li = int(batch["lengths"][i])
+        best = None
+        for dF in cf:
+            prefF = np.zeros(li + 1, np.int32)
+            np.cumsum(masks[row_of[(i, 0, dF)]][:li], out=prefF[1:])
+            for dR in cr:
+                prefR = np.zeros(li + 1, np.int32)
+                np.cumsum(masks[row_of[(i, 1, dR)]][:li], out=prefR[1:])
+                qs = np.arange(MIN_FUSION_PIECE, li - MIN_FUSION_PIECE + 1)
+                if len(qs) == 0:
+                    continue
+                c1 = prefF[qs] + prefR[li - qs]
+                c2 = ((prefR[li] - prefR[li - qs])
+                      + (prefF[li] - prefF[qs]))
+                j1, j2 = int(np.argmin(c1)), int(np.argmin(c2))
+                for q_, nmm_, ff in ((int(qs[j1]), int(c1[j1]), True),
+                                     (int(qs[j2]), int(c2[j2]), False)):
+                    if best is None or nmm_ < best[1]:
+                        best = (q_, nmm_, ff, dF, dR)
+        if best is None:
+            continue
+        q_, nmm_, ff, dF, dR = best
+        score = 3 * li - 6 * nmm_ - 24      # the distant-join penalty
+        best_other = 3 * li - 6 * int(res["nmismatch"][i])
+        if i in dp_result:
+            best_other = max(best_other, dp_result[i][2])
+        if score > best_other:
+            fusion_result[i] = {
+                "inv": True, "d_fwd": dF, "d_rc": dR, "qstar": q_,
+                "fwd_first": ff, "nmm": nmm_, "score": score,
+            }
+
+
 def _sub_rows(batch, res, config, n):
     """Per-row substitution classification shared by the emitters:
     (li, diag, strand, tqs, tqe, plain, trim_ok)."""
@@ -518,10 +1101,10 @@ def _sub_rows(batch, res, config, n):
     return li, diag, strand, tqs, tqe, plain, trim_ok
 
 
-def _sp_array_rows(res, li, config, amb_result, n):
+def _sp_array_rows(res, li, config, amb_result, tr_records, n):
     """Array-form chain solutions (res["sp_sel"]) of rows below n:
     (rsel, rows, ok), ok where the path passes the coverage and mismatch
-    filters and has no XA alternatives."""
+    filters and has no XA alternatives or transcriptome record."""
     rsel = np.nonzero(res["sp_sel"])[0]
     ii = res["ch_idx"][rsel].astype(np.int64)
     keep = ii < n
@@ -532,9 +1115,9 @@ def _sp_array_rows(res, li, config, amb_result, n):
               1, (al * config.max_mismatch_frac).astype(np.int32)))
           & (al >= np.maximum(
               20, (li[ii] * config.min_coverage).astype(np.int32))))
-    if amb_result:
-        ok &= ~np.fromiter((int(i_) in amb_result for i_ in ii),
-                           dtype=bool, count=len(ii))
+    if amb_result or tr_records:
+        ok &= ~np.fromiter((int(i_) in amb_result or int(i_) in tr_records
+                            for i_ in ii), dtype=bool, count=len(ii))
     return rsel, ii, ok
 
 
@@ -555,12 +1138,13 @@ def _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
     """Native C calls emit the final SAM text of every plain or
     soft-clipped ungapped row, every unmapped row and every chain-DP path
     row (known splicing leaves the path rows to path_record, for XS).
-    overrides: (splice_result, dp_result, amb_result, sec_map).
+    overrides: (tr_records, splice_result, fusion_result, dp_result,
+    amb_result, sec_map).
     Returns (lines, flags, methods), lines[i] None where the Python loop
     emits row i, or None without the native library."""
     if sam_bulk._get_lib() is None:
         return None
-    splice_result, _dp, amb_result, _sec = overrides
+    tr_records, splice_result, _fus, _dp, amb_result, _sec = overrides
     n = len(chunk)
     li, diag, strand, tqs, tqe, plain, trim_ok = _sub_rows(batch, res,
                                                            config, n)
@@ -573,7 +1157,8 @@ def _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
                 unm[i] = False
     sp_rows = None
     if "sp_sel" in res and known is None:
-        rsel, ii, ok = _sp_array_rows(res, li, config, amb_result, n)
+        rsel, ii, ok = _sp_array_rows(res, li, config, amb_result,
+                                      tr_records, n)
         emit[ii] = False            # spliced rows never emit as ungapped
         sp_rows = (rsel[ok], ii[ok])
         unm[sp_rows[1]] = False
@@ -626,8 +1211,8 @@ def _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
             methods[ii[ns > 1]] = "splice"
         for i in sorted(splice_result):
             s = splice_result[i]
-            if i >= n or i in amb_result or not _path_ok(s, li[i], config,
-                                                         S):
+            if (i >= n or i in amb_result or i in tr_records
+                    or not _path_ok(s, li[i], config, S)):
                 continue
             segs = s["segs"]
             rows.append(i)
@@ -662,13 +1247,14 @@ def _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
                       known):
     """Row-order blob emission: every unmapped, ungapped and chain-DP
     path row in one C call (io/sam_bulk.emit_mixed_blob); rows of the
-    overrides (splice_result rows the native emitter does not take,
-    indel rows, rows with XA alternatives) get kind 0 and their lines
-    from the Python loop. Returns (SamBlob, methods) or None without the
+    overrides (transcriptome records, splice_result rows the native
+    emitter does not take, fusion and indel rows, rows with XA
+    alternatives) get kind 0 and their lines from the Python loop. Returns (SamBlob, methods) or None without the
     native library."""
     if sam_bulk._get_lib() is None:
         return None
-    splice_result, dp_result, amb_result, _sec = overrides
+    tr_records, splice_result, fusion_result, dp_result, amb_result, \
+        _sec = overrides
     n = len(chunk)
     li, diag, strand, tqs, tqe, plain, trim_ok = _sub_rows(batch, res,
                                                            config, n)
@@ -680,7 +1266,8 @@ def _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
     segq_m = np.zeros((n, S), np.int32)
     segd_m = np.zeros((n, S), np.uint64)
     if "sp_sel" in res and known is None:
-        rsel, ii, ok = _sp_array_rows(res, li, config, amb_result, n)
+        rsel, ii, ok = _sp_array_rows(res, li, config, amb_result,
+                                      tr_records, n)
         rsel, ii = rsel[ok], ii[ok]
         if len(ii):
             kind[ii] = 3
@@ -694,8 +1281,8 @@ def _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
             continue
         s = splice_result[i]
         kind[i] = 0             # the Python path_record by default
-        if known is not None or i in amb_result \
-                or not _path_ok(s, li[i], config, S):
+        if (known is not None or i in amb_result or i in tr_records
+                or not _path_ok(s, li[i], config, S)):
             continue
         kind[i] = 3
         strand[i] = s["strand"]
@@ -705,7 +1292,7 @@ def _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
         for c_, (q0, d0) in enumerate(s["segs"]):
             segq_m[i, c_] = q0
             segd_m[i, c_] = d0
-    for d in (dp_result, amb_result):
+    for d in (tr_records, fusion_result, dp_result, amb_result):
         for i in d:
             if i < n:
                 kind[i] = 0
@@ -734,25 +1321,35 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                   show_method: bool = False, stats: dict | None = None,
                   max_insertions: int = 6, max_deletions: int = 9,
                   indel_endlength: int = 4, use_localdb: bool = True,
-                  known_indels=None, device_ctx=None,
-                  sink=None) -> list[sam.SamRecord]:
+                  merge_distant_samechr: bool = False, known_indels=None,
+                  device_ctx=None, sink=None) -> list[sam.SamRecord]:
     """Align single-end reads (DNA, or RNA with novelsplicing and/or
-    known, a KnownSplicing) through the fused ladder on the
-    index's device. Returns SAM records in input order, or, with sink (a
-    callable taking bytes), streams the final SAM text to it in input
-    order and returns []."""
-    unported = {"tr": tr is not None,
-                "find_fusions": find_fusions,
-                "known_indels": known_indels is not None,
-                "device_ctx": device_ctx is not None}
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(
-                f"{name} is a later slice of the port")
+    known, a KnownSplicing) on the index's device. Returns SAM records in
+    input order, or, with sink (a callable taking bytes), streams the
+    final SAM text to it in input order and returns [].
+
+    The fused ladder serves every request it can express; fusions
+    (find_fusions) and learned indels (known_indels, a KnownIndels) take
+    the staged path: the cascade, then each refinement stage its own
+    launches (refine_unsolved). tr, a (Transcriptome, DeviceIndex over
+    its transcript db) pair, adds the transcriptome rung, its own
+    cascade a batch, with the XX/XY remap tags on every mapped record.
+    merge_distant_samechr emits a colinear same-chromosome distant join
+    as one spliced line."""
+    if device_ctx is not None:
+        raise NotImplementedError(
+            "device_ctx is a later slice of the port (ROADMAP item 15)")
     out = []
+    remapper = None
+    if tr is not None:
+        remapper = getattr(tr[0], "_remapper", None)
+        if remapper is None:
+            remapper = remap_mod.TranscriptRemapper(tr[0])
+            tr[0]._remapper = remapper
+    use_fused = not find_fusions and known_indels is None
     scoring = pathdp.PathScoring(max_intron=max(max_intron, MIN_INTRON))
-    known_dev = (known_to_device(known, index.device) if known is not None
-                 else None)
+    known_dev = (known_to_device(known, index.device)
+                 if known is not None and use_fused else None)
     splicing_on = novelsplicing or known is not None
     # one (B, L) shape for the whole run; runs smaller than one batch use
     # the small buckets
@@ -760,9 +1357,9 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                               default=1))
     pad_tail = len(records) >= batch_size
     spaces = MODE_SPACES[config.mode]
-    # the native emitters know no base space or alternate genome
-    can_bulk = (not show_method and not config.snp_tolerant
-                and spaces == (None, None))
+    # the native emitters know no base space, alternate genome or remap
+    can_bulk = (remapper is None and not show_method
+                and not config.snp_tolerant and spaces == (None, None))
 
     def _dispatch(start):
         """Encode one batch and enqueue its device work and result
@@ -771,23 +1368,36 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
         B = (batch_size if (pad_tail or len(chunk) == batch_size)
              else pad_to_bucket(len(chunk)))
         batch = make_batch(chunk, B, run_L)
-        # compactions scale with the batch: an RNA batch can be ~50%
-        # spliced
-        r_chain = min(max(8192, B // 2), B)
-        dev = ladder.align_batch_full(
-            index, _to_device(batch, index.device), config, run_L, scoring,
-            splicing_on, novelsplicing and use_localdb, r_chain,
-            min(max(2048, B // 8), r_chain), min(2048, B), known=known_dev)
+        pbatch = _to_device(batch, index.device)
+        if use_fused:
+            # compactions scale with the batch: an RNA batch can be ~50%
+            # spliced
+            r_chain = min(max(8192, B // 2), B)
+            dev = ladder.align_batch_full(
+                index, pbatch, config, run_L, scoring, splicing_on,
+                novelsplicing and use_localdb, r_chain,
+                min(max(2048, B // 8), r_chain), min(2048, B),
+                known=known_dev)
+        else:
+            dev = ladder.narrow_result(align_batch_cascaded_packed(
+                index, pbatch, config, run_L))
         return chunk, batch, ladder.start_fetch(dev)
 
     starts = list(range(0, len(records), batch_size))
+    # the staged path and the transcriptome rung launch work of their own
+    # after the cascade: the next batch's program is enqueued after them,
+    # so it does not run ahead of their small launches
+    early_dispatch = (tr is None and not find_fusions
+                      and (use_fused or not splicing_on))
     pending = _dispatch(starts[0]) if starts else None
     for si, start in enumerate(starts):
         chunk, batch, wait = pending
-        if si + 1 < len(starts):
+        if si + 1 < len(starts) and early_dispatch:
             # the next batch's device work runs under this batch's host
             # work (refine, emission, the next encode)
             pending = _dispatch(starts[si + 1])
+        tr_records = (_tr_rung(db, tr, chunk, batch, config)
+                      if tr is not None else {})
         res = wait()
         if stats is not None:
             stats["stage2_overflow"] = (stats.get("stage2_overflow", 0)
@@ -797,19 +1407,34 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                                 mm_qualsum=res.get("mm_qualsum"),
                                 qual_mean16=res.get("qual_mean16"))
         amb_result = {}
-        dp_result, splice_result = refine_unsolved(
-            db, batch, res, config, novelsplicing, max_intron, run_L,
-            max_insertions, max_deletions, indel_endlength, amb_result,
-            known=known)
+        dp_result, splice_result, fusion_result = refine_unsolved(
+            db, index, batch, res, config, novelsplicing, max_intron, known,
+            find_fusions, tr_records, run_L, max_insertions, max_deletions,
+            indel_endlength, use_localdb, known_indels, batch.get("quals"),
+            amb_result)
+        # secondaries (-n > 1): the fused path's sec_* compaction, or the
+        # staged path's full candidate lists of multimapping rows
         sec_map = {}
         if npaths > 1:
-            for r in np.nonzero(res["sec_sel"])[0].tolist():
-                i2 = int(res["sec_idx"][r])
-                if i2 < len(chunk):
-                    sec_map[i2] = (res["sec_diags"][r],
-                                   res["sec_strands"][r], res["sec_nmm"][r])
+            if "sec_idx" in res:
+                for r in np.nonzero(res["sec_sel"])[0].tolist():
+                    i2 = int(res["sec_idx"][r])
+                    if i2 < len(chunk):
+                        sec_map[i2] = (res["sec_diags"][r],
+                                       res["sec_strands"][r],
+                                       res["sec_nmm"][r])
+            else:
+                nb_v = np.asarray(res["n_best"])[:len(chunk)]
+                for i2 in np.nonzero(nb_v > 1)[0].tolist():
+                    sec_map[i2] = (res["cand_diags"][i2],
+                                   res["cand_strands"][i2],
+                                   res["cand_nmm"][i2])
+        if si + 1 < len(starts) and not early_dispatch:
+            # this batch's own launches are enqueued: now the next batch
+            pending = _dispatch(starts[si + 1])
 
-        overrides = (splice_result, dp_result, amb_result, sec_map)
+        overrides = (tr_records, splice_result, fusion_result, dp_result,
+                     amb_result, sec_map)
         bulk = None
         mix = None
         if sink is not None and can_bulk:
@@ -839,8 +1464,8 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
             rows_iter = rows_py
 
         # every row bulk-emitted: skip the per-row loop
-        if (bulk is not None and not dp_result and not splice_result
-                and not amb_result
+        if (bulk is not None and not tr_records and not splice_result
+                and not fusion_result and not dp_result and not amb_result
                 and all(ln is not None for ln in bulk_lines)):
             unm = bulk_methods == "unmapped"
             mq_l = np.where(unm, 0, mapq[:len(bulk_lines)]).tolist()
@@ -861,6 +1486,9 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
             if not record.flag & 4:
                 record.tags.append(f"NH:i:{max(1, nh)}")
                 record.tags.append("HI:i:1")
+                if remapper is not None:
+                    # transcript remap and velocity tags (XX/XY)
+                    remap_mod.tag_record(remapper, db, record)
             if show_method:
                 record.tags.append(f"YM:Z:{method}")
             if stats is not None:
@@ -880,6 +1508,10 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                     0 if m == "unmapped" else int(mapq[i])))
                 continue
             li = int(batch["lengths"][i])
+            max_equiv = int(li * config.max_mismatch_frac)
+            if i in tr_records:
+                _emit(tr_records[i], "tr")
+                continue
             if i in splice_result:
                 s = splice_result[i]
                 alen = s["q_end"] - s["q_start"]
@@ -891,9 +1523,13 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                         int(mapq[i]), min_intron=MIN_INTRON, known=known),
                         "splice" if len(s["segs"]) > 1 else "sub")
                     continue
+            if i in fusion_result and _emit_fusion(
+                    db, rec, fusion_result[i], li, max_equiv, int(mapq[i]),
+                    merge_distant_samechr, _emit, out):
+                continue
             if i in dp_result:
                 pos0, ops, score = dp_result[i]
-                if (3 * li - score) // 6 <= int(li * config.max_mismatch_frac):
+                if (3 * li - score) // 6 <= max_equiv:
                     _emit(sam.gapped_record(
                         db, rec.accession, rec.sequence, rec.quality,
                         pos0, int(res["strand"][i]), int(mapq[i]), ops),
@@ -952,6 +1588,71 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
                 for r in out[mark0:]:
                     sink(r.lines().encode())
             del out[mark0:]
+    return out
+
+
+def _emit_fusion(db, rec, f, li, max_equiv, mapq, merge_distant_samechr,
+                 emit, out) -> bool:
+    """A fusion row's records (tpumap driver.py:1680-1720): an inverted
+    join's two records, a colinear same-chromosome distant join as one
+    spliced line under merge_distant_samechr (src/gsnap.c:666), else the
+    primary and supplementary records; False where the join's score
+    misses the mismatch limit (the row falls through)."""
+    if (3 * li - f["score"]) // 6 > max_equiv + 4:
+        return False
+    if f.get("inv"):
+        recs = sam.fusion_records_inverted(
+            db, rec.accession, rec.sequence, rec.quality, f["d_fwd"],
+            f["d_rc"], f["qstar"], f["fwd_first"], mapq)
+    elif (merge_distant_samechr and f["dB"] > f["dA"]
+            and db.chrnum(f["dA"]) == db.chrnum(f["dB"] + f["qstar"])):
+        emit(sam.spliced_record(db, rec.accession, rec.sequence,
+                                rec.quality, f["dA"], f["dB"], f["qstar"],
+                                li, f["strand"], mapq, 0), "fusion")
+        return True
+    else:
+        recs = sam.fusion_records(db, rec.accession, rec.sequence,
+                                  rec.quality, f["dA"], f["dB"], f["qstar"],
+                                  f["strand"], mapq)
+    emit(recs[0], "fusion")
+    out.extend(recs[1:])
+    return True
+
+
+def _tr_rung(db, tr, chunk, batch, config):
+    """The transcriptome rung (tpumap driver.py:1807-1844): the chunk's
+    reads through the cascade (K1) on the transcript db's device index,
+    each read solved on a transcript converted to a genome-coordinate
+    multi-exon record from the exon table. Returns {row: SamRecord}."""
+    transcriptome, tr_index = tr
+    dev = tr_index.device
+    res = ladder.fetch_result(ladder.narrow_result(align_batch_cascaded(
+        tr_index, {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev)
+                   for k in ("codes", "nmask", "lengths")}, config)))
+    mapq = mapq_from_scores(res["nmismatch"], res["second_nmismatch"],
+                            res["n_best"], batch["lengths"])
+    trdb = transcriptome.trdb
+    out = {}
+    for i, rec in enumerate(chunk):
+        li = int(batch["lengths"][i])
+        if not res["mapped"][i]:
+            continue
+        if int(res["nmismatch"][i]) > int(li * config.max_mismatch_frac):
+            continue
+        diag = int(res["diag"][i])
+        st = int(res["strand"][i])
+        trnum = trdb.chrnum(diag)
+        tpos = diag - int(trdb.chrom_offsets[trnum])
+        trlen = int(trdb.chrom_offsets[trnum + 1] - trdb.chrom_offsets[trnum])
+        if tpos + li > trlen:
+            continue            # overhangs the transcript end
+        segs, minus = transcriptome.map_to_genome(trnum, tpos, li)
+        genome_strand = st ^ (1 if minus else 0)
+        sense = -1 if minus else 1
+        out[i] = sam.multi_exon_record(
+            db, rec.accession, rec.sequence, rec.quality, segs,
+            genome_strand, int(mapq[i]), sense if len(segs) > 1 else 0,
+            extra_tags=[f"XG:Z:{transcriptome.labels[trnum]}"])
     return out
 
 

@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tpumap_torch.gsnap.knownsplicing import coords_in_set
 from tpumap_torch.ops import dp, pack, pathdp, seed, verify
 from tpumap_torch.ops.mode import MODE_SPACES, map_codes
 from tpumap_torch.ops.u32 import INVALID, MASK32, popcount32, stable_topk, u32
@@ -419,6 +420,84 @@ def indel_traceback(fwd, lengths, band: int):
     return {"score": fwd["score"], "ops": ops,
             "start_off": (k_final - band) + fwd["gstart_off"],
             "run_op": run_op, "run_len": run_len, "nruns": nruns}
+
+
+def refine_indels(index, codes, lengths, diags, band: int, margin: int = 8):
+    """Banded-DP refinement around candidate diagonals (tpumap
+    engine.py:585-600): indel_forward (K2), then indel_traceback (K3).
+    codes in the aligned orientation, diags int64 (uint32 values). Returns
+    score int32[B], ops uint8[B, S] (end-first transcripts) and
+    start_off int32[B] (the alignment's genome start less the diagonal),
+    with the transcripts' runs beside them."""
+    return indel_traceback(indel_forward(index, codes, lengths, diags, band,
+                                         margin), lengths, band)
+
+
+def refine_splices(index, codes, nmask, lengths, diagsA, diagsB,
+                   known=None):
+    """One-intron junctions for candidate diagonal pairs (tpumap
+    engine.py:603-695, Splice_resolve): the prefix on diagonal A, the
+    suffix on B, the boundary q* the one of fewest mismatches, canonical
+    dinucleotides and (with known, a dict of
+    knownsplicing.known_to_device) known sites breaking ties, the first
+    best on a tie as jnp.argmax. codes [B, L] aligned; diagsA, diagsB
+    int64[B, P] (INVALID-padded). Returns per pair qstar int32, nmm
+    int32 (mismatches at q*), bonus float32, sense int32 (+1, -1, 0) and
+    bool valid."""
+    B, L = codes.shape
+    dev = codes.device
+    validp = (diagsA != INVALID) & (diagsB != INVALID)
+    dA = torch.where(validp, diagsA, 0)
+    dB = torch.where(validp, diagsB, 0)
+    gA = verify.extract_codes_window(index.genome_packed, dA, L + 1)
+    gB = verify.extract_codes_window(index.genome_packed, dB, L + 1)
+    q = codes[:, None, :]
+    inlen = (torch.arange(L, device=dev)[None, None, :]
+             < lengths[:, None, None])
+    mmA = ((q != gA[..., :L]) | nmask[:, None, :]) & inlen
+    mmB = ((q != gB[..., :L]) | nmask[:, None, :]) & inlen
+    # at boundary q*: prefix mismatches on A, suffix ones on B
+    prefA = torch.cumsum(mmA, dim=2)
+    prefB = torch.cumsum(mmB, dim=2)
+    costs = (prefA + (mmB.sum(dim=2, keepdim=True) - prefB))[..., :L - 1]
+    costs = costs.to(torch.float32)                 # q* = 1 .. L-1
+    qs = torch.arange(1, L, dtype=torch.int64, device=dev)
+    don1, don2 = gA[..., 1:L], gA[..., 2:L + 1]
+    acc1 = torch.where(qs >= 2, gB[..., torch.clamp(qs - 2, min=0)], 4)
+    acc2 = gB[..., 0:L - 1]
+
+    def canon(a, b, c, d):
+        return (don1 == a) & (don2 == b) & (acc1 == c) & (acc2 == d)
+    s_gtag, s_gcag, s_atac = canon(2, 3, 0, 2), canon(2, 1, 0, 2), \
+        canon(0, 3, 0, 1)
+    a_ctac, a_ctgc, a_gtat = canon(1, 3, 0, 1), canon(1, 3, 2, 1), \
+        canon(2, 3, 0, 3)
+    bonus = torch.where(s_gtag | a_ctac, 2.0,
+                        torch.where(s_gcag | a_ctgc, 1.2,
+                                    torch.where(s_atac | a_gtat, 0.8, 0.0))
+                        ).to(torch.float32)
+    sense = torch.where(s_gtag | s_gcag | s_atac, 1,
+                        torch.where(a_ctac | a_ctgc | a_gtat, -1, 0))
+    if known is not None:
+        # boundary coordinates at q*: the first intron base on A, the
+        # first exon base on B (uint32 arithmetic)
+        left = (dA[..., None] + qs) & MASK32
+        right = (dB[..., None] + qs) & MASK32
+        known_s = (coords_in_set(known["donor"], left)
+                   & coords_in_set(known["acceptor"], right))
+        known_a = (coords_in_set(known["antiacceptor"], left)
+                   & coords_in_set(known["antidonor"], right))
+        bonus = torch.where(known_s | known_a, bonus + 4.0, bonus)
+        sense = torch.where(known_s, 1, torch.where(known_a, -1, sense))
+    in_read = qs < lengths.to(torch.int64)[:, None, None]
+    score = torch.where(in_read, bonus - 3.0 * costs, -torch.inf)
+    jbest = torch.argmax(score, dim=2)              # the first maximum
+
+    def take(arr):
+        return torch.gather(arr, 2, jbest[..., None])[..., 0]
+    nmm = torch.where(validp, _i32(take(costs)), lengths[:, None])
+    return {"qstar": _i32(jbest + 1), "nmm": nmm, "bonus": take(bonus),
+            "sense": _i32(take(sense)), "valid": validp}
 
 
 def mapq_from_scores(nmm: np.ndarray, second: np.ndarray, n_best: np.ndarray,

@@ -51,6 +51,11 @@ class KnownSplicing:
 
     # ------------------------------------------------------------------
 
+    @property
+    def nsites(self) -> int:
+        return (len(self.donor) + len(self.acceptor) + len(self.antidonor)
+                + len(self.antiacceptor))
+
     @classmethod
     def from_splicing_iit(cls, iit, db, intron_level: bool | None = None
                           ) -> "KnownSplicing":
@@ -126,6 +131,13 @@ class KnownSplicing:
 
     # the --splices-read analog (src/gsnap.c:655-658)
 
+    def dump(self, path: str) -> None:
+        np.savez(path if path.endswith(".npz") else path + ".npz",
+                 donor=self.donor, acceptor=self.acceptor,
+                 antidonor=self.antidonor, antiacceptor=self.antiacceptor,
+                 junctions=self.junctions,
+                 anti_junctions=self.anti_junctions)
+
     @classmethod
     def load(cls, path: str) -> "KnownSplicing":
         z = np.load(path if path.endswith(".npz") else path + ".npz")
@@ -136,6 +148,35 @@ class KnownSplicing:
         return cls(donor=z["donor"], acceptor=z["acceptor"],
                    antidonor=z["antidonor"], antiacceptor=z["antiacceptor"],
                    **kw)
+
+    def derived_pairs(self, diag: int, qlen: int, max_intron: int):
+        """Candidate (diagA, diagB) pairs implied by known junctions whose
+        left boundary falls inside a read anchored on diagonal `diag`:
+        the partner diagonal is diag + intron_length, no seeding needed
+        (the knownsplicing partner-lookup, src/path-solve.c known-splice
+        resolution)."""
+        out = set()
+        for arr in (self.junctions, self.anti_junctions):
+            if not len(arr):
+                continue
+            # read anchored on the LEFT exon: junction left boundary D in
+            # (diag, diag+qlen) => partner diagonal diag + intron
+            lo = np.searchsorted(arr[:, 0], diag + 1)
+            hi = np.searchsorted(arr[:, 0], diag + qlen)
+            for j in range(int(lo), int(hi)):
+                intron = int(arr[j, 1]) - int(arr[j, 0])
+                if 0 < intron <= max_intron:
+                    out.add((diag, diag + intron))
+            # read anchored on the RIGHT exon: junction right boundary A in
+            # (diag, diag+qlen) => partner diagonal diag - intron
+            rs = arr[np.argsort(arr[:, 1], kind="stable")]
+            lo = np.searchsorted(rs[:, 1], diag + 1)
+            hi = np.searchsorted(rs[:, 1], diag + qlen)
+            for j in range(int(lo), int(hi)):
+                intron = int(rs[j, 1]) - int(rs[j, 0])
+                if 0 < intron <= max_intron and diag >= intron:
+                    out.add((diag - intron, diag))
+        return sorted(out)
 
 
 SITE_SETS = ("donor", "acceptor", "antidonor", "antiacceptor")

@@ -1,10 +1,13 @@
 """Paired-end alignment of the port: concordance, mate rescue, mate
-repair and pair emission (port of tpumap/gsnap/paired.py, fused branch).
+repair and pair emission (port of tpumap/gsnap/paired.py).
 
 Both mates run through the fused paired program
 (ladder.align_pair_full): the single-end ladder over the interleaved
 batch plus `concordance_device`, a [P, K, K] validity and score
-reduction over the mates' candidate lists in plain torch ops. The host
+reduction over the mates' candidate lists in plain torch ops. With a
+transcriptome (tr) or learned indels (known_indels) they take the
+staged path instead: the cascade, the same reduction over its
+candidates, and the driver's refine_unsolved stages. The host
 half is a JAX-free copy of tpumap's: it applies the chosen concordant
 pair, rescues a mate inside its partner's insert window with
 `rescue_mate` (kernel K1 over [R, pairmax] diagonals), falls back to
@@ -17,8 +20,8 @@ field computed vectorised, the rest through the Python records.
 The alignment modes and SNP tolerance change the cascade only; as in
 tpumap, the rescue verifies in standard space and the pair emitters
 count NM/MD without the mode's space (a cmet conversion counts as a
-mismatch there, unlike single-end). Transcriptome-guided runs, known
-indels and device meshes raise NotImplementedError.
+mismatch there, unlike single-end). Device meshes (device_ctx) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -29,7 +32,10 @@ from tpumap_torch.gsnap import ladder
 from tpumap_torch.gsnap import spliceends as se
 from tpumap_torch.gsnap.driver import (_to_device, make_batch, pad_to_bucket,
                                        refine_unsolved)
-from tpumap_torch.gsnap.engine import AlignConfig, mapq_from_scores
+from tpumap_torch.gsnap import remap as remap_mod
+from tpumap_torch.gsnap.engine import (AlignConfig,
+                                       align_batch_cascaded_packed,
+                                       mapq_from_scores)
 from tpumap_torch.gsnap.knownsplicing import known_to_device
 from tpumap_torch.index.build import GenomeDB
 from tpumap_torch.index.device import DeviceIndex
@@ -109,6 +115,33 @@ def _put(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _staged_concordance(index, batch, res, n, pairmax, orientation,
+                        pairexpect, pairdev):
+    """The concordance reduction over the staged cascade's ranked
+    candidates of each pair's two ends (tpumap paired.py:293-324), on
+    the index's device: (valid, the chosen (diag, strand, nmm) of end
+    1, of end 2), each [n] on the host."""
+    dev = index.device
+    lens = np.asarray(batch["lengths"])
+    ends = []
+    for w in (0, 1):
+        ends += [_put(res["cand_diags"][w:2 * n:2].astype(np.int64), dev),
+                 _put(res["cand_strands"][w:2 * n:2].astype(np.int32), dev),
+                 _put(res["cand_nmm"][w:2 * n:2].astype(np.int32), dev),
+                 _put(lens[w:2 * n:2].astype(np.int32), dev)]
+    ci, cj, cval, _ins = concordance_device(
+        *ends, pairmax, orientation, pairexpect or 1000, pairdev)
+    ci, cj, cval = ci.cpu().numpy(), cj.cpu().numpy(), cval.cpu().numpy()
+
+    def take(key, w, idx):
+        return np.take_along_axis(res[key][w:2 * n:2], idx[:, None].astype(
+            np.int64), axis=1)[:, 0]
+    return cval, tuple(take(k, 0, ci) for k in ("cand_diags", "cand_strands",
+                                                "cand_nmm")), \
+        tuple(take(k, 1, cj) for k in ("cand_diags", "cand_strands",
+                                       "cand_nmm"))
+
+
 def align_paired_records(db: GenomeDB, index: DeviceIndex,
                          pairs: list[tuple[Record, Record]],
                          config: AlignConfig = AlignConfig(),
@@ -127,22 +160,28 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
                          resolve_inner: bool = True, sink=None,
                          stats: dict | None = None
                          ) -> list[tuple[sam.SamRecord, sam.SamRecord]]:
-    """Align read pairs through the fused paired program on the index's
-    device. Returns (mate 1, mate 2) SAM record pairs in input order, or,
-    with sink (a callable taking bytes), streams the SAM text to it and
-    returns []. known: a KnownSplicing (-s). stats, if given,
-    counts the rescue rows, the mates rescued, the repair rows and the
-    mates repaired."""
-    unported = {"tr": tr is not None,
-                "known_indels": known_indels is not None,
-                "device_ctx": device_ctx is not None}
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(
-                f"{name} is a later slice of the port")
+    """Align read pairs on the index's device: through the fused paired
+    program, or with tr (a (Transcriptome, DeviceIndex) pair: XX/XY
+    remap tags on each pair) or known_indels (a KnownIndels) through the
+    staged path (the cascade, the concordance reduction over its
+    candidates, then refine_unsolved's stages). Returns (mate 1, mate 2)
+    SAM record pairs in input order, or, with sink (a callable taking
+    bytes), streams the SAM text to it and returns []. known: a
+    KnownSplicing (-s). stats, if given, counts the rescue rows, the
+    mates rescued, the repair rows and the mates repaired."""
+    if device_ctx is not None:
+        raise NotImplementedError(
+            "device_ctx is a later slice of the port (ROADMAP item 15)")
     dev = index.device
-    known_dev = (known_to_device(known, dev) if known is not None
-                 else None)
+    remapper = None
+    if tr is not None:
+        remapper = getattr(tr[0], "_remapper", None)
+        if remapper is None:
+            remapper = remap_mod.TranscriptRemapper(tr[0])
+            tr[0]._remapper = remapper
+    use_fused = tr is None and known_indels is None
+    known_dev = (known_to_device(known, dev)
+                 if known is not None and use_fused else None)
     sc = pathdp.PathScoring(max_intron=max(max_intron, 9))
     # one (B, L) shape for the whole run
     run_L = pad_to_bucket(max((len(r.sequence)
@@ -155,15 +194,19 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
         B = (2 * batch_size if (pad_tail or len(chunk) == batch_size)
              else pad_to_bucket(2 * len(chunk)))
         batch = make_batch(flat, B, run_L)
-        res = ladder.align_pair_full(
-            index, _to_device(batch, dev), config, run_L, sc,
-            novelsplicing or known is not None, novelsplicing and use_localdb,
-            min(max(8192, B // 2), B), min(max(2048, B // 8), B),
-            min(2048, B), pairmax, orientation, pairexpect or 1000, pairdev,
-            known=known_dev)
+        if use_fused:
+            res = ladder.align_pair_full(
+                index, _to_device(batch, dev), config, run_L, sc,
+                novelsplicing or known is not None,
+                novelsplicing and use_localdb, min(max(8192, B // 2), B),
+                min(max(2048, B // 8), B), min(2048, B), pairmax,
+                orientation, pairexpect or 1000, pairdev, known=known_dev)
+        else:
+            res = ladder.narrow_result(align_batch_cascaded_packed(
+                index, _to_device(batch, dev), config, run_L))
         return chunk, batch, ladder.start_fetch(res)
 
-    bulk_ok = sam_bulk._get_lib() is not None
+    bulk_ok = remapper is None and sam_bulk._get_lib() is not None
     out = []
     starts = list(range(0, len(pairs), batch_size))
     pending = _dispatch(starts[0]) if starts else None
@@ -176,9 +219,11 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
         res = wait()
         out_chunk = _pair_chunk(db, index, chunk, batch, res, config, run_L,
                                 pairmax, novelsplicing, max_intron, known,
-                                pairexpect, pairdev, max_insertions,
-                                max_deletions, indel_endlength,
-                                resolve_inner, bulk_ok, sink, stats)
+                                orientation, pairexpect, pairdev,
+                                max_insertions, max_deletions,
+                                indel_endlength, use_localdb, known_indels,
+                                remapper, resolve_inner, bulk_ok, sink,
+                                stats)
         if sink is None:
             out.extend(out_chunk)
     return out
@@ -374,16 +419,24 @@ def _resolve_amb_with_mate(res, amb_res, splice_result, len2, end_info, B2,
 
 
 def _pair_chunk(db, index, chunk, batch, res, config, L, pairmax,
-                novelsplicing, max_intron, known, pairexpect, pairdev,
-                max_insertions, max_deletions, indel_endlength,
-                resolve_inner, bulk_ok, sink, stats):
+                novelsplicing, max_intron, known, orientation, pairexpect,
+                pairdev, max_insertions, max_deletions, indel_endlength,
+                use_localdb, known_indels, remapper, resolve_inner, bulk_ok,
+                sink, stats):
     """The host half of one batch (paired.py:286-691). Returns the
     chunk's record pairs, or streams them to sink and returns []."""
     n = len(chunk)
-    # the concordant combination the device reduction chose
-    cval = res["pe_valid"][:n]
-    cd1, cs1, cn1 = res["pe_cd1"][:n], res["pe_cs1"][:n], res["pe_cn1"][:n]
-    cd2, cs2, cn2 = res["pe_cd2"][:n], res["pe_cs2"][:n], res["pe_cn2"][:n]
+    # the concordant combination the device reduction chose: in the
+    # fused program, or here over the staged cascade's candidates
+    if "pe_valid" in res:
+        cval = res["pe_valid"][:n]
+        cd1, cs1, cn1 = (res["pe_cd1"][:n], res["pe_cs1"][:n],
+                         res["pe_cn1"][:n])
+        cd2, cs2, cn2 = (res["pe_cd2"][:n], res["pe_cs2"][:n],
+                         res["pe_cn2"][:n])
+    else:
+        cval, (cd1, cs1, cn1), (cd2, cs2, cn2) = _staged_concordance(
+            index, batch, res, n, pairmax, orientation, pairexpect, pairdev)
 
     # mate rescue where exactly one end maps; pairs whose two mapped ends
     # have no concordant combination take the EXHAUSTIVE fallback: each
@@ -434,9 +487,12 @@ def _pair_chunk(db, index, chunk, batch, res, config, L, pairmax,
             stats[key] = stats.get(key, 0) + v
 
     amb_res = {}
-    dp_result, splice_result = refine_unsolved(
-        db, batch, res, config, novelsplicing, max_intron, L, max_insertions,
-        max_deletions, indel_endlength, amb_res, known=known, dict_all=True)
+    dp_result, splice_result, _fus = refine_unsolved(
+        db, index, batch, res, config, novelsplicing, max_intron, known,
+        L=L, max_insertions=max_insertions, max_deletions=max_deletions,
+        indel_endlength=indel_endlength, use_localdb=use_localdb,
+        known_indels=known_indels, quals=batch.get("quals"),
+        amb_out=amb_res, dict_all=True)
     for bad, s_rep in repair_result.items():
         cur = splice_result.get(bad)
         if cur is not None:
@@ -515,6 +571,9 @@ def _pair_chunk(db, index, chunk, batch, res, config, L, pairmax,
             for idx, r_out in ((i1, pair_rec[0]), (i2, pair_rec[1])):
                 if idx in amb_res and not r_out.flag & 4:
                     r_out.tags.append(se.xa_tag(amb_res[idx]))
+        if remapper is not None:
+            # transcript remap and the pair's joint velocity (XX/XY)
+            remap_mod.tag_pair(remapper, db, pair_rec[0], pair_rec[1])
         out_chunk[p] = pair_rec
 
     ip = np.nonzero(plain)[0]

@@ -1,8 +1,9 @@
-"""Ambiguous / alternative splice ends, host half (altsplice.c +
-spliceends.c roles): the constants, AmbEnd and its XA:Z: tag, the
-pooling of the fused ladder's review-scan hits and the mate arbitration
-of tpumap/gsnap/spliceends.py. The review scan itself runs in the
-ladder (tpumap_torch/gsnap/ladder.py, kernel K6b).
+"""Ambiguous / alternative splice ends (altsplice.c + spliceends.c
+roles): the constants, AmbEnd and its XA:Z: tag, the staged path's
+review scan (find_splice_ends: one batched K6b launch), the pooling of
+its hits and of the fused ladder's in-program review scan
+(tpumap_torch/gsnap/ladder.py), and the mate arbitration of
+tpumap/gsnap/spliceends.py.
 
 A read whose splice junction sits within a few bases of the read end
 leaves a distal residue too short to seed. Exactly one legal distal
@@ -16,6 +17,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from tpumap_torch.ops import localscan
 
 MIN_INTRON = 30
 AMB_MAX = 8            # longest residue handled here (>= 6 goes to localscan
@@ -28,6 +32,11 @@ NC_REVIEW_MAX = 14     # longest terminal exon reviewed for NONCANONICAL
 TOP_ALTS = 8
 SCAN_W = 65536         # window cap: the reference's localdb region scale
                        # (per-65,536-bp suffix arrays, src/localdb-write.c)
+# dinucleotide base codes (A=0 C=1 G=2 T=3)
+_DONORS = {(2, 3): 1, (2, 1): 1, (1, 3): -1}     # GT, GC -> +; CT -> -
+_ACC_OF = {1: (0, 2), -1: (0, 1)}                # sense -> AG | AC
+_ACCEPTORS = {(0, 2): 1, (0, 1): -1}             # AG -> +; AC -> -
+_DON_OF = {1: (2, 3), -1: (1, 3)}                # sense -> GT | CT
 
 
 @dataclass
@@ -60,6 +69,89 @@ BOUNDARY_SHIFTS = (0, -1, -2, 1, 2)   # trim boundary rarely equals the
                                       # can match the read by chance);
                                       # spliceends.c probes several
                                       # trimmed positions the same way
+
+
+def find_splice_ends(db, index, aligned_codes, rows, max_intron):
+    """Locate distal placements for short clipped residues.
+
+    rows: list of (i, a, tqs, tqe, li, sides) — batch row, strand-aligned
+    diagonal, kept query interval, read length, and which sides to probe
+    (subset of {"qstart", "qend"}); aligned_codes[i] = uint8 read codes
+    already in aligned orientation.
+
+    Each side probes boundary positions around the trim point (the
+    proximal splice dinucleotide selects which are plausible), and ONE
+    batched device scan covers all (read, side, boundary) tasks.
+
+    Returns (resolved, ambiguous): resolved[i] = list of
+    (side, q_boundary, distal_diag, sense); ambiguous[i] = list of
+    AmbEnd.  A side appears in exactly one of the two (unique placement
+    -> resolved, 2..TOP_ALTS tied placements -> ambiguous).
+    """
+    W = min(SCAN_W, max(1024, max_intron))
+    F = AMB_MAX + 2
+    tasks = []      # (i, side, sense, g, qb, frag, flen, wstart)
+    for (i, a, tqs, tqe, li, sides) in rows:
+        c = aligned_codes[i]
+        if "qend" in sides and 1 <= li - tqe:
+            for s in BOUNDARY_SHIFTS:
+                qb = tqe + s                      # candidate junction qpos
+                v = li - qb
+                if not (1 <= v <= AMB_MAX) or qb < 1:
+                    continue
+                g = a + qb                        # donor boundary coord
+                prox = (tuple(db.get_codes(g, 2))
+                        if g + 2 <= db.genome_length else None)
+                sense = _DONORS.get(prox) if prox else None
+                if sense is None:
+                    continue
+                frag = np.zeros(F, np.uint8)
+                frag[0:2] = _ACC_OF[sense]
+                frag[2:2 + v] = c[qb:li]
+                ws = g + MIN_INTRON - 2
+                tasks.append((i, "qend", sense, g, qb, frag, v + 2, ws))
+        if "qstart" in sides and tqs >= 1:
+            for s in BOUNDARY_SHIFTS:
+                qb = tqs + s                      # first aligned qpos
+                u = qb
+                if not (1 <= u <= AMB_MAX) or qb > li - 1:
+                    continue
+                g = a + qb                        # acceptor boundary coord
+                sense = (_ACCEPTORS.get(tuple(db.get_codes(g - 2, 2)))
+                         if g >= 2 else None)
+                if sense is None:
+                    continue
+                frag = np.zeros(F, np.uint8)
+                frag[0:u] = c[0:u]
+                frag[u:u + 2] = _DON_OF[sense]
+                ws = max(g - W - u, 0)
+                tasks.append((i, "qstart", sense, g, qb, frag, u + 2,
+                              ws))
+    resolved: dict[int, list] = {}
+    ambiguous: dict[int, list] = {}
+    if not tasks:
+        return resolved, ambiguous
+
+    R = 1
+    while R < len(tasks):
+        R *= 2
+    frags = np.zeros((R, F), np.uint8)
+    flens = np.zeros(R, np.int32)
+    wstarts = np.zeros(R, np.uint32)
+    for row, t in enumerate(tasks):
+        frags[row] = t[5]
+        flens[row] = t[6]
+        wstarts[row] = t[7]
+    dev = index.device
+    pos, count = localscan.scan_exact_sites(
+        index.genome_packed,
+        torch.from_numpy(wstarts.astype(np.int64)).to(dev),
+        torch.from_numpy(frags).to(dev), torch.from_numpy(flens).to(dev),
+        W, F, TOP_ALTS)
+    pos = pos.cpu().numpy().astype(np.uint32)
+    count = count.cpu().numpy()
+    meta = [(t[0], t[1], t[2], t[3], t[4]) for t in tasks]
+    return pool_scan_hits(meta, pos, count, max_intron)
 
 
 def pool_scan_hits(tasks, pos, count, max_intron):

@@ -1,11 +1,14 @@
 """IIT (interval index tree) map files: the reader of tpumap/io/iit.py,
-as far as known splicing (-s) reaches it.
+as far as known splicing (-s) reaches it, and the in-memory builder the
+transcriptome takes its genes map from.
 
 Reads the reference's versioned interval-tree-on-disk format
 (src/iitdef.h:40-80): version 1 ("univ", no divisions) and versions 2-6
-("div", one division per chromosome, intervals with a sign). Only
-`IIT.read` and the fields `KnownSplicing.from_splicing_iit` reads are
-here; tpumap's writer, builder and queries are not.
+("div", one division per chromosome, intervals with a sign).
+`parse_map_fasta` and `build_iit` assemble an IIT from iit_store's
+FASTA-format input (divisions in the reference's chromosome order);
+`IIT.interval` reads one back. tpumap's file writer (and its FNode tree
+build) and its range queries are not here.
 """
 from __future__ import annotations
 
@@ -18,6 +21,65 @@ NO_SORT, ALPHA_SORT, NUMERIC_ALPHA_SORT, CHROM_SORT, FILENAME_SORT = range(5)
 
 _INT = struct.Struct("<i")
 _UINT = struct.Struct("<I")
+
+
+# ---------------------------------------------------------------------------
+# chromosome natural ordering (src/chrom.c Chrom_from_string/Chrom_cmp_chrom)
+
+_PURE_NUMERIC, _SEX, _MITO, _NUMERIC_ALPHA, _ALPHA_NUMERIC, _PURE_ALPHA = range(6)
+
+
+def chrom_sort_key(name: str, mitochondrial: str | None = None):
+    """Natural chromosome ordering key (src/chrom.c:94-302)."""
+    s = name
+    mito = mitochondrial is not None and name == mitochondrial
+    if s.startswith("chr") or s.startswith("Chr"):
+        s = s[3:]
+    sex = s in ("X", "Y")
+    if s in ("M", "MT") or (mitochondrial is not None and s == mitochondrial):
+        mito = True
+    ndigits = 0
+    while ndigits < len(s) and s[ndigits].isdigit():
+        ndigits += 1
+    if 0 < ndigits <= 4 and s[0] != "0":
+        num, alpha = int(s[:ndigits]), s[ndigits:]
+        ctype = _MITO if mito else (_PURE_NUMERIC if not alpha else _NUMERIC_ALPHA)
+        return (ctype, num, alpha, name)
+    if mito:
+        return (_MITO, 0, "", name)
+    if sex:
+        return (_SEX, 0, "", name)
+    i = 0
+    while i < len(s) and not ("1" <= s[i] <= "9"):
+        i += 1
+    if i < len(s):
+        num_str = s[i:]
+        j = 0
+        while j < len(num_str) and num_str[j].isdigit():
+            j += 1
+        return (_ALPHA_NUMERIC, 0, s[:i], int(num_str[:j]), name)
+    return (_PURE_ALPHA, 0, "", name)
+
+
+def sort_divs(divs: list[str], divsort: int = CHROM_SORT) -> list[str]:
+    proper = [d for d in divs if d != ""]
+    if divsort == ALPHA_SORT:
+        proper.sort()
+    elif divsort == CHROM_SORT:
+        # ALPHA_NUMERIC keys have 5 fields vs 4; compare via padded tuples
+        proper.sort(key=lambda d: _pad_key(chrom_sort_key(d)))
+    elif divsort == NUMERIC_ALPHA_SORT:
+        proper.sort(key=lambda d: _pad_key(chrom_sort_key(d)))
+    # NO_SORT keeps input order
+    return [""] + proper
+
+
+def _pad_key(k):
+    # chrom_sort_key returns 4- or 5-tuples; normalize for comparison:
+    # (ctype, num, alpha, [num2], name)
+    if len(k) == 4:
+        return (k[0], k[1], k[2], 0, k[3])
+    return k
 
 
 @dataclass
@@ -48,6 +110,25 @@ class IIT:
     restofheaders: list[str] = field(default_factory=list)  # "" if none
     divsort: int = CHROM_SORT
     coords_8p: bool = False
+
+    @property
+    def total_nintervals(self) -> int:
+        return sum(len(d) for d in self.divdata)
+
+    def cum_nintervals(self) -> list[int]:
+        out = [0]
+        for d in self.divdata:
+            out.append(out[-1] + len(d))
+        return out
+
+    def interval(self, index: int):
+        """(div, low, high, sign, typestring) for 1-based global index."""
+        cum = self.cum_nintervals()
+        divno = int(np.searchsorted(np.asarray(cum), index, side="left")) - 1
+        d = self.divdata[divno]
+        r = index - 1 - cum[divno]
+        return (self.divs[divno], int(d.lows[r]), int(d.highs[r]),
+                int(d.signs[r]), self.typestrings[int(d.types[r])])
 
     def typeint(self, typestring: str) -> int:
         try:
@@ -227,3 +308,122 @@ class _Reader:
             out.append(blob[start:end if end >= 0 else None].decode(
                 "utf-8", errors="replace"))
         return out
+
+
+@dataclass
+class _Entry:
+    label: str
+    div: str
+    start: int
+    end: int
+    typestr: str
+    restofheader: str
+    annotation: str
+
+
+def parse_map_fasta(lines) -> list[_Entry]:
+    """Parse iit_store FASTA-format input (src/iit_store.c:285-460):
+    >label [div:]start..end [type] [rest of header]
+    annotation lines...
+    """
+    entries: list[_Entry] = []
+    cur: _Entry | None = None
+    ann: list[str] = []
+    for line in lines:
+        line = line.rstrip("\n")
+        if line.startswith(">"):
+            if cur is not None:
+                cur.annotation = "".join(a + "\n" for a in ann)
+                entries.append(cur)
+            ann = []
+            parts = line[1:].split(None, 2)
+            label = parts[0] if parts else ""
+            div, start, end, typestr, roh = "", 0, 0, "", ""
+            if len(parts) == 1:
+                div = label
+                start, end = 1, 0   # end assigned from annotation length
+            else:
+                coords = parts[1]
+                if ":" in coords:
+                    div, coords = coords.split(":", 1)
+                ok, start, end = _parse_coords(coords)
+                if not ok:
+                    raise ValueError(f"cannot parse coords in line: {line}")
+                if len(parts) == 3:
+                    sub = parts[2].split(None, 1)
+                    typestr = sub[0]
+                    roh = sub[1] if len(sub) > 1 else ""
+            cur = _Entry(label, div, start, end, typestr, roh, "")
+        elif cur is not None:
+            ann.append(line)
+    if cur is not None:
+        cur.annotation = "".join(a + "\n" for a in ann)
+        entries.append(cur)
+    # no-coordinate entries span 1..len(annotation)-1 (src/iit_store.c:610-618)
+    for e in entries:
+        if e.end == 0 and e.start == 1 and e.div == e.label:
+            seqlen = sum(len(l) for l in e.annotation.split("\n"))
+            e.start, e.end = (0, 0) if seqlen == 0 else (1, seqlen - 1)
+    return entries
+
+
+def _parse_coords(coords: str):
+    if ".." in coords:
+        a, _, b = coords.partition("..")
+        try:
+            return True, int(a), int(b)
+        except ValueError:
+            return False, 0, 0
+    try:
+        v = int(coords)
+        return True, v, v
+    except ValueError:
+        return False, 0, 0
+
+
+def build_iit(entries: list[_Entry], divsort: int = CHROM_SORT,
+              version: int = 0) -> IIT:
+    """Assemble an IIT from parsed entries, reproducing iit_store's
+    version auto-selection (src/iit_store.c:1060-1100): no divs => v1."""
+    divs_seen: list[str] = []
+    for e in entries:
+        if e.div not in divs_seen:
+            divs_seen.append(e.div)
+    has_proper_divs = any(d != "" for d in divs_seen)
+    if version == 0:
+        version = 5 if has_proper_divs else 1
+
+    typestrings = [""]
+    for e in entries:
+        if e.typestr and e.typestr not in typestrings:
+            typestrings.append(e.typestr)
+
+    if version == 1:
+        divs = [""]
+        groups = {"": entries}
+    else:
+        if "" not in divs_seen:
+            divs_seen.append("")
+        divs = sort_divs(divs_seen, divsort)
+        groups = {d: [e for e in entries if e.div == d] for d in divs}
+
+    divdata, labels, annotations, rohs = [], [], [], []
+    for d in divs:
+        es = groups.get(d, [])
+        for e in es:
+            labels.append(e.label)
+            annotations.append(e.annotation)
+            rohs.append(e.restofheader)
+        lows = np.asarray([min(e.start, e.end) for e in es], dtype=np.uint64)
+        highs = np.asarray([max(e.start, e.end) for e in es], dtype=np.uint64)
+        signs = np.asarray(
+            [0 if e.start == e.end else (1 if e.start < e.end else -1)
+             for e in es], dtype=np.int32)
+        types = np.asarray(
+            [typestrings.index(e.typestr) if e.typestr else 0 for e in es],
+            dtype=np.int32)
+        divdata.append(IITDiv(lows=lows, highs=highs, signs=signs,
+                              types=types))
+    return IIT(version=version, divs=divs, divdata=divdata,
+               typestrings=typestrings, labels=labels,
+               annotations=annotations, restofheaders=rohs, divsort=divsort)

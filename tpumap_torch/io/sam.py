@@ -187,6 +187,164 @@ def gapped_record(db: GenomeDB, qname: str, seq: str, qual: str | None,
         tags=[f"NM:i:{nm}", f"MD:Z:{md}"])
 
 
+def spliced_record(db: GenomeDB, qname: str, seq: str, qual: str | None,
+                   diagA: int, diagB: int, qstar: int, qlen: int,
+                   strand: int, mapq: int, sense: int) -> SamRecord:
+    """SAM record for a one-intron spliced read: qM nN (L-q)M.
+
+    diagA/diagB are univdiagonals of the left/right exon parts; the intron
+    spans genomic [diagA + qstar, diagB + qstar).
+    """
+    oriented = dna.revcomp(seq) if strand else seq
+    rname, chrpos = db.chrpos(diagA)
+    intron = diagB - diagA
+    left = db.get_seq(diagA, qstar)
+    right = db.get_seq(diagB + qstar, qlen - qstar)
+    md, nm = md_and_nm(oriented, left + right)
+    q = qual or "*"
+    if strand and qual:
+        q = qual[::-1]
+    # XS = transcript strand on the genome: the canonical dinucleotides are
+    # read from the + genome, so sense=+1 (GT..AG) means '+' regardless of
+    # the read's own orientation
+    tags = [f"NM:i:{nm}", f"MD:Z:{md}"]
+    if sense:
+        tags.append(f"XS:A:{'+' if sense == 1 else '-'}")
+    return SamRecord(
+        qname=qname, flag=16 if strand else 0, rname=rname, pos=chrpos + 1,
+        mapq=mapq, cigar=f"{qstar}M{intron}N{qlen - qstar}M",
+        seq=oriented, qual=q, tags=tags)
+
+
+def multi_exon_record(db: GenomeDB, qname: str, seq: str, qual: str | None,
+                      segs: list[tuple[int, int, int]], genome_strand: int,
+                      mapq: int, sense: int,
+                      extra_tags: list[str] | None = None) -> SamRecord:
+    """SAM record for a multi-exon alignment with KNOWN junction structure
+    (the transcriptome-guided path, src/trpath-convert.c + Path_print_sam).
+
+    segs: [(genome_univcoord_leftmost, query_offset, length)] in ascending
+    genome order, query offsets referring to the genome-plus-oriented read;
+    gaps between segments become N (intron) CIGAR ops.
+    """
+    oriented = dna.revcomp(seq) if genome_strand else seq
+    rname, chrpos = db.chrpos(segs[0][0])
+    cigar_parts = []
+    gseq_parts = []
+    prev_end = None
+    for (g, qoff, n) in segs:
+        if prev_end is not None:
+            intron = g - prev_end
+            cigar_parts.append(f"{intron}N")
+        cigar_parts.append(f"{n}M")
+        gseq_parts.append(db.get_seq(g, n))
+        prev_end = g + n
+    md, nm = md_and_nm(oriented, "".join(gseq_parts))
+    q = qual or "*"
+    if genome_strand and qual:
+        q = qual[::-1]
+    tags = [f"NM:i:{nm}", f"MD:Z:{md}"]
+    if sense:
+        tags.append(f"XS:A:{'+' if sense > 0 else '-'}")
+    tags.extend(extra_tags or [])
+    return SamRecord(
+        qname=qname, flag=16 if genome_strand else 0, rname=rname,
+        pos=chrpos + 1, mapq=mapq, cigar="".join(cigar_parts),
+        seq=oriented, qual=q, tags=tags)
+
+
+def fusion_records(db: GenomeDB, qname: str, seq: str, qual: str | None,
+                   diagA: int, diagB: int, qstar: int, strand: int,
+                   mapq: int) -> list[SamRecord]:
+    """Two SAM records for a fusion/translocation split read
+    (src/path-fusion.c capability): the read prefix [0, qstar) aligns at
+    diagA, the suffix [qstar, L) at diagB (arbitrary distance/chromosome,
+    same orientation). The longer piece is primary, the other is
+    SUPPLEMENTARY (0x800), linked with SA:Z tags (the modern SAM
+    convention for the reference's distant/fusion output)."""
+    L = len(seq)
+    oriented = dna.revcomp(seq) if strand else seq
+    q = qual or "*"
+    if strand and qual:
+        q = qual[::-1]
+    rnameA, posA = db.chrpos(diagA)
+    rnameB, posB = db.chrpos(diagB + qstar)
+    strand_ch = "-" if strand else "+"
+
+    mdA, nmA = md_and_nm(oriented[:qstar], db.get_seq(diagA, qstar))
+    mdB, nmB = md_and_nm(oriented[qstar:], db.get_seq(diagB + qstar,
+                                                      L - qstar))
+    cigA = f"{qstar}M{L - qstar}S"
+    cigB = f"{qstar}S{L - qstar}M"
+    saA = f"SA:Z:{rnameB},{posB + 1},{strand_ch},{cigB},{mapq},{nmB};"
+    saB = f"SA:Z:{rnameA},{posA + 1},{strand_ch},{cigA},{mapq},{nmA};"
+    flag = 16 if strand else 0
+    a_primary = qstar >= L - qstar          # longer piece is primary
+    recA = SamRecord(qname=qname, flag=flag | (0 if a_primary else 0x800),
+                     rname=rnameA, pos=posA + 1,
+                     mapq=mapq, cigar=cigA, seq=oriented, qual=q,
+                     tags=[f"NM:i:{nmA}", f"MD:Z:{mdA}", saA])
+    recB = SamRecord(qname=qname, flag=flag | (0x800 if a_primary else 0),
+                     rname=rnameB,
+                     pos=posB + 1, mapq=mapq, cigar=cigB, seq=oriented,
+                     qual=q, tags=[f"NM:i:{nmB}", f"MD:Z:{mdB}", saB])
+    return [recA, recB] if a_primary else [recB, recA]
+
+
+def fusion_records_inverted(db: GenomeDB, qname: str, seq: str,
+                            qual: str | None, d_fwd: int, d_rc: int,
+                            qstar: int, fwd_first: bool,
+                            mapq: int) -> list[SamRecord]:
+    """Two SAM records for an INVERTED (cross-strand) fusion split read
+    (src/path-fusion.c inversion joins): one piece aligns forward, the
+    other as the reverse complement.
+
+    fwd_first=True: read[0, qstar) forward at univdiagonal d_fwd (read
+    coords) and read[qstar, L) inverted — i.e. rc(read)[0, L-qstar) at
+    univdiagonal d_rc (rc-read coords).
+    fwd_first=False: read[0, qstar) inverted — rc(read)[L-qstar, L) at
+    d_rc — and read[qstar, L) forward at d_fwd."""
+    L = len(seq)
+    rcseq = dna.revcomp(seq)
+    q = qual or "*"
+    rcq = qual[::-1] if qual else "*"
+    if fwd_first:
+        # fwd piece: read[0:qstar) at d_fwd
+        posF_u, lenF, cigF = d_fwd, qstar, f"{qstar}M{L - qstar}S"
+        segF = seq[:qstar]
+        gF = d_fwd
+        # rc piece: rc(read)[0:L-qstar) at d_rc
+        posR_u, lenR, cigR = d_rc, L - qstar, f"{L - qstar}M{qstar}S"
+        segR = rcseq[:L - qstar]
+        gR = d_rc
+    else:
+        # rc piece: rc(read)[L-qstar:L) at d_rc + (L - qstar)
+        posR_u, lenR, cigR = (d_rc + (L - qstar), qstar,
+                              f"{L - qstar}S{qstar}M")
+        segR = rcseq[L - qstar:]
+        gR = d_rc + (L - qstar)
+        # fwd piece: read[qstar:L) at d_fwd + qstar
+        posF_u, lenF, cigF = d_fwd + qstar, L - qstar, f"{qstar}S{L - qstar}M"
+        segF = seq[qstar:]
+        gF = d_fwd + qstar
+    rnameF, posF = db.chrpos(posF_u)
+    rnameR, posR = db.chrpos(posR_u)
+    mdF, nmF = md_and_nm(segF, db.get_seq(gF, lenF))
+    mdR, nmR = md_and_nm(segR, db.get_seq(gR, lenR))
+    saF = f"SA:Z:{rnameR},{posR + 1},-,{cigR},{mapq},{nmR};"
+    saR = f"SA:Z:{rnameF},{posF + 1},+,{cigF},{mapq},{nmF};"
+    f_primary = lenF >= lenR                # longer piece is primary
+    recF = SamRecord(qname=qname, flag=0 | (0 if f_primary else 0x800),
+                     rname=rnameF, pos=posF + 1, mapq=mapq, cigar=cigF,
+                     seq=seq, qual=q,
+                     tags=[f"NM:i:{nmF}", f"MD:Z:{mdF}", saF])
+    recR = SamRecord(qname=qname, flag=16 | (0x800 if f_primary else 0),
+                     rname=rnameR, pos=posR + 1, mapq=mapq, cigar=cigR,
+                     seq=rcseq, qual=rcq,
+                     tags=[f"NM:i:{nmR}", f"MD:Z:{mdR}", saR])
+    return [recF, recR] if f_primary else [recR, recF]
+
+
 def unmapped_record(qname: str, seq: str, qual: str | None) -> SamRecord:
     return SamRecord(qname=qname, flag=4, seq=seq, qual=qual or "*")
 

@@ -49,7 +49,8 @@ _ENTRY = {
     "scan_exact_sites": ("tt_scan_exact_sites", _SCAN_ARGS),
     "scan_fragment_runs": ("tt_scan_fragment_runs", _SCAN_ARGS),
     "chain_segments": ("tt_chain_segments",
-                       [_P] * 5 + [_I] * 4 + [_F, _P, _I] + [_P] * 4),
+                       [_P] * 5 + [_I] * 4 + [_F, _P, _I, _I, _P, _L]
+                       + [_P] * 4),
     "region_anchors": ("tt_region_anchors",
                        [_P] * 4 + [_I] * 9 + [_P] * 8),
 }

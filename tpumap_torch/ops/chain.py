@@ -37,10 +37,24 @@ KERNEL_MAX_K = 12        # K7b serves the direct-table branch
 # scratch, at most this many bytes of them
 ANCHOR_TABLE_SCRATCH = 1 << 30
 ANCHOR_CHUNK = (1024, 16384)  # K7b's chunks of window positions
-# K7a looks up the cost of every gap below max_intron in a table it
-# fills once a device (2 MB at the default 500,000), up to this size
+# the most anchor lanes (N x Q x max_occ) a call may ask for: 16 GiB of
+# diagonals and 4 GiB of flags, a quarter of an 80 GB card
+ANCHOR_MAX_LANES = 1 << 32
+# K7a looks up the cost of every gap below min(max_intron, this) in a
+# table it fills once a device (2 MB at the default 500,000); it computes
+# the cost of a larger gap in the step
 GAP_TABLE_MAX = 1 << 26
 _gap_tables = {}
+
+
+def check_anchor_lanes(N: int, Q: int, max_occ: int) -> None:
+    """Raise where the [N, Q, max_occ] anchors cannot be held (both
+    region_anchors paths, so the CPU and the card refuse alike)."""
+    if not 1 <= max_occ < 2 ** 31 or N * Q * max_occ > ANCHOR_MAX_LANES:
+        raise ValueError(
+            f"region_anchors: [N, Q, max_occ] = [{N}, {Q}, {max_occ}] "
+            f"anchors exceed {ANCHOR_MAX_LANES} lanes or max_occ is "
+            f"outside [1, 2^31)")
 
 
 def rolled_oligos(codes: torch.Tensor, valid: torch.Tensor, k: int):
@@ -121,6 +135,7 @@ def region_anchors_plain(r_codes, r_valid, q_oligos, q_valid, k: int,
                          max_occ: int, keep_overabundant: bool = False):
     """The window's index and the query's anchors in it, tpumap's three
     functions in turn: (diag, q, ok) as anchors_from_query."""
+    check_anchor_lanes(r_codes.shape[0], q_oligos.shape[-1], max_occ)
     so, sp = region_index(r_codes, r_valid, k)
     return anchors_from_query(so, sp, q_oligos, q_valid, max_occ,
                               keep_overabundant, k)
@@ -146,9 +161,10 @@ def region_anchors(r_codes, r_valid, q_oligos, q_valid, k: int,
     bool[N, Q]. K7b is four kernels a call (count, scan, place, fill;
     csrc/gmapchain.cu) over chunks of C window positions, with their
     scratch from here, in one allocation: each chunk's count a slot
-    pair (two 16-bit counts a word), its hits (slot, position), their
-    number, each query position's slot and each slot's total, and with
-    the 32-bit slot table each persistent block's table."""
+    pair (two 16-bit counts a word; a 32-bit word a slot for max_occ >
+    254), its hits (slot, position), their number, each query position's
+    slot and each slot's total, and with the 32-bit slot table each
+    persistent block's table."""
     dev = r_codes.device
     if dev.type == "cpu" or k > KERNEL_MAX_K:
         return region_anchors_plain(r_codes, r_valid, q_oligos, q_valid, k,
@@ -160,9 +176,9 @@ def region_anchors(r_codes, r_valid, q_oligos, q_valid, k: int,
                        (r_valid, torch.bool, (N, R)),
                        (qo, torch.int32, (N, Q)),
                        (q_valid, torch.bool, (N, Q)))
-    if not 1 <= max_occ <= 254 or k < 1:
-        raise ValueError(f"region_anchors: needs 1 <= max_occ <= 254 and "
-                         f"k >= 1 (max_occ = {max_occ}, k = {k})")
+    check_anchor_lanes(N, Q, max_occ)
+    if k < 1:
+        raise ValueError(f"region_anchors: needs k >= 1 (k = {k})")
     diag = torch.empty((N, Q, max_occ), dtype=torch.int32, device=dev)
     ok = torch.empty((N, Q, max_occ), dtype=torch.bool, device=dev)
     q = torch.arange(Q, dtype=torch.int32, device=dev)[:, None].expand(
@@ -178,7 +194,8 @@ def region_anchors(r_codes, r_valid, q_oligos, q_valid, k: int,
     if gt:
         G = max(1, min(G, ANCHOR_TABLE_SCRATCH // (4 * T)))
     # the scratch in one allocation, the int2 hits first (aligned)
-    sizes = (N * max(R, 1) * 2, N * nch * ((Q + 1) // 2), N * nch, N * Q,
+    Qw = Q if max_occ > 254 else (Q + 1) // 2   # count words a chunk
+    sizes = (N * max(R, 1) * 2, N * nch * Qw, N * nch, N * Q,
              N * Q, G * T if gt else 1)
     hits, cnt, nhit, rep, tot, table = torch.empty(
         sum(sizes), dtype=torch.int32, device=dev).split(sizes)
@@ -316,13 +333,27 @@ def chain_compact_plain(segs: dict, m: int, max_intron: int = 500_000,
     return compact_chain(segs, order, in_chain, m)
 
 
+def chain_wide_bytes(S: int) -> int:
+    """Scratch bytes a problem of K7a's wide kernel (S > 1,024), as
+    csrc/gmapchain.cu: chain_wide_bytes computes them: sort keys for
+    S rounded up to a power of two, the sorted segments (two int4 each),
+    scores, links and member bits, rounded up to 16."""
+    L = 32
+    while L < S:
+        L *= 2
+    b = 8 * L + 32 * S + 8 * S + 4 * (-(-S // 32))
+    return -(-b // 16) * 16
+
+
 def chain_compact(segs: dict, m: int, max_intron: int = 500_000,
                   max_qoverlap_frac: float = 0.5):
     """chain_compact_plain for CPU tensors; kernel K7a for CUDA: one
     warp a problem, the DP's S steps each a one-warp first-maximum
-    reduction, the backtrack and the compaction in the same warp. Its
-    table of gap costs (gap_cost of 0 .. max_intron - 1) is filled by
-    the first call on a device for that max_intron and kept."""
+    reduction, the backtrack and the compaction in the same warp (past
+    1,024 segments its arrays in a global scratch). Its table of gap
+    costs (gap_cost of 0 .. min(max_intron, GAP_TABLE_MAX) - 1) is
+    filled by the first call on a device for that size and kept; larger
+    gaps are costed in the kernel."""
     valid = segs["valid"]
     dev = valid.device
     if dev.type == "cpu":
@@ -332,23 +363,26 @@ def chain_compact(segs: dict, m: int, max_intron: int = 500_000,
                        *((segs[f], torch.int32, (N, S))
                          for f in ("diag", "qstart", "qend", "weight")),
                        (valid, torch.bool, (N, S)))
-    if not 1 <= S <= 1024 or m < 1 or max_intron > GAP_TABLE_MAX:
-        raise ValueError(f"chain_compact: needs 1 <= S <= 1024 segments, "
-                         f"m >= 1 and max_intron <= {GAP_TABLE_MAX} (S = "
-                         f"{S}, m = {m}, max_intron = {max_intron})")
+    if S < 1 or m < 1 or not -2 ** 31 <= max_intron < 2 ** 31:
+        raise ValueError(f"chain_compact: needs S >= 1 segments, m >= 1 "
+                         f"and an int32 max_intron (S = {S}, m = {m}, "
+                         f"max_intron = {max_intron})")
     M = min(S, m)
     out = [torch.empty((N, M), dtype=torch.int32, device=dev)
            for _ in range(3)]
     ok = torch.empty((N, M), dtype=torch.bool, device=dev)
     if N:
-        TG = max(0, max_intron)
+        TG = min(max(0, max_intron), GAP_TABLE_MAX)
         tab = _gap_tables.get((dev, TG))
         fill = tab is None
         if fill:
             tab = torch.empty(max(TG, 1), dtype=torch.float32, device=dev)
+        stride = chain_wide_bytes(S) if S > 1024 else 0
+        scratch = (torch.empty(N * stride, dtype=torch.uint8, device=dev)
+                   if stride else tab)
         kernels.launch("chain_segments", dev, segs["diag"], segs["qstart"],
                        segs["qend"], segs["weight"], valid, N, S, M,
-                       max_intron, float(max_qoverlap_frac), tab, int(fill),
-                       *out, ok)
+                       max_intron, float(max_qoverlap_frac), tab, TG,
+                       int(fill), scratch, stride, *out, ok)
         _gap_tables[(dev, TG)] = tab
     return (*out, ok)
