@@ -6,7 +6,8 @@ emitter — single-end DNA at the repo's headline DNA size, single-end RNA
 with novel splicing and with known splicing (-s) at the bench's RNA
 size, paired-end DNA at the bench's PE size, paired RNA through the
 mate repair, and bisulfite (cmet) and SNP-tolerant DNA at the DNA size
-— GMAP's bulk path over 2,048 cDNAs, and GSNAP's staged path (two-pass,
+— GMAP's bulk path over 2,048 cDNAs and its default path (-n 5) and
+chimeras as gmap's main runs them, and GSNAP's staged path (two-pass,
 fusions, the transcriptome rung single and paired), and fails (exit code
 != 0) if any phase fails:
 
@@ -84,8 +85,10 @@ fusions, the transcriptome rung single and paired), and fails (exit code
    novel splicing and 512 PE pairs as cmet (both mates C->T), and the
    four staged subsets of 13 through the port on the CPU (plain
    versions) and on the GPU with the same batching: byte-identical SAM;
-   and the first 256 GMAP cDNAs of 12:
-   byte-identical GFF3 (-f 3 and -f 2);
+   the first 256 GMAP cDNAs of 12: byte-identical GFF3 (-f 3 and -f 2);
+   and gmap_cli.main on them (-f 3, -A, -S, -f 9, -f samse) and on the
+   first 64 chimeras of 14 (-x 30 -f 1), --device cpu and the card:
+   byte-identical output;
 12. GMAP end to end on the k=14 index: 2,048 cDNAs made as
    tools/bench_gmap.make_queries makes them (gmap_bench.py, seed 7, 2-5
    exons of 100-399 bp, introns of 200-4,999 bp), one warm-up call on
@@ -113,6 +116,22 @@ fusions, the transcriptome rung single and paired), and fails (exit code
    one staged batch's host layers and device time; floors TWOPASS_,
    FUSIONS_ and TR_FLOORS where tpumap's own grades are below the RNA
    cells'; CPU == GPU SAM on 512 reads of each (256 pairs).
+14. GMAP as users run it (after 12): align_query_paths(npaths=5), one
+   query at a time as gmap's main runs it by default, over the 2,048
+   cDNAs of 12 (N_PATHS) after a warm-up on 64, launch counters reset
+   first: queries/s, the found fraction and the exon structure of each
+   query's first path (floors PATHS_FOUND_FLOOR and PATHS_FLOOR), the
+   queries by their number of paths, and K7a's and K7b's launches a
+   query (both must have launched); then align_query_chimera
+   (chimera_margin=30) over gmap_bench's 256 chimeras (the leading exons
+   of one cDNA of 12 joined to the trailing exons of another more than
+   1 Mbp away): the share reported as two pieces at their loci meeting
+   within 10 bp of the join (floor CHIMERA_FLOOR). K7b's and K7a's rows
+   at the path's largest call and at its commonest shape at one problem
+   (N = 1), each with its calls a query; one pass's host layers over
+   512 cDNAs (find_regions, the chain stage's enqueue and wait,
+   refine_chain, main's emission) and the device time and idle share of
+   256 cDNAs.
 
 Phase 3 also holds K1 against its plain version on the mode index: in
 each base space at the mode rung's [32,768, 8] x 8, ref-OR-alt at the
@@ -125,7 +144,7 @@ kernel's functions; K7b's library call, torch.sort, is timed the same
 way beside its CUDA-event time), K7a's gap-cost table fill, and one
 batch of phases 4-7, 9 and 10 (its device time and the parts of K5, K3,
 each K6a instance and K6b against the timed run's wall time per batch)
-and the GMAP call (with the parts of K7a and K7b),
+and the GMAP call and 256 cDNAs of 14 (with the parts of K7a and K7b),
 and K3's walk floor (its longest walk times the chain's step); then the
 fragment lengths that reach K6a and K6b in one batch of RNA, RNA -s and
 the repair (with K6b's active share and counts). After the runs: each
@@ -135,6 +154,7 @@ line before the last is the kernel table as JSON; the last line is {"ok": true,
 either. Bench data and the index go under .bench_data/ in the checkout.
 Usage: python3 chip_smoke.py
 """
+import collections
 import contextlib
 import ctypes
 import io
@@ -196,6 +216,18 @@ GMAP_WARM = 256         # cDNAs of the GMAP warm-up call and of the CPU run
 # same 2,048 cDNAs, 0.923828125 (gmap_bench.py, JAX on the CPU of the
 # H100 machine), less 0.01
 GMAP_FLOOR = 0.913828125
+# phase 14: cDNAs of the default path's timed run, of its warm-up, and
+# chimeras of the CPU == card check
+N_PATHS = 2048
+GMAP_PATHS_WARM = 64
+N_CHIM_CPU = 64
+# its floors: tpumap's own grades on the same cDNAs and chimeras
+# (gmap_bench.py --paths --chimeras, JAX on the CPU of the H100
+# machine) less 0.01 where they lie below 0.99: found 1.0, the first
+# path's exon structure 0.92431640625, chimeras 0.9765625
+PATHS_FOUND_FLOOR = 0.99
+PATHS_FLOOR = 0.91431640625
+CHIMERA_FLOOR = 0.9665625
 # K7b's four kernels, launched in turn by each call
 K7B_FUNCS = ("region_anchors_count_kernel", "region_anchors_scan_kernel",
              "region_anchors_place_kernel", "region_anchors_fill_kernel")
@@ -1426,7 +1458,7 @@ def gmap_phase(db, index, smi, jobs):
     missing = [k for k in GMAP_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"GMAP: kernels never launched: {missing}")
-    return launches, calls, queries, enc
+    return launches, calls, queries, truth, enc
 
 
 def gmap_kernel_rows(db, index, calls, reduce_ns):
@@ -1466,57 +1498,73 @@ def gmap_kernel_rows(db, index, calls, reduce_ns):
                                    128, True)))
     rows, seen = [], set()
     for label, args in picks:
-        if id(args) in seen:
-            continue
-        seen.add(id(args))
-        r_codes, r_valid, qolig, qvalid, k, max_occ, keep = args
-        N, R = r_codes.shape
-        Q = qolig.shape[1]
-        # the function needs ~5 integer operations a window position (the
-        # rolling oligo, its valid flag, a count, a scatter) and 4 an
-        # anchor lane (the lookup and the diag); no table scan
-        row = measure(
-            "region_anchors", f"{label}: N={N}, Rp={R}, Q={Q}, "
-            f"max_occ={max_occ}" + (", keep" if keep else ""),
-            lambda a=args: chain.region_anchors(*a)[0::2],
-            lambda a=args: chain.region_anchors_plain(*a)[0::2], 10, 1,
-            tensor_bytes((r_codes, r_valid, qvalid)) + 4 * qolig.numel(),
-            N * (5 * R + 4 * Q * max_occ))
-        olig = chain.region_oligos(r_codes, r_valid, k)
-        row["library_fn"] = lambda o=olig: torch.sort(o, dim=1, stable=True)
-        row["library_ms"] = cuda_ms(row["library_fn"], 10)
-        rows.append(row)
+        if id(args) not in seen:
+            seen.add(id(args))
+            rows.append(k7b_row(label, args))
     picks = [("most problems", max(cc, key=lambda a: a[0]["valid"].shape[0])),
              ("most segments", max(cc, key=lambda a: a[0]["valid"].shape[1])),
              ("80 exons", max((a for n, a in long_calls
                                if n == "chain_segments"),
                               key=lambda a: a[0]["valid"].shape[1]))]
-    nsm = torch.cuda.get_device_properties(0).multi_processor_count
     seen = set()
     for label, args in picks:
-        if id(args) in seen:
-            continue
-        seen.add(id(args))
-        segs = args[0]
-        N, S = segs["valid"].shape
-        row = measure("chain_segments", f"{label}: N={N}, S={S}, "
-                      f"M={min(S, args[1])}",
-                      lambda a=args: chain.chain_compact(*a),
-                      lambda a=args: chain.chain_compact_plain(*a), 20, 1,
-                      tensor_bytes(segs), 0)
-        # the floor: S dependent first-maximum steps a problem at the
-        # least width the probe measures (one warp, shuffles only), in
-        # waves of as many problems as the card holds warps (64 an SM)
-        floor = -(-N // (nsm * 64)) * S * reduce_ns[min(reduce_ns)] / 1e6
-        row["reduce_floor_ms"] = floor
-        if floor > row["bound_ms"]:
-            row["bound_ms"], row["bound_by"] = floor, "operations"
-        rows.append(row)
+        if id(args) not in seen:
+            seen.add(id(args))
+            rows.append(k7a_row(label, args, reduce_ns))
+    return check_rows(rows)
+
+
+def check_rows(rows):
     for r in rows:
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{r['name']} disagrees with its plain "
                                  f"version at {r['shape']}")
     return rows
+
+
+def k7b_row(label, args):
+    """K7b's row on a recorded call's arguments, with the stable
+    torch.sort of the windows' (oligo, position) pairs as its library
+    call."""
+    from tpumap_torch.ops import chain
+    r_codes, r_valid, qolig, qvalid, k, max_occ, keep = args
+    N, R = r_codes.shape
+    Q = qolig.shape[1]
+    # the function needs ~5 integer operations a window position (the
+    # rolling oligo, its valid flag, a count, a scatter) and 4 an anchor
+    # lane (the lookup and the diag); no table scan
+    row = measure(
+        "region_anchors", f"{label}: N={N}, Rp={R}, Q={Q}, "
+        f"max_occ={max_occ}" + (", keep" if keep else ""),
+        lambda a=args: chain.region_anchors(*a)[0::2],
+        lambda a=args: chain.region_anchors_plain(*a)[0::2], 10, 1,
+        tensor_bytes((r_codes, r_valid, qvalid)) + 4 * qolig.numel(),
+        N * (5 * R + 4 * Q * max_occ))
+    olig = chain.region_oligos(r_codes, r_valid, k)
+    row["library_fn"] = lambda o=olig: torch.sort(o, dim=1, stable=True)
+    row["library_ms"] = cuda_ms(row["library_fn"], 10)
+    return row
+
+
+def k7a_row(label, args, reduce_ns):
+    """K7a's row on a recorded call's arguments; its bound is at least
+    the floor of S dependent first-maximum steps a problem at the least
+    width the probe measures (one warp, shuffles only), in waves of as
+    many problems as the card holds warps (64 an SM)."""
+    from tpumap_torch.ops import chain
+    segs = args[0]
+    N, S = segs["valid"].shape
+    row = measure("chain_segments", f"{label}: N={N}, S={S}, "
+                  f"M={min(S, args[1])}",
+                  lambda a=args: chain.chain_compact(*a),
+                  lambda a=args: chain.chain_compact_plain(*a), 20, 1,
+                  tensor_bytes(segs), 0)
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    floor = -(-N // (nsm * 64)) * S * reduce_ns[min(reduce_ns)] / 1e6
+    row["reduce_floor_ms"] = floor
+    if floor > row["bound_ms"]:
+        row["bound_ms"], row["bound_by"] = floor, "operations"
+    return row
 
 
 def gap_table_fill(args, smi):
@@ -1541,10 +1589,12 @@ def gmap_layers(db, index, queries, enc, smi):
     in its copy to the host), the chain stage's enqueue (window groups
     dispatched), the wait for the chain results with the windows'
     host codes (align_cdna_windows_finish less refine_chain),
-    refine_chain, and then the GFF3 emission (-f 3) of the hits."""
+    refine_chain, and then main -n 1 -f 3 on these cDNAs given the
+    call's hits: reading the FASTA and the GFF3 emission."""
+    from unittest import mock
+
     from tpumap_torch.cli import gmap_cli
     from tpumap_torch.gmap import engine
-    from tpumap_torch.io.fasta import Record
     spent = {"stage 1": 0.0, "chain enqueue": 0.0, "finish": 0.0,
              "refine_chain": 0.0}
 
@@ -1574,11 +1624,14 @@ def gmap_layers(db, index, queries, enc, smi):
     finally:
         for (m, n), fn in zip(saved, old):
             setattr(m, n, fn)
-    recs = [Record(f"q{i}", "", s) for i, s in enumerate(queries)]
-    t0 = time.perf_counter()
-    gmap_cli.write_hits(db, "gff3_match_cdna", io.StringIO(), "bench", recs,
-                        enc, hits)
-    emit = time.perf_counter() - t0
+    qfa = write_fasta("gmap_bulk_all.fa", "q", queries[:len(enc)])
+    with db_patched(db, index), mock.patch.object(
+            gmap_cli, "align_queries_bulk", lambda *a, **kw: hits):
+        t0 = time.perf_counter()
+        gmap_main_text(["-n", "1", "--input-buffer-size", str(len(enc)),
+                        "-D", "db", "-f", "3", str(qfa), "--device",
+                        index.device.type])
+        emit = time.perf_counter() - t0
     wait = spent["finish"] - spent["refine_chain"]
     other = total - spent["stage 1"] - spent["chain enqueue"] - spent["finish"]
     log(f"GMAP host layers of one {len(enc)}-cDNA call ({total * 1e3:.1f} "
@@ -1586,23 +1639,277 @@ def gmap_layers(db, index, queries, enc, smi):
         f"{spent['chain enqueue'] * 1e3:.1f}, wait for the chains and the "
         f"windows' host codes {wait * 1e3:.1f}, refine_chain "
         f"{spent['refine_chain'] * 1e3:.1f}, the rest (rounds, retries) "
-        f"{other * 1e3:.1f}; GFF3 emission of the hits {emit * 1e3:.1f} ms "
-        f"[{smi}]")
+        f"{other * 1e3:.1f}; main -n 1 -f 3 reading and GFF3 emission of "
+        f"the hits {emit * 1e3:.1f} ms [{smi}]")
 
 
-def gmap_gff3(db, index, queries, enc):
-    """GFF3 (-f 3 and -f 2 bodies) of the first GMAP_WARM cDNAs, one
-    align_queries_bulk call as gmap_cli.main makes for a batch."""
-    from tpumap_torch.cli import gmap_cli
-    from tpumap_torch.io.fasta import Record
-    recs = [Record(f"q{i}", "", s) for i, s in enumerate(queries[:GMAP_WARM])]
-    enc = enc[:GMAP_WARM]
-    hits = gmap_cli.align_queries_bulk(db, index, enc)
+def gmap_gff3(db, index, queries):
+    """GFF3 (-f 3 and -f 2) of the first GMAP_WARM cDNAs through main's
+    bulk path (-n 1: one align_queries_bulk call for the batch), on the
+    device of index, with the echoed --device taken out."""
+    qfa = write_fasta("gmap_bulk_q.fa", "q", queries[:GMAP_WARM])
+    dev = index.device.type
     out = []
-    for fmt in ("gff3_match_cdna", "gff3_gene"):
-        buf = io.StringIO()
-        gmap_cli.write_hits(db, fmt, buf, "bench", recs, enc, hits)
-        out.append(buf.getvalue())
+    with db_patched(db, index):
+        for fmt in ("3", "2"):
+            out.append(gmap_main_text(
+                ["-n", "1", "-D", "db", "-f", fmt, str(qfa), "--device",
+                 dev]).replace(f" --device {dev}", ""))
+    return out
+
+
+def gmap_main_text(argv):
+    """gmap_cli.main(argv)'s stdout. main prints a failure it expects as
+    one line on stderr and returns 2 (clean_errors): that raises here."""
+    from tpumap_torch.cli import gmap_cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = gmap_cli.main(argv)
+    if rc not in (None, 0):
+        raise AssertionError(f"gmap main {' '.join(argv)} returned {rc}")
+    return buf.getvalue()
+
+
+def write_fasta(name, prefix, seqs):
+    """seqs as a FASTA file under .bench_data/ (records prefix0, ...)."""
+    path = ROOT / ".bench_data" / name
+    path.write_text("".join(f">{prefix}{i}\n{s}\n"
+                            for i, s in enumerate(seqs)))
+    return path
+
+
+# ------------------------------------------------- GMAP as users run it
+
+@contextlib.contextmanager
+def k7_picks():
+    """Count the shape of each K7 wrapper call while the block runs
+    ([problems, window] for K7b, [problems, segments] for K7a) and keep
+    the arguments (tensors by reference) of each kernel's largest call
+    (most problems, then the widest) and of each shape at one problem:
+    {"shapes": {kernel: Counter}, "largest": {kernel: (shape, args)},
+    "single": {(kernel, shape): args}}."""
+    from tpumap_torch.ops import chain
+    ra, cc = chain.region_anchors, chain.chain_compact
+    picks = {"shapes": {n: collections.Counter() for n in GMAP_KERNELS},
+             "largest": {}, "single": {}}
+
+    def keep(name, shape, args):
+        picks["shapes"][name][shape] += 1
+        if shape > picks["largest"].get(name, ((0, 0),))[0]:
+            picks["largest"][name] = (shape, args)
+        if shape[0] == 1:
+            picks["single"].setdefault((name, shape), args)
+
+    def rec_ra(*args, **kw):
+        keep("region_anchors", tuple(args[0].shape),
+             args + (kw.get("keep_overabundant", False),))
+        return ra(*args, **kw)
+
+    def rec_cc(*args):
+        keep("chain_segments", tuple(args[0]["valid"].shape), args)
+        return cc(*args)
+    chain.region_anchors, chain.chain_compact = rec_ra, rec_cc
+    try:
+        yield picks
+    finally:
+        chain.region_anchors, chain.chain_compact = ra, cc
+
+
+def gmap_paths_phase(db, index, queries, truth, enc, smi, jobs):
+    """Phase 14: align_query_paths(npaths=5), gmap's default path, one
+    query at a time as main runs it, over the first N_PATHS bench cDNAs
+    after a warm-up on GMAP_PATHS_WARM, the launch counters reset just
+    before; then align_query_chimera(chimera_margin=30) over
+    gmap_bench's N_CHIMERA chimeras. Returns the launch counts of both
+    runs, the K7 picks of the paths run and the chimeras."""
+    from gmap_bench import (CHIMERA_MARGIN, N_CHIMERA, NPATHS,
+                            chimera_queries, grade_chimeras, grade_paths)
+    from tpumap_torch import kernels
+    from tpumap_torch.cli import gmap_cli
+    from tpumap_torch.gmap import chimera, engine, stage1
+    from tpumap_torch.utils import dna
+
+    def paths_of(batch):
+        return [gmap_cli.align_query_paths(db, index, qc, qn, npaths=NPATHS)
+                for qc, qn in batch]
+
+    def chimeras_of(batch):
+        return [chimera.align_query_chimera(
+            db, index, qc, qn, engine.GmapConfig(), stage1.Stage1Config(),
+            chimera_margin=CHIMERA_MARGIN) for qc, qn in batch]
+
+    t0 = time.perf_counter()
+    paths_of(enc[:GMAP_PATHS_WARM])
+    torch.cuda.synchronize()
+    log(f"GMAP -n {NPATHS} warm-up ({GMAP_PATHS_WARM} cDNAs) "
+        f"{time.perf_counter() - t0:.2f} s [{smi}]")
+    n = N_PATHS
+    kernels.reset_launches()
+    with k7_picks() as picks:
+        t0 = time.perf_counter()
+        paths = paths_of(enc[:n])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    found, right, dist = grade_paths(paths, truth[:n])
+    log(f"GMAP -n {NPATHS} end to end: {n} cDNAs one at a time in "
+        f"{dt:.3f} s = {n / dt:.1f} queries/s, found {found:.4f} (floor "
+        f"{PATHS_FOUND_FLOOR}), exon structure of the first path "
+        f"{right:.4f} (floor {PATHS_FLOOR}), queries by paths {dist}, "
+        f"launches a query " + ", ".join(
+            f"{k} {launches[k] / n:.3f}" for k in GMAP_KERNELS)
+        + "; K7 calls by shape: " + "; ".join(
+            f"{k} {dict(picks['shapes'][k].most_common())}"
+            for k in GMAP_KERNELS) + f" [{smi}]")
+    jobs.append((f"GMAP -n {NPATHS}", lambda: paths_of(enc[:GMAP_WARM]),
+                 dt * 1e3 * GMAP_WARM / n))
+    if found < PATHS_FOUND_FLOOR or right < PATHS_FLOOR:
+        raise AssertionError(f"GMAP -n {NPATHS}: found {found:.4f} (floor "
+                             f"{PATHS_FOUND_FLOOR}), exon structure "
+                             f"{right:.4f} (floor {PATHS_FLOOR})")
+    missing = [k for k in GMAP_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"GMAP -n {NPATHS}: never launched: {missing}")
+
+    cseqs, ctruth = chimera_queries(queries, truth)
+    cenc = [dna.encode(q) for q in cseqs]
+    chimeras_of(cenc[:16])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pieces = chimeras_of(cenc)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    claunches = dict(kernels.LAUNCHES)
+    share = grade_chimeras(pieces, cseqs, ctruth)
+    log(f"GMAP -x {CHIMERA_MARGIN}: {N_CHIMERA} chimeras in {dt:.3f} s = "
+        f"{N_CHIMERA / dt:.1f} queries/s, two pieces at their loci meeting "
+        f"within 10 bp of the join {share:.4f} (floor {CHIMERA_FLOOR}), "
+        f"queries by pieces "
+        f"{dict(sorted(collections.Counter(map(len, pieces)).items()))}, "
+        f"launches a query " + ", ".join(
+            f"{k} {claunches[k] / N_CHIMERA:.3f}" for k in GMAP_KERNELS)
+        + f" [{smi}]")
+    if share < CHIMERA_FLOOR:
+        raise AssertionError(f"GMAP -x {CHIMERA_MARGIN}: {share:.4f} "
+                             f"below the floor {CHIMERA_FLOOR}")
+    missing = [k for k in GMAP_KERNELS if claunches[k] <= 0]
+    if missing:
+        raise AssertionError(f"GMAP -x: never launched: {missing}")
+    return launches, claunches, picks, cseqs
+
+
+def gmap_paths_rows(picks, reduce_ns, n):
+    """K7b and K7a against their plain versions on the arguments of the
+    paths run's largest call of each and of its commonest shape at one
+    problem (N = 1), each row with that shape's calls a query."""
+    rows = []
+    for name, make in (("region_anchors", k7b_row),
+                       ("chain_segments", partial(k7a_row,
+                                                  reduce_ns=reduce_ns))):
+        counts = picks["shapes"][name]
+        shape, args = picks["largest"][name]
+        one = max((s for s in counts if s[0] == 1), key=counts.get)
+        for label, s, a in (("-n 5 largest", shape, args),
+                            ("-n 5 commonest at N=1", one,
+                             picks["single"][(name, one)])):
+            row = make(label, a)
+            row["calls_per_query"] = counts[s] / n
+            rows.append(row)
+    return check_rows(rows)
+
+
+def gmap_paths_layers(db, index, queries, enc, smi):
+    """One more -n 5 pass over enc with the host wall time of its layers
+    summed: find_regions (both passes of a query, each ending in its
+    copy to the host), the align_cdna_regions calls split into the
+    chain stage's enqueue (_chain_pipeline_batch), the wait for its
+    result (_chains), refine_chain and the rest (the regions' codes
+    from the host genome, padding); then main -f 3 on these cDNAs
+    given the pass's paths: reading the FASTA and the GFF3 emission."""
+    from unittest import mock
+
+    from gmap_bench import NPATHS
+    from tpumap_torch.cli import gmap_cli
+    from tpumap_torch.gmap import engine
+    spent = collections.Counter()
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+    saved = [(gmap_cli, "find_regions"), (gmap_cli, "align_cdna_regions"),
+             (engine, "_chain_pipeline_batch"), (engine, "_chains"),
+             (engine, "refine_chain")]
+    with contextlib.ExitStack() as stack:
+        for m, name in saved:
+            stack.enter_context(mock.patch.object(
+                m, name, timed(name, getattr(m, name))))
+        t0 = time.perf_counter()
+        paths = [gmap_cli.align_query_paths(db, index, qc, qn,
+                                            npaths=NPATHS)
+                 for qc, qn in enc]
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    it = iter(paths)
+    qfa = write_fasta("gmap_paths_q.fa", "q", queries[:len(enc)])
+    with db_patched(db, index), mock.patch.object(
+            gmap_cli, "align_query_paths", lambda *a, **kw: next(it)):
+        t0 = time.perf_counter()
+        gmap_main_text(["-D", "db", "-f", "3", str(qfa), "--device",
+                        index.device.type])
+        emit = time.perf_counter() - t0
+    rest = (spent["align_cdna_regions"] - spent["_chain_pipeline_batch"]
+            - spent["_chains"] - spent["refine_chain"])
+    log(f"GMAP -n {NPATHS} host layers of one {len(enc)}-cDNA pass "
+        f"({total * 1e3:.1f} ms): find_regions "
+        f"{spent['find_regions'] * 1e3:.1f} ms; align_cdna_regions "
+        f"{spent['align_cdna_regions'] * 1e3:.1f} (chain enqueue "
+        f"{spent['_chain_pipeline_batch'] * 1e3:.1f}, wait "
+        f"{spent['_chains'] * 1e3:.1f}, refine_chain "
+        f"{spent['refine_chain'] * 1e3:.1f}, the regions' host codes and "
+        f"padding {rest * 1e3:.1f}); the rest (sort, dedup) "
+        f"{(total - spent['find_regions'] - spent['align_cdna_regions']) * 1e3:.1f}"
+        f"; main -f 3 reading and GFF3 emission of the pass's paths "
+        f"{emit * 1e3:.1f} ms [{smi}]")
+
+
+@contextlib.contextmanager
+def db_patched(db, index):
+    """gmap_cli.main loads this db and index whatever its -D and
+    --device say (the bench db and its index are already in memory)."""
+    from unittest import mock
+
+    from tpumap_torch.cli import gmap_cli
+    with mock.patch.object(gmap_cli.GenomeDB, "load", lambda *_a: db), \
+            mock.patch.object(gmap_cli.DeviceIndex, "from_host",
+                              lambda *_a: index):
+        yield
+
+
+# main's argument lists held CPU == card: on the first GMAP_WARM cDNAs,
+# and -x 30 -f 1 on the first N_CHIM_CPU chimeras
+GMAP_MAIN_RUNS = (["-f", "3"], ["-A"], ["-S"], ["-f", "9"], ["-f", "samse"],
+                  ["-x", "30", "-f", "1"])
+
+
+def gmap_main_runs(db, index, queries, cseqs):
+    """gmap_cli.main's stdout for each of GMAP_MAIN_RUNS on the device
+    of index, with the echoed --device taken out, and its seconds."""
+    qfa = write_fasta("gmap_main_q.fa", "q", queries[:GMAP_WARM])
+    cfa = write_fasta("gmap_main_chim.fa", "c", cseqs[:N_CHIM_CPU])
+    dev = index.device.type
+    out = []
+    with db_patched(db, index):
+        for extra in GMAP_MAIN_RUNS:
+            t0 = time.perf_counter()
+            text = gmap_main_text(["-D", "db", *extra, str(
+                cfa if "-x" in extra else qfa), "--device", dev])
+            out.append((text.replace(f" --device {dev}", ""),
+                        time.perf_counter() - t0))
     return out
 
 
@@ -2044,10 +2351,15 @@ def main():
     snp_launches = run_e2e("SNP", s_reads, B, smi, mindex, snp_run,
                            lambda buf: check_snp(buf, bench_data, n_alt),
                            ("verify_diagonals",), jobs)
-    gmap_launches, k7, gmap_q, gmap_enc = gmap_phase(db, index, smi, jobs)
+    gmap_launches, k7, gmap_q, gmap_truth, gmap_enc = gmap_phase(
+        db, index, smi, jobs)
     rows += gmap_kernel_rows(db, index, k7, reduce_ns)
     gap_args = next(a for n, a in k7 if n == "chain_segments")
     del k7
+    paths_launches, chim_launches, picks, cseqs = gmap_paths_phase(
+        db, index, gmap_q, gmap_truth, gmap_enc, smi, jobs)
+    rows += gmap_paths_rows(picks, reduce_ns, N_PATHS)
+    del picks
 
     # GPU vs CPU (plain versions) on the first reads, same batching; the
     # last four on the mode index
@@ -2081,14 +2393,16 @@ def main():
         gbuf = io.BytesIO()
         run(mindex if modes else index, sub, len(sub), gbuf.write)
         gpu_sam.append(gbuf.getvalue())
-    gpu_gff = gmap_gff3(db, index, gmap_q, gmap_enc)
+    gpu_gff = gmap_gff3(db, index, gmap_q)
+    gpu_main = gmap_main_runs(db, index, gmap_q, cseqs)
     gmap_layers(db, index, gmap_q, gmap_enc, smi)
+    gmap_paths_layers(db, index, gmap_q, gmap_enc[:2 * GMAP_WARM], smi)
     profile_rows(rows, smi, chain_ns)
     gap_table_fill(gap_args, smi)
     del gap_args
     staged = ("RNA two-pass pass 2", "RNA fusions", "RNA tr", "PE tr")
     for job in jobs:
-        profile_batch(*job, smi, GMAP_PARTS if job[0] == "GMAP"
+        profile_batch(*job, smi, GMAP_PARTS if job[0].startswith("GMAP")
                       else STAGED_PARTS if job[0] in staged else BATCH_PARTS)
         if job[0] in ("RNA", "RNA -s", "RNA two-pass pass 2"):
             frag_lengths(job[0], job[1], smi)
@@ -2111,13 +2425,22 @@ def main():
         if not same:
             raise AssertionError(f"{name}: CPU and GPU SAM differ")
     t0 = time.perf_counter()
-    cpu_gff = gmap_gff3(db, cpu_index, gmap_q, gmap_enc)
+    cpu_gff = gmap_gff3(db, cpu_index, gmap_q)
     for fmt, c, g in zip(("-f 3", "-f 2"), cpu_gff, gpu_gff):
         log(f"GMAP {fmt}: CPU plain run of {GMAP_WARM} cDNAs (both formats "
             f"{time.perf_counter() - t0:.1f} s): GFF3 byte-identical to the "
             f"GPU run: {c == g} ({len(g)} bytes) [{smi}]")
         if c != g or g.count("\n") < GMAP_WARM:
             raise AssertionError(f"GMAP {fmt}: CPU and GPU GFF3 differ")
+    cpu_main = gmap_main_runs(db, cpu_index, gmap_q, cseqs)
+    for extra, (c, ct), (g, gt) in zip(GMAP_MAIN_RUNS, cpu_main, gpu_main):
+        nq = N_CHIM_CPU if "-x" in extra else GMAP_WARM
+        log(f"GMAP main {' '.join(extra)} on {nq} cDNAs: CPU plain run "
+            f"{ct:.1f} s, card {gt:.2f} s: byte-identical: {c == g} "
+            f"({len(g)} bytes) [{smi}]")
+        if c != g or g.count("\n") < nq:
+            raise AssertionError(f"GMAP main {' '.join(extra)}: CPU and "
+                                 f"card output differ")
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("JAX was imported")
     loaded = [m for m in sys.modules if m.split(".")[0] == "tpumap"
@@ -2129,6 +2452,7 @@ def main():
               "rna_known": known_launches, "pe": pe_launches,
               "pe_repair": rep_launches, "cmet": cmet_launches,
               "snp": snp_launches, "gmap": gmap_launches,
+              "gmap_paths": paths_launches, "gmap_chimeras": chim_launches,
               "rna_twopass": tw_launches, "rna_fusions": fus_launches,
               "rna_tr": tr_launches, "pe_tr": pe_tr_launches}
     n_batches = {"dna": -(-len(reads) // B), "rna": -(-len(rna_reads) // RB),
@@ -2136,6 +2460,7 @@ def main():
                  "pe": -(-len(pe_pairs) // PB), "pe_repair": 1,
                  "cmet": -(-len(cmet_reads) // B),
                  "snp": -(-len(s_reads) // B), "gmap": 1,
+                 "gmap_paths": N_PATHS, "gmap_chimeras": len(cseqs),
                  "rna_twopass": -(-len(rna_reads) // RB),
                  "rna_fusions": -(-(RB + N_FUSION) // RB), "rna_tr": 1,
                  "pe_tr": 1}
@@ -2151,7 +2476,8 @@ def main():
     # one entry per kernel, at its first (largest) main-path shape, with
     # all its rows; launches from the RNA run, which drives all seven
     # GSNAP kernels, or from the GMAP run (K7a, K7b), and each phase's
-    # launches per batch beside them (a GMAP batch: the 2,048-cDNA call).
+    # launches per batch beside them (a GMAP batch: the 2,048-cDNA call;
+    # on gmap_paths and gmap_chimeras a batch is one query).
     # No single PyTorch call computes any of the GSNAP kernels' or K7a's
     # functions (library_ms null); K7b's is the stable sort of the
     # window's (oligo, position) pairs that region_index computes
@@ -2177,7 +2503,8 @@ def main():
                                         "device_ms", "plain_ms", "bound_ms",
                                         "bound_by", "walk_floor_ms",
                                         "reduce_floor_ms", "library_ms",
-                                        "library_device_ms")
+                                        "library_device_ms",
+                                        "calls_per_query")
                       if k in x}
                      for x in rows if x["name"] == name],
             "launches_per_batch": per_batch[name]})

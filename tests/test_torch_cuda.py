@@ -839,3 +839,93 @@ def test_gmap_on_gpu_matches_cpu(dev, tmp_path):
                                str(qfa), "--device", device])
             outs.append(buf.getvalue().replace(f"--device {device}", ""))
         assert outs[0] == outs[1] and outs[0].count("\n") > len(recs)
+
+
+@pytest.mark.parametrize("S", [64, 512, 1025])
+@pytest.mark.parametrize("N", [1, 9])
+def test_chain_segments_kernel_every_member(dev, N, S):
+    """K7a as align_cdna_pairs calls it for one query's regions (the
+    per-query and chimera paths, -g): every member returned (m = S),
+    one problem or a few, against chain_compact_plain."""
+    rng = np.random.default_rng(7 * S + N)
+    segs = {k: torch.from_numpy(v).to(dev)
+            for k, v in gmap_segments(rng, N, S).items()}
+    kernels.reset_launches()
+    got = chain.chain_compact(segs, S)
+    assert kernels.LAUNCHES["chain_segments"] == 1
+    want = chain.chain_compact_plain(segs, S)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == (N, S) and torch.equal(g, w)
+    assert bool(got[3].any())
+
+
+@pytest.mark.parametrize("R", [256, 4096, 32768, 262144])
+@pytest.mark.parametrize("max_occ,keep", [(8, False), (128, True)])
+def test_region_anchors_kernel_one_region(dev, R, max_occ, keep):
+    """K7b at N = 1 with the region's codes uploaded from the host (as
+    align_cdna_pairs sends a query's head region), at k = 8, max_occ 8
+    and the repetitive retry's 128 keeping overabundant oligos."""
+    rng = np.random.default_rng(R + max_occ)
+    rc, rv, qo, qv = (torch.from_numpy(a).to(dev)
+                      for a in gmap_windows(rng, 1, R, 512, 8))
+    kernels.reset_launches()
+    got = chain.region_anchors(rc, rv, qo, qv, 8, max_occ, keep)
+    assert kernels.LAUNCHES["region_anchors"] == 1
+    want = chain.region_anchors_plain(rc, rv, qo, qv, 8, max_occ, keep)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(got[2].any())
+
+
+def gmap_main_text(argv, device):
+    import io
+    from contextlib import redirect_stdout
+
+    from tpumap_torch.cli import gmap_cli
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        gmap_cli.main(argv + ["--device", device])
+    return buf.getvalue().replace(f"--device {device}", "")
+
+
+@pytest.mark.parametrize("extra", [[], ["-A"], ["-x", "30", "-f", "1"],
+                                   ["-S", "-x", "30"]])
+def test_gmap_main_paths_on_gpu_match_cpu(dev, tmp_path, extra):
+    """main's default path (-n 5), -A and the chimera path (-x 30) on
+    gmap_world and a two-chromosome chimera world: the card's bytes are
+    the plain CPU run's, through K7a and K7b."""
+    db, recs, qfa = gmap_world(tmp_path, port=True)
+    db.save(str(tmp_path / "db"))
+    rng = np.random.default_rng(17)
+    g = db.get_seq(0, db.genome_length)
+    chim = [g[3000:3100] + g[5000:5100] + g[90_000:90_120],
+            g[6000:6150] + dna.revcomp(g[80_000:80_130])]
+    with open(qfa, "a") as f:
+        f.write("".join(f">x{i}\n{s}\n" for i, s in enumerate(chim)))
+    argv = ["-D", str(tmp_path / "db"), *extra, str(qfa)]
+    want = gmap_main_text(argv, "cpu")
+    kernels.reset_launches()
+    assert gmap_main_text(argv, "cuda") == want
+    assert kernels.LAUNCHES["chain_segments"] > 0
+    assert kernels.LAUNCHES["region_anchors"] > 0
+    assert want.count("\n") > len(recs)
+
+
+def test_gmap_main_genomic_segment_on_gpu(dev, tmp_path):
+    """-g without --device cpu runs align_cdna_both on the card (K7a
+    and K7b launch), with the CPU's bytes."""
+    import io
+    from contextlib import redirect_stdout
+
+    from tpumap_torch.cli import gmap_cli
+    db, recs, qfa = gmap_world(tmp_path, port=True)
+    (tmp_path / "g.fa").write_text(">g\n" + db.get_seq(0, 70_000) + "\n")
+    argv = ["-S", "-g", str(tmp_path / "g.fa"), str(qfa)]
+    want = gmap_main_text(argv, "cpu")
+    kernels.reset_launches()
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        gmap_cli.main(argv)
+    assert buf.getvalue() == want and "Path 1" in want
+    assert kernels.LAUNCHES["chain_segments"] > 0
+    assert kernels.LAUNCHES["region_anchors"] > 0

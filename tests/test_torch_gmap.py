@@ -10,8 +10,9 @@ plain versions: exon chains field by field, output as bytes.
   test_gmap_options' repetitive-region world, and on a world of 25 cDNAs
   on two chromosomes (both strands, a tandem-repeat query);
 - gmap_cli.main against tpumap's on test_gmap_options' world: -f 1, 2,
-  3, samse and the default, byte for byte but for the echoed command
-  line (the port's has --device cpu).
+  3, samse, the default (-n 5) and -n 1, -A, -S, -f 4, -x and -g, byte
+  for byte but for the echoed command line (the port's has --device
+  cpu); an option tpumap rejects, rejected alike.
 """
 import io
 from contextlib import redirect_stdout
@@ -316,11 +317,9 @@ def options_world(tmp_path_factory):
     return d
 
 
-@pytest.mark.parametrize("fmt", [["-f", "1"], ["-f", "2"], ["-f", "3"],
-                                 ["-f", "samse"], []])
-def test_main_matches_tpumap(options_world, fmt):
-    d = options_world
-    argv = ["-n", "1", "-D", str(d / "g"), "-d", "g", *fmt, str(d / "q.fa")]
+def main_outputs(argv):
+    """tpumap's main's stdout on argv, with the port's echoed command
+    line, and the port's (--device cpu)."""
     buf = io.StringIO()
     with redirect_stdout(buf):
         jcli.main(argv)
@@ -330,18 +329,49 @@ def test_main_matches_tpumap(options_world, fmt):
     buf = io.StringIO()
     with redirect_stdout(buf):
         gmap_cli.main(argv + ["--device", "cpu"])
-    assert buf.getvalue() == want
+    return want, buf.getvalue()
+
+
+@pytest.mark.parametrize("fmt", [["-f", "1"], ["-f", "2"], ["-f", "3"],
+                                 ["-f", "samse"], [], ["-n", "1"]])
+def test_main_matches_tpumap(options_world, fmt):
+    """The default -n 5 (tpumap's per-query path) and -n 1 (the bulk
+    path) give tpumap's bytes."""
+    d = options_world
+    want, got = main_outputs(["-D", str(d / "g"), "-d", "g", *fmt,
+                              str(d / "q.fa")])
+    assert got == want
     assert want.count("q1") >= 1 and "q2" in want
 
 
 @pytest.mark.parametrize("argv", [["-n", "5"], ["-A"], ["-S"], ["-f", "4"],
                                   ["--chimera-margin", "30"],
-                                  ["-g", "x.fa"]])
+                                  ["-g", "g.fa"]])
 def test_main_unported_options_raise(options_world, argv):
+    """Options past the bulk path (-n 5, -A, -S, -f 4, chimeras, a
+    genomic segment): tpumap's bytes (tests/test_torch_gmap_cli.py holds
+    every other option to tpumap's)."""
     d = options_world
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 14"):
-        gmap_cli.main(argv + ["-D", str(d / "g"), str(d / "q.fa"),
-                              "--device", "cpu"])
+    argv = [str(d / a) if a.endswith(".fa") else a for a in argv]
+    want, got = main_outputs(argv + ["-D", str(d / "g"), str(d / "q.fa")])
+    assert got == want and "q1" in want
+
+
+@pytest.mark.parametrize("argv", [["-f", "5"], ["--no-such-option"],
+                                  ["-I", "3"]])
+def test_main_rejects_what_tpumap_rejects(options_world, argv, capsys):
+    """An option tpumap's parser rejects makes both mains exit with
+    argparse's usage error."""
+    d = options_world
+    codes = []
+    for main in (jcli.main, gmap_cli.main):
+        with pytest.raises(SystemExit) as e:
+            main(argv + ["-D", str(d / "g"), str(d / "q.fa"), "--device",
+                         "cpu"] if main is gmap_cli.main else
+                 argv + ["-D", str(d / "g"), str(d / "q.fa")])
+        codes.append(e.value.code)
+    assert codes == [2, 2]
+    assert capsys.readouterr().err.count("error:") == 2
 
 
 def test_main_needs_the_card_unless_asked(options_world, monkeypatch):

@@ -240,6 +240,11 @@ def test_build_db_matches(dbs):
         assert tdb.chrpos(u) == jdb.chrpos(u)
         assert tdb.get_seq(u, 1) == jdb.get_seq(u, 1)
     assert tdb.get_seq(2990, 80) == jdb.get_seq(2990, 80)
+    for u, n in ((0, 0), (2990, 80), (31, 33), (0, jdb.genome_length),
+                 (6990, 30), (jdb.genome_length - 5, 5)):
+        want = jdb.get_nmask(u, n)
+        got = tdb.get_nmask(u, n)
+        assert got.dtype == want.dtype and np.array_equal(got, want), (u, n)
     coords = np.array([5, 3100, 8000, 10_000], np.int64)
     alts = np.array([1, 2, 3, 0], np.uint8)
     assert jdb.add_snp_index(coords, alts) == tdb.add_snp_index(coords, alts)

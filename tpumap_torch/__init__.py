@@ -12,10 +12,13 @@ Package layout:
   tpumap_torch.gsnap   cascade, fused ladder, host driver (single and
                        paired end, novel and known splicing)
   tpumap_torch.gmap    GMAP cDNA alignment: stage 1, the chain stage's
-                       device half, the host exon refinement
-  tpumap_torch.cli     the GMAP entry point (gmap_cli: the bulk path)
+                       device half, the host exon refinement, chimeras
+  tpumap_torch.cli     the GMAP entry point (gmap_cli: every option of
+                       tpumap's gmap, the default -n 5 path, -x, -g and
+                       the bulk path), gsnap_cli's shared helpers
   tpumap_torch.io      FASTA/FASTQ, IIT maps, SAM records and bulk
-                       emitters, GFF3 and GMAP's PSL/SAM printers
+                       emitters, GFF3, GMAP's PSL/SAM printers and its
+                       alignment text (alignfmt: -A, -S, -3, -4, -f 9)
   tpumap_torch/data/   the MaxEnt splice-model tables (a copy of
                        tpumap/data/maxent_tables.npz)
   tpumap_torch.native  the C++ tokenizer and SAM emitters (g++ at first use)

@@ -154,8 +154,16 @@ class GenomeDB:
                           self.get_nmask(start, length).astype(bool))
 
     def get_nmask(self, start: int, length: int) -> np.ndarray:
-        idx = np.arange(start, start + length)
-        return (self.genome_nmask[idx >> 5] >> (idx & 31)) & 1
+        """The N flags (0/1) of univcoords [start, start+length), unpacked
+        a word at a time: a GMAP chimera's breakpoint scan reads the
+        genome between its two loci, megabases apart
+        (gmap/chimera.py: find_exonexon)."""
+        w0 = start >> 5
+        words = np.ascontiguousarray(
+            self.genome_nmask[w0:(start + length + 31) >> 5], dtype="<u4")
+        bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+        off = start - (w0 << 5)
+        return bits[off:off + length].astype(np.int64)
 
     def get_seq(self, start: int, length: int) -> str:
         # native decode (one C pass) — the printers call this per

@@ -1,7 +1,7 @@
 """Additional GMAP output formats: PSL, EST_match, splicesites/introns,
+SAM (samse/sampe), exons (-E), protein (-P/-Q).
 
 The port's copy of tpumap/io/gmapfmt.py, unchanged but for its imports.
-SAM (samse/sampe), exons (-E), protein (-P/-Q).
 
 Format analogs of the corresponding printers in src/pair.c
 (Pair_print_pslformat_nt:7538, Pair_print_gff3 EST_match variant,

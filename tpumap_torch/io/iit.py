@@ -1,5 +1,6 @@
-"""IIT (interval index tree) map files: the reader of tpumap/io/iit.py,
-as far as known splicing (-s) reaches it, and the in-memory builder the
+"""IIT (interval index tree) map files: the reader and the range queries
+of tpumap/io/iit.py, as far as known splicing (-s) and gmap's map hits
+(-m) reach them, and the in-memory builder the
 transcriptome takes its genes map from.
 
 Reads the reference's versioned interval-tree-on-disk format
@@ -7,8 +8,9 @@ Reads the reference's versioned interval-tree-on-disk format
 ("div", one division per chromosome, intervals with a sign).
 `parse_map_fasta` and `build_iit` assemble an IIT from iit_store's
 FASTA-format input (divisions in the reference's chromosome order);
-`IIT.interval` reads one back. tpumap's file writer (and its FNode tree
-build) and its range queries are not here.
+`IIT.interval` reads one back, and `IIT.get` queries a division for
+the intervals that overlap a range (gmap -m). tpumap's file writer
+(and its FNode tree build) is not here.
 """
 from __future__ import annotations
 
@@ -120,6 +122,26 @@ class IIT:
         for d in self.divdata:
             out.append(out[-1] + len(d))
         return out
+
+    def div_index(self, divstring: str) -> int:
+        try:
+            return self.divs.index(divstring)
+        except ValueError:
+            return -1
+
+    # ---------------- queries ----------------
+
+    def get(self, divstring: str, x: int, y: int) -> np.ndarray:
+        """1-based global indices of intervals in div overlapping [x, y],
+        ascending (the reference's IIT_get with sortp=false,
+        src/iit-read.c IIT_get)."""
+        divno = self.div_index(divstring)
+        if divno < 0:
+            return np.zeros(0, dtype=np.int64)
+        d = self.divdata[divno]
+        hit = (d.lows <= y) & (d.highs >= x)
+        base = self.cum_nintervals()[divno]
+        return np.nonzero(hit)[0] + base + 1
 
     def interval(self, index: int):
         """(div, low, high, sign, typestring) for 1-based global index."""

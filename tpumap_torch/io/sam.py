@@ -497,6 +497,42 @@ def _cigar_ops(cigar: str):
     return [(int(n), op) for n, op in _CIGAR_RE.findall(cigar)]
 
 
+def extended_cigar(cigar: str, md: str) -> str:
+    """Rewrite M runs as =/X runs using the MD string
+    (gsnap --sam-extended-cigar, src/gsnap.c:702)."""
+    if cigar == "*" or "M" not in cigar:
+        return cigar
+    stream = []                     # '='/'X' per M-consumed genome base
+    for t in re.findall(r"\d+|\^[A-Za-z]+|[A-Za-z]", md):
+        if t[0] == "^":
+            continue                # deletion bases belong to D ops
+        if t.isdigit():
+            stream.extend("=" * int(t))
+        else:
+            stream.append("X")
+    out, k = [], 0
+    for n, op in _cigar_ops(cigar):
+        if op != "M":
+            out.append(f"{n}{op}")
+            continue
+        j = 0
+        while j < n:
+            ch = stream[k] if k < len(stream) else "="
+            run = 0
+            while j < n and (stream[k] if k < len(stream) else "=") == ch:
+                run += 1
+                j += 1
+                k += 1
+            out.append(f"{run}{ch}")
+    return "".join(out)
+
+
+def strip_zero_m(cigar: str) -> str:
+    """Remove 0M entries (gsnap --sam-use-0M=0)."""
+    ops = [(n, op) for n, op in _cigar_ops(cigar) if not (n == 0 and op == "M")]
+    return "".join(f"{n}{op}" for n, op in ops) or "*"
+
+
 def cigar_query_length(cigar: str) -> int:
     """Query bases consumed by the CIGAR (M/I/S/=/X)."""
     return sum(n for n, op in _cigar_ops(cigar) if op in "MIS=X")
@@ -520,3 +556,29 @@ def check_cigar(rec: SamRecord, action: str = "warning") -> bool:
         return True
     raise ValueError(f"CIGAR length disagrees with sequence length for "
                      f"{rec.qname}")
+
+
+def apply_sam_options(rec: SamRecord, extended_cigar_p: bool = False,
+                      use_0m: bool = True, force_xs_dir: bool = False,
+                      sparse_secondaries: bool = False,
+                      multiple_primaries: bool = False,
+                      cigar_action: str = "warning") -> SamRecord:
+    """Apply output-shaping SAM flags to a record and its secondaries."""
+    all_recs = [rec] + list(rec.secondaries or ())
+    prim_nm = next((t for t in rec.tags if t.startswith("NM:i:")), None)
+    for r in all_recs:
+        if extended_cigar_p:
+            mdv = next((t[5:] for t in r.tags if t.startswith("MD:Z:")), "")
+            r.cigar = extended_cigar(r.cigar, mdv)
+        if not use_0m:
+            r.cigar = strip_zero_m(r.cigar)
+        if force_xs_dir:
+            r.tags = [t if t != "XS:A:?" else "XS:A:+" for t in r.tags]
+        check_cigar(r, cigar_action)
+    for r in all_recs[1:]:
+        if (multiple_primaries and prim_nm is not None
+                and prim_nm in r.tags):
+            r.flag &= ~0x100
+        if sparse_secondaries and r.flag & 0x100:
+            r.seq, r.qual = "*", "*"
+    return rec
