@@ -131,7 +131,29 @@ fusions, the transcriptome rung single and paired), and fails (exit code
    (N = 1), each with its calls a query; one pass's host layers over
    512 cDNAs (find_regions, the chain stage's enqueue and wait,
    refine_chain, main's emission) and the device time and idle share of
-   256 cDNAs.
+   256 cDNAs. Then K7a's wide kernel (past 1,024 segments a problem,
+   launched by no bench path) against its plain version at S = 1,025
+   and 2,048, N = 1 and one wave (64 problems an SM), in phase 3's
+   columns.
+15. GSNAP as users run it (after 14): gsnap_cli.main in process with
+   argument lists, output to a file with -o, each run timed whole (db
+   load and index upload included) beside its --time reads/sec line.
+   Its inputs come from the port's own tools: the 400 bench genes as
+   GFF3 through gff3_splicesites (gff3_introns) and iit_cli store
+   (their KnownSplicing must hold gene_known's 1,200 junctions), the
+   genes map through iit_cli store and trindex_cli (transcriptome
+   benchtr). Runs, each with its host layers (db load, index upload,
+   reading, the aligner's call, record shaping, SAM text): the bare
+   command over the 50,000 DNA reads (the record path at batch 1,024,
+   graded as 4, K1-K3 must launch), the same with --sam-use-0M 0
+   (tpumap's stream) and with --batch-size 32768, the 20,000 PE pairs
+   (the floors of 7), -N 1 -s bench_splicesites.iit over the 50,000 RNA
+   reads (the floors of 5, all seven GSNAP kernels), -N 1 -c benchtr
+   over the first 16,384 RNA reads (TR_FLOORS); the device time and idle share
+   of the bare command; --check (0); and the card against --device cpu
+   byte for byte (stdout and every file written) on the first 2,048 DNA
+   reads with CLI_CPU_LISTS, on 512 RNA reads with -N 1 -s and on 512
+   pairs, each at least a line a read (m8: 0.99 of them).
 
 Phase 3 also holds K1 against its plain version on the mode index: in
 each base space at the mode rung's [32,768, 8] x 8, ref-OR-alt at the
@@ -148,7 +170,8 @@ and the GMAP call and 256 cDNAs of 14 (with the parts of K7a and K7b),
 and K3's walk floor (its longest walk times the chain's step); then the
 fragment lengths that reach K6a and K6b in one batch of RNA, RNA -s and
 the repair (with K6b's active share and counts). After the runs: each
-kernel's launches per batch on each path (from kernels.LAUNCHES). The
+kernel's launches per batch on each path (from kernels.LAUNCHES; for
+phase 15's runs a batch is the CLI's 1,024 reads or pairs). The
 line before the last is the kernel table as JSON; the last line is {"ok": true,
 "device": {...}}. JAX and tpumap are blocked: the port must run without
 either. Bench data and the index go under .bench_data/ in the checkout.
@@ -1006,7 +1029,8 @@ def profile_rows(rows, gpu, chain_ns, symbols=None):
     the cells in shared memory pays; chain_ns[2]: the cell, then a
     decode-table entry, as K3 reads them)."""
     for r in rows:
-        syms = (symbols or {}).get(r["name"], SOURCES[r["name"]][2])
+        syms = r.pop("symbols", None) or (symbols or {}).get(
+            r["name"], SOURCES[r["name"]][2])
         dev, parts = device_ms(r.pop("fn"), r.pop("reps"), syms)
         r["device_ms"] = dev
         log(f"kernel {r['name']:17s} {r['shape']:34s} "
@@ -2172,6 +2196,374 @@ def staged_layers(name, db, index, run, smi):
         f"{k} {v * 1e3:.1f} ms" for k, v in acc.items()) + f" [{smi}]")
 
 
+
+# ------------------------------------------------- GSNAP as users run it
+
+N_CLI_TR = 16384        # RNA reads of the -c run (the staged rna_tr's)
+N_CLI_CPU = 2048        # DNA reads of the CPU == card lists
+N_CLI_CPU_RNA = 512     # RNA reads and pairs of the CPU == card lists
+# main's argument lists held CPU == card on the first N_CLI_CPU DNA reads
+# ({OUT}: a directory of the run's own)
+CLI_CPU_LISTS = ((), ("--sam-use-0M", "0"), ("-A", "default"),
+                 ("-A", "m8"), ("--split-output", "{OUT}/s"),
+                 ("--failed-input", "{OUT}/failed.fa"))
+
+
+def cli_inputs(bench_data, db, smi):
+    """Phase 15's inputs made by the port's own tools: the 400 bench
+    genes as GFF3 (gene, mRNA and exon lines on chr1), through
+    gff3_splicesites and iit_cli store (bench_splicesites.iit) and
+    through gff3_introns (bench_introns.iit); the genes map
+    (staged_bench.genes_map) through iit_cli store and trindex_cli
+    (transcriptome benchtr under the db directory). The splice-site
+    map's KnownSplicing must hold gene_known's 1,200 donors and
+    acceptors, the intron map's all of gene_known (its junctions too).
+    Returns the directory of the files."""
+    from tpumap_torch.cli import converters, iit_cli, trindex_cli
+    from tpumap_torch.gsnap.knownsplicing import KnownSplicing
+    from tpumap_torch.io.iit import IIT
+    t0 = time.perf_counter()
+    d = bench_data.ROOT / "cli"
+    d.mkdir(exist_ok=True)
+    gff = ["##gff-version 3"]
+    for g, exons in enumerate(bench_data.gene_table()):
+        lo, hi = exons[0][0] + 1, exons[-1][0] + exons[-1][1]
+        gff += [f"chr1\tbench\tgene\t{lo}\t{hi}\t.\t+\t.\tID=G{g}",
+                f"chr1\tbench\tmRNA\t{lo}\t{hi}\t.\t+\t.\tID=T{g};Parent=G{g}"]
+        gff += [f"chr1\tbench\texon\t{s + 1}\t{s + n}\t.\t+\t.\tParent=T{g}"
+                for s, n in exons]
+    (d / "bench_genes.gff3").write_text("\n".join(gff) + "\n")
+    for conv, name in ((converters.gff3_splicesites_main,
+                        "bench_splicesites"),
+                       (converters.gff3_introns_main, "bench_introns")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            conv([str(d / "bench_genes.gff3")])
+        (d / f"{name}.txt").write_text(buf.getvalue())
+        if iit_cli.store_main(["-o", str(d / name), str(d / f"{name}.txt")]):
+            raise AssertionError(f"iit_cli store of {name} failed")
+    want = gene_known(bench_data)
+    sites = KnownSplicing.from_splicing_iit(
+        IIT.read(str(d / "bench_splicesites.iit")), db)
+    introns = KnownSplicing.from_splicing_iit(
+        IIT.read(str(d / "bench_introns.iit")), db)
+    same = (len(want.junctions) == 1200
+            and np.array_equal(sites.donor, want.donor)
+            and np.array_equal(sites.acceptor, want.acceptor)
+            and not len(sites.antidonor) and not len(sites.antiacceptor)
+            and all(np.array_equal(getattr(introns, f), getattr(want, f))
+                    for f in ("donor", "acceptor", "antidonor",
+                              "antiacceptor", "junctions",
+                              "anti_junctions")))
+    log(f"port-built maps: bench_splicesites.iit {len(sites.donor)} "
+        f"donors, {len(sites.acceptor)} acceptors; bench_introns.iit "
+        f"{len(introns.junctions)} junctions; equal to gene_known's "
+        f"{len(want.junctions)}: {same}")
+    if not same:
+        raise AssertionError("the port-built splice maps differ from "
+                             "gene_known")
+    (d / "bench_genes.txt").write_text("\n".join(genes_map(bench_data))
+                                       + "\n")
+    if iit_cli.store_main(["-o", str(d / "bench_genes"),
+                           str(d / "bench_genes.txt")]):
+        raise AssertionError("iit_cli store of bench_genes failed")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = trindex_cli.main(["-D", str(bench_data.ROOT / "db_k14"), "-c",
+                               "benchtr", str(d / "bench_genes.iit")])
+    if rc:
+        raise AssertionError(f"trindex_cli failed: {err.getvalue()}")
+    log(f"{err.getvalue().strip()}; the phase's inputs made in "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    return d
+
+
+def gsnap_main(argv):
+    """(return code, seconds, stdout, stderr) of gsnap_cli.main(argv),
+    the card synchronised before the clock stops. Fails the run where
+    align_records_isolated caught a failure: a group retried read by
+    read, or a read reported as unmapped, with main's return still 0."""
+    from tpumap_torch.cli import gsnap_cli
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = gsnap_cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    caught = [ln for ln in err.getvalue().splitlines()
+              if "retrying reads individually" in ln
+              or "reported as unmapped" in ln]
+    if caught:
+        raise AssertionError(f"gsnap main {argv}: {len(caught)} failures "
+                             f"caught by align_records_isolated, the "
+                             f"first: {caught[0]}")
+    return rc, dt, out.getvalue(), err.getvalue()
+
+
+def primary_lines(sam_bytes: bytes) -> bytes:
+    """The SAM body's primary lines: no header, secondary or
+    supplementary line."""
+    return b"".join(ln for ln in sam_bytes.splitlines(keepends=True)
+                    if ln[:1] != b"@"
+                    and not int(ln.split(b"\t", 2)[1]) & 0x900)
+
+
+@contextlib.contextmanager
+def cli_layers(acc):
+    """Host seconds of gsnap_cli.main's layers into acc while the block
+    runs (wrappers on the host clock, no synchronisation added): the db
+    load, the index upload, reading and preprocessing (the
+    preprocess_reads or preprocess_pairs generator, read_seqs inside
+    it), align_records_isolated or align_paired_records, record shaping
+    (apply_sam_options, the work of main's shape) and SAM text (lines()
+    of the Python and of the bulk emitter's records)."""
+    from tpumap_torch.cli import gsnap_cli
+    from tpumap_torch.io import sam, sam_bulk
+
+    def add(label, t0):
+        acc[label] = acc.get(label, 0.0) + time.perf_counter() - t0
+
+    outer = []      # a layer called inside another counts for the outer
+
+    def timed(inner, label):
+        def f(*a, **kw):
+            if outer:
+                return inner(*a, **kw)
+            outer.append(label)
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **kw)
+            finally:
+                add(label, t0)
+                outer.pop()
+        return f
+
+    def timed_gen(inner, label):
+        def f(*a, **kw):
+            it = inner(*a, **kw)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    x = next(it)
+                except StopIteration:
+                    add(label, t0)
+                    return
+                add(label, t0)
+                yield x
+        return f
+    patches = [(gsnap_cli.GenomeDB, "load", "db load", timed),
+               (gsnap_cli.DeviceIndex, "from_host", "index upload", timed),
+               (gsnap_cli, "preprocess_reads", "reading and preprocessing",
+                timed_gen),
+               (gsnap_cli, "preprocess_pairs", "reading and preprocessing",
+                timed_gen),
+               (gsnap_cli, "align_records_isolated",
+                "align_records_isolated", timed),
+               (gsnap_cli, "align_paired_records", "align_paired_records",
+                timed),
+               (sam, "apply_sam_options", "record shaping", timed),
+               (sam.SamRecord, "lines", "SAM text", timed),
+               (sam_bulk.RawSamRecord, "lines", "SAM text", timed)]
+    saved = [(obj, attr, obj.__dict__[attr]) for obj, attr, _l, _w in patches]
+    for obj, attr, label, wrap in patches:
+        raw = obj.__dict__[attr]
+        kind = type(raw) if isinstance(raw, (classmethod, staticmethod)) \
+            else None
+        setattr(obj, attr, kind(wrap(raw.__func__, label)) if kind
+                else wrap(raw, label))
+    try:
+        yield acc
+    finally:
+        for obj, attr, orig in saved:
+            setattr(obj, attr, orig)
+
+
+def cli_timed(label, argv, smi, must_launch, check):
+    """One timed gsnap_cli.main run with --time and -o to a file, the
+    launch counters reset just before: the whole run's seconds (db load
+    and index upload included) beside --time's reads/sec line, the
+    grade of the output (check(SAM bytes)), the launches and the host
+    layers (cli_layers). Returns (seconds, launches)."""
+    from tpumap_torch import kernels
+    out = ROOT / ".bench_data" / "cli" / f"{label.replace(' ', '_')}.sam"
+    acc = {}
+    kernels.reset_launches()
+    with cli_layers(acc):
+        rc, dt, _o, err = gsnap_main(argv + ["--time", "-o", str(out)])
+    launches = dict(kernels.LAUNCHES)
+    if rc:
+        raise AssertionError(f"gsnap main {label} returned {rc}: {err}")
+    body = out.read_bytes()
+    rate = re.search(r"Aligned (\d+) reads in ([\d.]+) s \(([\d.]+) "
+                     r"reads/sec\)", err)
+    log(f"gsnap main {label}: {' '.join(argv[2:])}: {dt:.3f} s whole "
+        f"(load and upload included); --time: "
+        + (f"{rate.group(1)} reads in {rate.group(2)} s, {rate.group(3)} "
+           f"reads/sec" if rate else "no reads/sec line")
+        + f"; {check(body)}; launches={launches} [{smi}]")
+    log(f"gsnap main {label} host layers: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in acc.items())
+        + f", the rest {dt - sum(acc.values()):.3f} s of {dt:.3f} s [{smi}]")
+    missing = [k for k in must_launch if launches[k] <= 0]
+    if missing or not rate:
+        raise AssertionError(f"gsnap main {label}: kernels never launched: "
+                             f"{missing}, or no --time line")
+    return dt, launches
+
+
+def cli_cpu_card(argv, n, smi, min_lines):
+    """gsnap_cli.main on the card and with --device cpu (the db loaded
+    once for both): stdout and every file the run writes byte for byte,
+    and at least min_lines lines in all."""
+    from unittest import mock
+
+    from tpumap_torch.cli import gsnap_cli
+    from tpumap_torch.index.build import GenomeDB
+    root = ROOT / ".bench_data" / "cli"
+    db = GenomeDB.load(argv[1])
+    got = []
+    with mock.patch.object(gsnap_cli.GenomeDB, "load", lambda *_a: db):
+        for dev in ("cuda", "cpu"):
+            d = root / f"cmp_{dev}"
+            if d.exists():
+                for p in d.iterdir():
+                    p.unlink()
+            d.mkdir(exist_ok=True)
+            a = [x.replace("{OUT}", str(d)) for x in argv] + ["--device",
+                                                              dev]
+            rc, dt, out, err = gsnap_main(a)
+            if rc:
+                raise AssertionError(f"gsnap main {a} returned {rc}: {err}")
+            # the echoed command line names the run's directory and device
+            files = {p.name: p.read_bytes().replace(str(d).encode(), b"")
+                     .replace(f" --device {dev}".encode(), b"")
+                     for p in sorted(d.iterdir())}
+            got.append((out.replace(str(d), "").replace(
+                f" --device {dev}", ""), files, dt))
+    (gout, gfiles, gdt), (cout, cfiles, cdt) = got
+    lines = gout.count("\n") + sum(v.count(b"\n") for v in gfiles.values())
+    same = gout == cout and gfiles == cfiles
+    log(f"gsnap main {' '.join(argv[2:-1])} on {n}: card {gdt:.2f} s, CPU "
+        f"plain run {cdt:.1f} s: stdout and {len(gfiles)} files "
+        f"byte-identical: {same} ({lines} lines) [{smi}]")
+    if not same or lines < min_lines:
+        raise AssertionError(f"gsnap main {argv}: CPU and card differ, or "
+                             f"fewer than {min_lines} lines")
+
+
+def gsnap_cli_phase(bench_data, db, rfa, rna_rfa, pe_files, truth, smi):
+    """Phase 15: GSNAP as users run it, gsnap_cli.main in-process with
+    argument lists. Returns the launches of the DNA, PE and RNA -N 1 -s
+    runs ({"dna", "pe", "rna_known": launches})."""
+    from tpumap_torch.cli import gsnap_cli
+    from tpumap_torch.io.fasta import read_fasta
+    d = cli_inputs(bench_data, db, smi)
+    dbdir = str(bench_data.ROOT / "db_k14")
+    base = ["-D", dbdir, "-d", "bench"]
+    reads = list(read_fasta(rfa))
+    rna = list(read_fasta(rna_rfa))
+
+    def head(name, recs):
+        """The records as a FASTA file under .bench_data/cli/."""
+        path = d / name
+        path.write_text("".join(f">{r.accession}\n{r.sequence}\n"
+                                for r in recs))
+        return path
+    sub = {"dna_warm": head("dna_1024.fa", reads[:1024]),
+           "dna_cpu": head("dna_cpu.fa", reads[:N_CLI_CPU]),
+           "rna_tr": head("rna_tr.fa", rna[:N_CLI_TR]),
+           "rna_cpu": head("rna_cpu.fa", rna[:N_CLI_CPU_RNA])}
+    pe_cpu = [head(f"pe_cpu_{m}.fa", list(read_fasta(f))[:N_CLI_CPU_RNA])
+              for m, f in zip((1, 2), pe_files)]
+    rc, dt, _o, err = gsnap_main(base + [str(sub["dna_warm"]), "-o",
+                                         str(d / "warm.sam")])
+    if rc:
+        raise AssertionError(f"gsnap main warm-up returned {rc}: {err}")
+    log(f"gsnap main warm-up on 1,024 DNA reads: {dt:.2f} s [{smi}]")
+
+    def dna(body):
+        return check_dna(primary_lines(body), bench_data)
+    runs = {}
+    dt_dna, runs["dna"] = cli_timed(
+        "DNA", base + [str(rfa)], smi, DNA_KERNELS, dna)
+    cli_timed("DNA --sam-use-0M 0", base + ["--sam-use-0M", "0", str(rfa)],
+              smi, DNA_KERNELS, dna)
+    cli_timed("DNA --batch-size 32768", base + ["--batch-size", "32768",
+                                                str(rfa)], smi, DNA_KERNELS,
+              dna)
+    runs["pe"] = cli_timed(
+        "PE", base + [str(f) for f in pe_files], smi, DNA_KERNELS,
+        lambda body: check_pe(primary_lines(body), bench_data))[1]
+    runs["rna_known"] = cli_timed(
+        "RNA -N 1 -s", base + ["-N", "1", "-s",
+                               str(d / "bench_splicesites.iit"),
+                               str(rna_rfa)], smi, GSNAP_KERNELS,
+        lambda body: check_rna(primary_lines(body), truth))[1]
+    cli_timed("RNA -N 1 -c benchtr", base + ["-N", "1", "-c", "benchtr",
+                                             str(sub["rna_tr"])], smi,
+              DNA_KERNELS[:1], lambda body: check_rna(
+                  primary_lines(body), truth[:N_CLI_TR], TR_FLOORS))
+    # the device time and the wall of one more run of the default
+    # command, both under the profiler (which slows the host: the timed
+    # run's wall is given beside them)
+    wall = []
+    dev = profile_ms(lambda: wall.append(gsnap_main(
+        base + [str(rfa), "-o", str(d / "profiled.sam")])[1]))
+    dev_ms = sum(v for k, v in dev.items() if isinstance(k, str))
+    log(f"gsnap main DNA default, profiled run: device time {dev_ms:.1f} "
+        f"ms of {wall[0] * 1e3:.1f} ms of wall: idle "
+        f"{1 - dev_ms / (wall[0] * 1e3):.3f} (the timed run's wall "
+        f"{dt_dna * 1e3:.1f} ms) [{smi}]" if dev_ms else
+        f"gsnap main DNA default: device time not measured (the profile "
+        f"holds no device events) [{smi}]")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = gsnap_cli.main(["--check"])
+    log(f"gsnap main --check: {rc} ({err.getvalue().strip()!r}) [{smi}]")
+    if rc != 0:
+        raise AssertionError("gsnap main --check failed on the card")
+    # CPU == card, byte for byte
+    for extra in CLI_CPU_LISTS:
+        cli_cpu_card(base + list(extra) + [str(sub["dna_cpu"])], N_CLI_CPU,
+                     smi, int(0.99 * N_CLI_CPU) if "m8" in extra
+                     else N_CLI_CPU)
+    cli_cpu_card(base + ["-N", "1", "-s", str(d / "bench_splicesites.iit"),
+                         str(sub["rna_cpu"])], N_CLI_CPU_RNA, smi,
+                 N_CLI_CPU_RNA)
+    cli_cpu_card(base + [str(p) for p in pe_cpu], N_CLI_CPU_RNA, smi,
+                 2 * N_CLI_CPU_RNA)
+    return runs
+
+
+def k7a_wide_rows(reduce_ns):
+    """K7a's wide kernel (past 1,024 segments a problem; its arrays in
+    a global scratch) against its plain version at S = 1,025 and 2,048,
+    every segment valid, at N = 1 and at one wave of the one-warp floor's
+    model (64 problems an SM), with the bound of S one-warp steps at the
+    probe's step (k7a_row). No bench path has more than 512 segments a
+    problem, so it launches there 0 times."""
+    rng = np.random.default_rng(1025)
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for S in (1025, 2048):
+        for N in (1, nsm * 64):
+            starts = rng.integers(0, 4000, (N, S))
+            lens = rng.integers(0, 120, (N, S))
+            d = ((1 << 20) + rng.integers(0, 4000, (N, 1))
+                 + np.where(rng.random((N, S)) < 0.7, starts * 3,
+                            rng.integers(-500, 60_000, (N, S))))
+            segs = {k: torch.from_numpy(np.ascontiguousarray(
+                v, dtype=np.int32)).cuda() for k, v in (
+                ("diag", d), ("qstart", starts), ("qend", starts + lens),
+                ("weight", rng.integers(1, 40, (N, S))))}
+            segs["valid"] = torch.ones((N, S), dtype=torch.bool,
+                                       device="cuda")
+            row = k7a_row("wide kernel", (segs, 128, 500_000), reduce_ns)
+            row["symbols"] = ("chain_segments_wide_kernel",)
+            rows.append(row)
+    return check_rows(rows)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -2360,6 +2752,9 @@ def main():
         db, index, gmap_q, gmap_truth, gmap_enc, smi, jobs)
     rows += gmap_paths_rows(picks, reduce_ns, N_PATHS)
     del picks
+    rows += k7a_wide_rows(reduce_ns)
+    cli_runs = gsnap_cli_phase(bench_data, db, rfa, rna_rfa, (f1, f2), truth,
+                               smi)
 
     # GPU vs CPU (plain versions) on the first reads, same batching; the
     # last four on the mode index
@@ -2454,7 +2849,9 @@ def main():
               "snp": snp_launches, "gmap": gmap_launches,
               "gmap_paths": paths_launches, "gmap_chimeras": chim_launches,
               "rna_twopass": tw_launches, "rna_fusions": fus_launches,
-              "rna_tr": tr_launches, "pe_tr": pe_tr_launches}
+              "rna_tr": tr_launches, "pe_tr": pe_tr_launches,
+              "cli_dna": cli_runs["dna"], "cli_pe": cli_runs["pe"],
+              "cli_rna_known": cli_runs["rna_known"]}
     n_batches = {"dna": -(-len(reads) // B), "rna": -(-len(rna_reads) // RB),
                  "rna_known": -(-len(rna_reads) // RB),
                  "pe": -(-len(pe_pairs) // PB), "pe_repair": 1,
@@ -2463,7 +2860,9 @@ def main():
                  "gmap_paths": N_PATHS, "gmap_chimeras": len(cseqs),
                  "rna_twopass": -(-len(rna_reads) // RB),
                  "rna_fusions": -(-(RB + N_FUSION) // RB), "rna_tr": 1,
-                 "pe_tr": 1}
+                 "pe_tr": 1, "cli_dna": -(-len(reads) // 1024),
+                 "cli_pe": -(-len(pe_pairs) // 1024),
+                 "cli_rna_known": -(-len(rna_reads) // 1024)}
     per_batch = {name: {ph: launches[name] / n_batches[ph]
                         for ph, launches in phases.items()}
                  for name in SOURCES}

@@ -929,3 +929,51 @@ def test_gmap_main_genomic_segment_on_gpu(dev, tmp_path):
     assert buf.getvalue() == want and "Path 1" in want
     assert kernels.LAUNCHES["chain_segments"] > 0
     assert kernels.LAUNCHES["region_anchors"] > 0
+
+
+def gsnap_main_text(argv, device):
+    import io
+    from contextlib import redirect_stderr, redirect_stdout
+
+    from tpumap_torch.cli import gsnap_cli
+    buf, err = io.StringIO(), io.StringIO()
+    with redirect_stdout(buf), redirect_stderr(err):
+        assert gsnap_cli.main(argv + ["--device", device]) == 0
+    # align_records_isolated retries a failed group read by read and
+    # reports a failed read as unmapped; neither may happen here
+    assert "retrying reads individually" not in err.getvalue()
+    assert "reported as unmapped" not in err.getvalue()
+    return buf.getvalue().replace(f" --device {device}", "")
+
+
+@pytest.mark.parametrize("case", ["default", "rna_known", "paired_split"])
+def test_gsnap_main_on_gpu_matches_cpu(dev, tmp_path, case):
+    """The gsnap CLI on gsnap_cli_world (inputs from the port's own
+    tools): the bare command (the record path, K1-K3), -N 1 -s with the
+    splice-site map (K1, K5 and whatever scans the world's reads need)
+    and paired end with --split-output; the card's stdout and files are
+    the plain CPU run's."""
+    from torch_workloads import gsnap_cli_world
+    w = gsnap_cli_world(tmp_path, port=True)
+    extra = {"default": [w["R"]],
+             "rna_known": ["-N", "1", "-s", w["SS"], w["R"]],
+             "paired_split": ["--split-output", "{OUT}/s", w["R1"],
+                              w["R2"]]}[case]
+    texts = []
+    for device in ("cpu", "cuda"):
+        out = tmp_path / device
+        out.mkdir()
+        argv = ["-D", w["D"]] + [a.replace("{OUT}", str(out)) for a in extra]
+        kernels.reset_launches()
+        # the echoed command line names the run's directory and device
+        texts.append((gsnap_main_text(argv, device).replace(str(out), ""),
+                      {p.name: p.read_bytes().replace(str(out).encode(), b"")
+                       .replace(f" --device {device}".encode(), b"")
+                       for p in out.iterdir()}))
+    assert texts[1] == texts[0]
+    launched = {"default": DNA_KERNELS,
+                "rna_known": ("verify_diagonals", "chain_dp"),
+                "paired_split": ("verify_diagonals",)}[case]
+    assert all(kernels.LAUNCHES[k] > 0 for k in launched), kernels.LAUNCHES
+    assert texts[0][0].count("\n") + sum(
+        v.count(b"\n") for v in texts[0][1].values()) > 40

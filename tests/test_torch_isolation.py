@@ -156,6 +156,7 @@ for m in {mods!r}:
     importlib.import_module(m)
 from torch_workloads import mixed_workload, stream_pairs
 from tpumap_torch.gmap import maxent, translation
+from tpumap_torch.cli import gsnap_cli
 from tpumap_torch.gsnap import driver
 from tpumap_torch.gsnap.paired import align_paired_records
 from tpumap_torch.index.device import DeviceIndex
@@ -179,8 +180,8 @@ db.save(str(root / "db"))
                                    for r in reads))
 buf = io.StringIO()
 with redirect_stdout(buf):
-    driver.main(["-D", str(root / "db"), str(root / "r.fa"), "--device",
-                 "cpu", "--batch-size", "32"])
+    gsnap_cli.main(["-D", str(root / "db"), str(root / "r.fa"), "--device",
+                    "cpu", "--batch-size", "32", "-n", "1"])
 out.write(buf.getvalue().encode())
 assert sys.modules["jax"] is None
 assert not [m for m in sys.modules if m.split(".")[0] == "tpumap"]
@@ -434,6 +435,65 @@ assert not [m for m in sys.modules if m.split(".")[0] == "tpumap"]
     assert r.returncode == 0, r.stderr.decode()[-3000:]
     got = r.stdout.decode().split("=====\n")[:2]
     assert got == want and "cDNA_match" in want[0]
+
+
+def test_gsnap_main_and_tools_run_without_tpumap_and_jax(tmp_path):
+    """Where JAX and tpumap cannot be imported, the port's index and map
+    tools (build_cli, the converters, iit_cli store, trindex_cli,
+    snpindex_cli, modeindex_cli) make gsnap_cli_world's inputs, and
+    gsnap_cli.main --device cpu gives the in-process run's SAM on them:
+    DNA, -N 1 -s, paired, -c, -v and cmet."""
+    from tpumap_torch.cli import gsnap_cli
+    from torch_workloads import gsnap_cli_world
+    lists = [["{R}"], ["-N", "1", "-s", "{SS}", "{R}"], ["{R1}", "{R2}"],
+             ["-c", "tr", "{R}"], ["-A", "default", "{R}"]]
+
+    def argvs(w):
+        return ([["-D", w["D"], "--device", "cpu"]
+                 + [a.format(**w) for a in x] for x in lists]
+                + [["-D", w["SNPD"], "-v", w["R"], "--device", "cpu"],
+                   ["-D", w["CMETD"], "--mode", "cmet-stranded", w["R"],
+                    "--device", "cpu"]])
+
+    (tmp_path / "a").mkdir()
+    w = gsnap_cli_world(tmp_path / "a", port=True)
+    want = []
+    for argv in argvs(w):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            assert gsnap_cli.main(argv) == 0
+        want.append(buf.getvalue().replace(str(tmp_path / "a"), ""))
+    script = NO_TPUMAP + f"""
+import io, pathlib
+from contextlib import redirect_stdout
+sys.path[:0] = [{str(REPO)!r}, {str(REPO / "tests")!r}]
+import torch
+torch.set_num_threads(1)
+from torch_workloads import gsnap_cli_world
+from tpumap_torch.cli import gsnap_cli
+root = pathlib.Path({str(tmp_path / "b")!r})
+root.mkdir()
+w = gsnap_cli_world(root, port=True)
+lists = {lists!r}
+argvs = ([["-D", w["D"], "--device", "cpu"]
+          + [a.format(**w) for a in x] for x in lists]
+         + [["-D", w["SNPD"], "-v", w["R"], "--device", "cpu"],
+            ["-D", w["CMETD"], "--mode", "cmet-stranded", w["R"],
+             "--device", "cpu"]])
+for argv in argvs:
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        assert gsnap_cli.main(argv) == 0
+    sys.stdout.write(buf.getvalue().replace(str(root), "") + "=====\\n")
+assert sys.modules["jax"] is None
+assert not [m for m in sys.modules if m.split(".")[0] == "tpumap"]
+"""
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       timeout=600)
+    assert r.returncode == 0, r.stderr.decode()[-3000:]
+    got = r.stdout.decode().split("=====\n")[:len(want)]
+    assert got == want
+    assert all(text.count("\n") > 30 for text in want)
 
 
 def test_gmap_host_copies_match():

@@ -31,6 +31,7 @@ from tpumap.io.fasta import Record
 from tpumap.ops import pathdp as jpathdp
 from tpumap.utils import dna
 from tpumap.utils.fetch import device_fetch, narrow_result, widen_ints
+from tpumap_torch.cli import gsnap_cli
 from tpumap_torch.gsnap import driver, engine, ladder
 from tpumap_torch.gsnap.knownsplicing import coords_in_set, known_to_device
 from tpumap_torch.index.device import DeviceIndex
@@ -338,8 +339,8 @@ def test_known_world_sam(kworld, novel, sink):
 
 
 def test_main_known_splicing_cpu(kworld, tmp_path):
-    """driver.main -s with an IIT of the known introns on --device cpu
-    gives align_records(known=...)'s records."""
+    """gsnap_cli.main -s with an IIT of the known introns on --device
+    cpu (-n 1) gives align_records(known=...)'s records."""
     from tpumap.cli.iit_cli import store_main
     db, _ji, reads, ks, _batch, _want, _dicts = kworld
     db.save(str(tmp_path / "db"))
@@ -356,9 +357,9 @@ def test_main_known_splicing_cpu(kworld, tmp_path):
         store_main(["-o", str(tmp_path / "sp"), str(tmp_path / "sp.fa")])
     buf = io.StringIO()
     with redirect_stdout(buf):
-        driver.main(["-D", str(tmp_path / "db"), str(rfa), "--device",
-                     "cpu", "--batch-size", "64", "-s",
-                     str(tmp_path / "sp.iit")])
+        gsnap_cli.main(["-D", str(tmp_path / "db"), str(rfa), "--device",
+                        "cpu", "--batch-size", "64", "-n", "1", "-s",
+                        str(tmp_path / "sp.iit")])
     body = [ln for ln in buf.getvalue().splitlines()
             if not ln.startswith("@")]
     plus = KnownSplicing.from_junctions(ks.junctions[:, 0],

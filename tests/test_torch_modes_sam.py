@@ -6,7 +6,7 @@ atoi and ttoc libraries (both strands, substitutions, an N); cmet reads
 of a repeated block with -n 3 (secondaries in the strand's space);
 tests/test_snps.py's world with and without SNP tolerance (XW/XV);
 cmet with novel splicing on the stream workload's spliced genome; cmet
-and SNP-tolerant pairs; and driver.main with --mode and -v, which
+and SNP-tolerant pairs; and gsnap_cli.main with --mode and -v, which
 exits 2 on a database without a SNP index. tpumap runs once per
 configuration (module fixtures).
 """
@@ -26,6 +26,7 @@ from tpumap.index import build_db
 from tpumap.index.device import DeviceIndex as JaxIndex
 from tpumap.io.fasta import Record
 from tpumap.utils import dna
+from tpumap_torch.cli import gsnap_cli
 from tpumap_torch.gsnap import driver, engine, paired
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops.mode import add_mode_index
@@ -208,7 +209,7 @@ def test_cmet_novel_splicing_sam(tmp_path):
 def run_main(argv):
     out, err = io.StringIO(), io.StringIO()
     with redirect_stdout(out), redirect_stderr(err):
-        rc = driver.main(argv)
+        rc = gsnap_cli.main(argv + ["-n", "1"])
     body = "".join(ln + "\n" for ln in out.getvalue().splitlines()
                    if not ln.startswith("@"))
     return rc, body.encode(), err.getvalue()
@@ -240,11 +241,12 @@ def test_main_mode_and_snps_cpu(repeats, snps):
 
 
 def test_main_without_snp_db_exits_2(repeats):
-    """The module's exit code is main's: 2 for -v without a SNP index."""
+    """The gsnap CLI module's exit code is main's: 2 for -v without a
+    SNP index."""
     _db, _reads, _cfg, _want, root = repeats
     if not (root / "db" / "meta.json").exists():
         repeats[0].save(str(root / "db"))
-    r = subprocess.run([sys.executable, "-m", "tpumap_torch.gsnap.driver",
+    r = subprocess.run([sys.executable, "-m", "tpumap_torch.cli.gsnap_cli",
                         "-D", str(root / "db"), str(root / "missing.fa"),
                         "--device", "cpu", "-v"], capture_output=True,
                        timeout=300)

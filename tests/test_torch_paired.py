@@ -35,6 +35,7 @@ from tpumap.io.fasta import Record
 from tpumap.ops import pathdp as jpathdp
 from tpumap.utils import dna
 from tpumap.utils.fetch import device_fetch, widen_ints
+from tpumap_torch.cli import gsnap_cli
 from tpumap_torch.gsnap import driver, engine, ladder, paired
 from tpumap_torch.gsnap.knownsplicing import known_to_device
 from tpumap_torch.index.device import DeviceIndex
@@ -395,8 +396,9 @@ assert not [m for m in sys.modules if m.split(".")[0] == "tpumap"]
 # ------------------------------------------------------ entry point
 
 def test_main_paired_known_cpu(world, tmp_path):
-    """driver.main with a mate file, --pairmax, --orientation and -s (an
-    IIT of the known introns) on --device cpu gives tpumap's pairs."""
+    """gsnap_cli.main with a mate file, --pairmax, --orientation and -s
+    (an IIT of the known introns) on --device cpu gives tpumap's
+    pairs."""
     from tpumap.cli.iit_cli import store_main
     db, pairs, _owner, ks, want, _dicts = world
     db.save(str(tmp_path / "db"))
@@ -416,7 +418,7 @@ def test_main_paired_known_cpu(world, tmp_path):
             str(tmp_path / "sp.iit")]
     buf = io.StringIO()
     with redirect_stdout(buf):
-        driver.main(argv)
+        gsnap_cli.main(argv)
     body = "".join(ln + "\n" for ln in buf.getvalue().splitlines()
                    if not ln.startswith("@"))
     assert body.encode() == want["known"]
@@ -426,8 +428,8 @@ def test_main_paired_refuses_missing_card(world, tmp_path, monkeypatch):
     db, pairs, _owner, _ks, _want, _dicts = world
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
-        driver.main(["-D", str(tmp_path / "db"), str(tmp_path / "r1.fa"),
-                     str(tmp_path / "r2.fa"), "--pairmax", "1000"])
+        gsnap_cli.main(["-D", str(tmp_path / "db"), str(tmp_path / "r1.fa"),
+                        str(tmp_path / "r2.fa"), "--pairmax", "1000"])
 
 
 @pytest.mark.parametrize("option", ["tr", "known_indels", "device_ctx",

@@ -34,6 +34,7 @@ from tpumap.ops import pathdp as jpathdp
 from tpumap.ops import verify as jverify
 from tpumap.utils import dna
 from tpumap.utils.fetch import device_fetch, widen_ints
+from tpumap_torch.cli import gsnap_cli
 from tpumap_torch.gsnap import driver, engine, ladder
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops import localscan, pathdp, verify
@@ -343,17 +344,18 @@ assert not [m for m in sys.modules if m.split(".")[0] == "tpumap"]
 
 
 def test_main_on_cpu_and_no_silent_fallback(mixed, tmp_path, monkeypatch):
-    """driver.main runs on the CPU only when asked (--device cpu), and
-    refuses the default cuda device where there is none."""
+    """gsnap_cli.main runs on the CPU only when asked (--device cpu),
+    and refuses the default cuda device where there is none."""
     db, _ji, ti, reads, _want = mixed
     db.save(str(tmp_path / "db"))
     rfa = tmp_path / "reads.fa"
     rfa.write_text("".join(f">{r.accession}\n{r.sequence}\n" for r in reads))
     argv = ["-D", str(tmp_path / "db"), str(rfa), "--device", "cpu",
-            "--batch-size", "32", "-N", "1", "--max-intron", "200000"]
+            "--batch-size", "32", "-N", "1", "--max-intron", "200000",
+            "-n", "1"]
     buf = io.StringIO()
     with redirect_stdout(buf):
-        driver.main(argv)
+        gsnap_cli.main(argv)
     body = [ln for ln in buf.getvalue().splitlines()
             if not ln.startswith("@")]
     want = sam_text(driver.align_records(
@@ -362,4 +364,4 @@ def test_main_on_cpu_and_no_silent_fallback(mixed, tmp_path, monkeypatch):
     assert body == want and any("N" in ln.split("\t")[5] for ln in body)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
-        driver.main(argv[:3])
+        gsnap_cli.main(argv[:3])

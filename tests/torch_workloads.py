@@ -368,3 +368,188 @@ def gmap_world(root, port=False, seed=5, n=24):
     qfa.write_text("".join(f">c{i} cdna\n{s}\n" for i, s in enumerate(recs)))
     return db, [h.Record(f"c{i}", "cdna", s)
                 for i, s in enumerate(recs)], qfa
+
+
+def _fq(name, desc, seq, qual):
+    return f"@{name}{' ' + desc if desc else ''}\n{seq}\n+\n{qual}\n"
+
+
+def gsnap_cli_world(root, port=False):
+    """The inputs of the gsnap CLI tests, every file made by one package's
+    own tools (build_cli, the converters, iit_cli store, trindex_cli,
+    snpindex_cli and modeindex_cli of tpumap, or of the port with
+    port=True).
+
+    A 42 kbp genome of two chromosomes: chr1 with a three-exon gene on
+    the plus strand (GT..AG introns) and a two-exon gene on the minus
+    strand (CT..AC), and a 2 kbp segment copied 8 kbp away (reads from it
+    have two co-optimal loci); chr2 for the distant halves of fusion
+    reads. Reads are 110 bp FASTQ with an Illumina chastity field
+    (every seventh filtered): substitutions on both strands, the
+    duplicated segment, junctions of both genes, 3-base deletions,
+    2-base insertions, fusions, soft-clipped ends, random reads and an N
+    run. Pairs (FR, inserts 300, two overlapping, one adapter
+    read-through, one random mate), the same interleaved, a read-2 file
+    whose names disagree, 10x barcode reads with a whitelist, the genes
+    as GFF3 with their splice-site map (.iit and a KnownSplicing .npz)
+    and transcriptome "tr", a learned-indel table, and two more dbs:
+    SNP-tolerant (from a VCF) and cmet.
+    Returns a dict of paths (str)."""
+    import io
+    import shutil
+    from contextlib import redirect_stdout
+    if port:
+        from tpumap_torch.cli import (build_cli, converters, iit_cli,
+                                      modeindex_cli, snpindex_cli,
+                                      trindex_cli)
+        from tpumap_torch.gsnap.knownindels import KnownIndels
+        from tpumap_torch.gsnap.knownsplicing import KnownSplicing
+        from tpumap_torch.index.build import GenomeDB
+        from tpumap_torch.io.iit import IIT
+        from tpumap_torch.utils import dna
+    else:
+        from tpumap.cli import (build_cli, converters, iit_cli,
+                                modeindex_cli, snpindex_cli, trindex_cli)
+        from tpumap.gsnap.knownindels import KnownIndels
+        from tpumap.gsnap.knownsplicing import KnownSplicing
+        from tpumap.index.build import GenomeDB
+        from tpumap.io.iit import IIT
+        from tpumap.utils import dna
+    rng = np.random.default_rng(23)
+    c1 = list("ACGT"[i] for i in rng.integers(0, 4, 30_000))
+    c2 = "".join("ACGT"[i] for i in rng.integers(0, 4, 12_000))
+    for a, b in ((2200, 3000), (3150, 4000)):       # gene A introns
+        c1[a:a + 2], c1[b - 2:b] = list("GT"), list("AG")
+    c1[8200:8202], c1[8998:9000] = list("CT"), list("AC")   # gene B
+    c1[20_000:22_000] = c1[12_000:14_000]
+    c1 = "".join(c1)
+    (root / "g.fa").write_text(f">chr1\n{c1}\n>chr2\n{c2}\n")
+    out = {k: str(root / v) for k, v in (
+        ("FA", "g.fa"), ("R", "r.fq"), ("R1", "r1.fq"), ("R2", "r2.fq"),
+        ("RI", "ri.fq"), ("R2BAD", "r2bad.fq"), ("RGZ", "r.fq.gz"),
+        ("WL", "wl.txt"), ("SC1", "sc1.fq"), ("SC2", "sc2.fq"),
+        ("GFF", "genes.gff3"), ("SS", "ss.iit"), ("SSNPZ", "ss.npz"),
+        ("GENES", "genes.iit"), ("INDELS", "indels.npz"),
+        ("VCF", "snps.vcf"))}
+    with redirect_stdout(io.StringIO()):
+        build_cli.main(["-D", str(root), "-d", "g", "-k", "12", "-q", "3",
+                        str(root / "g.fa")])
+    out["D"] = str(root / "g")
+
+    def qual(n, r):
+        return "".join("#" if (j * 7 + r) % 23 == 0 else "I"
+                       for j in range(n))
+
+    def mut(s, js):
+        s = list(s)
+        for j in js:
+            s[j] = "ACGT"[("ACGT".index(s[j]) + 1) % 4]
+        return "".join(s)
+
+    reads = []
+    for r in range(22):
+        chrom, seq = (("chr1", c1) if r % 3 else ("chr2", c2))
+        p = int(rng.integers(0, len(seq) - 110))
+        if chrom == "chr1" and 11_900 < p < 22_100:
+            p -= 10_000
+        s = mut(seq[p:p + 110], rng.integers(0, 110, r % 3))
+        reads.append(dna.revcomp(s) if r % 2 else s)
+    reads += [c1[12_100 + 250 * r:12_210 + 250 * r] for r in range(6)]
+    for off in (20, 45, 70, 90):
+        reads.append(c1[2200 - off:2200] + c1[3000:3110 - off])
+        reads.append(dna.revcomp(c1[3150 - off:3150] + c1[4000:4110 - off]))
+    for off in (30, 75):
+        reads.append(c1[8200 - off:8200] + c1[9000:9110 - off])
+    for p in (5000, 6000):
+        reads.append(c1[p:p + 50] + c1[p + 53:p + 113])
+        reads.append(c1[p + 300:p + 350] + "TG" + c1[p + 350:p + 408])
+    for p, q in ((5500, 3000), (16_000, 7000), (24_000, 9500)):
+        reads.append(c1[p:p + 55] + c2[q:q + 55])
+    reads.append(mut(c1[17_000:17_110], range(102, 110)))
+    reads.append(dna.revcomp(mut(c2[4000:4110], range(0, 7))))
+    reads += ["".join("ACGT"[i] for i in rng.integers(0, 4, 110))
+              for _ in range(2)]
+    reads.append(c1[18_000:18_040] + "N" * 12 + c1[18_052:18_110])
+    (root / "r.fq").write_text("".join(
+        _fq(f"r{i}", f"1:{'Y' if i % 7 == 6 else 'N'}:0:ACGT", s,
+            qual(len(s), i)) for i, s in enumerate(reads)))
+    (root / "r.fq.gz").write_bytes(
+        __import__("gzip").compress((root / "r.fq").read_bytes()))
+
+    pairs = []
+    for r in range(14):
+        p = int(rng.integers(0, 30_000 - 400))
+        if 11_900 < p < 22_100:
+            p -= 10_000
+        ins = 300 if r != 13 else 160           # the last one overlaps
+        pairs.append((c1[p:p + 110], dna.revcomp(c1[p + ins - 110:p + ins])))
+    pairs.append((c1[7000:7110], dna.revcomp(c1[7050:7160])))
+    frag = c1[26_000:26_070]
+    adapter = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCAC"
+    pairs.append((frag + adapter[:40], dna.revcomp(frag) + adapter[:40]))
+    pairs.append((c2[2000:2110],
+                  "".join("ACGT"[i] for i in rng.integers(0, 4, 110))))
+    pairs.append((c1[2150:2200] + c1[3000:3060],
+                  dna.revcomp(c1[3100:3150] + c1[4000:4060])))
+    m1 = [_fq(f"p{i}/1", f"1:{'Y' if i == 5 else 'N'}:0:AC", a,
+              qual(len(a), i)) for i, (a, _b) in enumerate(pairs)]
+    m2 = [_fq(f"p{i}/2", f"2:{'Y' if i in (5, 9) else 'N'}:0:AC", b,
+              qual(len(b), i + 1)) for i, (_a, b) in enumerate(pairs)]
+    (root / "r1.fq").write_text("".join(m1))
+    (root / "r2.fq").write_text("".join(m2))
+    (root / "ri.fq").write_text("".join(a + b for a, b in zip(m1, m2)))
+    (root / "r2bad.fq").write_text("".join(
+        m.replace(f"@p{i}/2", f"@x{i}/2") for i, m in enumerate(m2)))
+
+    wl = ["AAAACCCCGGGGTTTT", "ACGTACGTACGTACGT", "TTTTGGGGCCCCAAAA"]
+    (root / "wl.txt").write_text("".join(b + "-1\n" for b in wl))
+    bcs = [wl[1], wl[0], "TAAACCCCGGGGTTTT", "CCAACCCCGGGGTTTT"]
+    (root / "sc1.fq").write_text("".join(
+        _fq(f"c{i}:1:2:3:{i + 4}", "", bc + "GATTACAGATTA", "I" * 28)
+        for i, bc in enumerate(bcs)))
+    (root / "sc2.fq").write_text("".join(
+        _fq(f"c{i}:1:2:3:{i + 4}", "", c1[9500 + 400 * i:9610 + 400 * i],
+            qual(110, i)) for i in range(4)))
+
+    (root / "genes.gff3").write_text(
+        "##gff-version 3\n"
+        "chr1\tt\tgene\t2001\t4300\t.\t+\t.\tID=gA;Name=GENEA\n"
+        "chr1\tt\tmRNA\t2001\t4300\t.\t+\t.\tID=tA;Parent=gA\n"
+        "chr1\tt\texon\t2001\t2200\t.\t+\t.\tParent=tA\n"
+        "chr1\tt\texon\t3001\t3150\t.\t+\t.\tParent=tA\n"
+        "chr1\tt\texon\t4001\t4300\t.\t+\t.\tParent=tA\n"
+        "chr1\tt\tgene\t8001\t9200\t.\t-\t.\tID=gB;Name=GENEB\n"
+        "chr1\tt\tmRNA\t8001\t9200\t.\t-\t.\tID=tB;Parent=gB\n"
+        "chr1\tt\texon\t9001\t9200\t.\t-\t.\tParent=tB\n"
+        "chr1\tt\texon\t8001\t8200\t.\t-\t.\tParent=tB\n")
+    for conv, name in ((converters.gff3_splicesites_main, "ss"),
+                       (converters.gff3_genes_main, "genes")):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            conv([str(root / "genes.gff3")])
+        (root / f"{name}.txt").write_text(buf.getvalue())
+        iit_cli.store_main(["-o", str(root / name), str(root / f"{name}.txt")])
+    db = GenomeDB.load(out["D"])
+    KnownSplicing.from_splicing_iit(IIT.read(out["SS"]), db).dump(
+        out["SSNPZ"])
+    KnownIndels(np.array([5050, 6350], np.uint64),
+                np.array([-3, 2], np.int32),
+                np.array([4, 3], np.int64)).dump(out["INDELS"])
+    with redirect_stdout(io.StringIO()):
+        trindex_cli.main(["-D", out["D"], "-c", "tr", out["GENES"]])
+
+    snps = [(p, c1[p - 1]) for p in range(1001, 30_000, 997)]
+    (root / "snps.vcf").write_text("##fileformat=VCFv4.2\n" + "".join(
+        f"chr1\t{p}\trs{p}\t{b}\t{'ACGT'[('ACGT'.index(b) + 1) % 4]}\t.\t.\t.\n"
+        for p, b in snps))
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        converters.vcf_iit_main([str(root / "snps.vcf")])
+    (root / "snps.txt").write_text(buf.getvalue())
+    iit_cli.store_main(["-o", str(root / "snps"), str(root / "snps.txt")])
+    for name in ("gsnp", "gcmet"):
+        shutil.copytree(out["D"], root / name)
+        out[name.upper()[1:] + "D"] = str(root / name)
+    snpindex_cli.main(["-D", out["SNPD"], str(root / "snps.iit")])
+    modeindex_cli.main_cmet(["-D", out["CMETD"]])
+    return out

@@ -13,12 +13,16 @@ Package layout:
                        paired end, novel and known splicing)
   tpumap_torch.gmap    GMAP cDNA alignment: stage 1, the chain stage's
                        device half, the host exon refinement, chimeras
-  tpumap_torch.cli     the GMAP entry point (gmap_cli: every option of
-                       tpumap's gmap, the default -n 5 path, -x, -g and
-                       the bulk path), gsnap_cli's shared helpers
-  tpumap_torch.io      FASTA/FASTQ, IIT maps, SAM records and bulk
-                       emitters, GFF3, GMAP's PSL/SAM printers and its
-                       alignment text (alignfmt: -A, -S, -3, -4, -f 9)
+  tpumap_torch.cli     the entry points: gsnap_cli and gmap_cli (every
+                       option of tpumap's gsnap and gmap), and the tools
+                       that make their inputs (build_cli, iit_cli,
+                       snpindex_cli, modeindex_cli, trindex_cli,
+                       converters)
+  tpumap_torch.io      FASTA/FASTQ and read preprocessing, IIT maps (read
+                       and write), SAM records and bulk emitters, GSNAP's
+                       native format and m8, GFF3, GMAP's PSL/SAM
+                       printers and its alignment text (alignfmt)
+  tpumap_torch.parallel  gsnap -O's ordered output merge (one process)
   tpumap_torch/data/   the MaxEnt splice-model tables (a copy of
                        tpumap/data/maxent_tables.npz)
   tpumap_torch.native  the C++ tokenizer and SAM emitters (g++ at first use)

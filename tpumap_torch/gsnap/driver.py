@@ -1,6 +1,6 @@
 """Host driver of the port: batching, the fused ladder and the staged
-path, SAM output (port of the single-end path of
-tpumap/gsnap/driver.py) and the command line, single and paired end.
+path, SAM output and failure isolation (port of the single-end path of
+tpumap/gsnap/driver.py); the command line is tpumap_torch.cli.gsnap_cli.
 
 The host half here is a JAX-free copy of tpumap's: `make_batch` packs a
 batch in one C pass, the fused ladder runs on the index's device, and
@@ -42,7 +42,7 @@ from tpumap_torch.gsnap.engine import (AlignConfig, align_batch_cascaded,
                                        align_batch_cascaded_packed,
                                        mapq_from_scores, refine_indels,
                                        refine_splices)
-from tpumap_torch.gsnap.knownsplicing import KnownSplicing, known_to_device
+from tpumap_torch.gsnap.knownsplicing import known_to_device
 from tpumap_torch.gsnap.params import (CHAIN_K, CLIP_INDEL_TRIGGER,
                                        CLIP_SPLICE_TRIGGER, INDEL_BAND,
                                        INDEL_MARGIN, INDEL_NMM_TRIGGER,
@@ -54,8 +54,7 @@ from tpumap_torch.gsnap.spliceends import (AMB_MAX, NC_REVIEW_MAX,
 from tpumap_torch.index.build import GenomeDB
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.io import sam, sam_bulk
-from tpumap_torch.io.fasta import Record, read_seqs
-from tpumap_torch.io.iit import IIT
+from tpumap_torch.io.fasta import Record
 from tpumap_torch.ops import dp as dp_ops
 from tpumap_torch.ops import localscan, pathdp, verify
 from tpumap_torch.ops.mode import MODE_SPACES
@@ -1681,74 +1680,56 @@ def _secondaries(db, rec, res, i, sec, mapq: int, npaths: int, spaces):
     return secs or None
 
 
+def align_records_isolated(db, index, records, config=AlignConfig(),
+                           batch_size: int = 1024, **kw):
+    """Failure isolation (SURVEY §5 / the reference's signal handler that
+    prints the problem read, src/gmap.c:4651-4708): align in batch_size
+    groups; a group that raises is quarantined and re-run one read at a
+    time, so a single poison read costs one batch retry instead of the
+    whole run, and its accession is reported on stderr. Reads that still
+    fail are emitted as unmapped records.
 
-def main(argv=None):
-    import argparse
-    ap = argparse.ArgumentParser(prog="tpumap_torch-gsnap")
-    ap.add_argument("-D", "--dir", required=True, help="database directory")
-    ap.add_argument("reads", help="FASTA/FASTQ file (mate 1 when paired)")
-    ap.add_argument("mates", nargs="?",
-                    help="FASTA/FASTQ file of mate 2: paired-end run")
-    ap.add_argument("--batch-size", type=int, default=1024)
-    ap.add_argument("--device", default="cuda",
-                    help="torch device of the index and the ladder "
-                         "(default cuda; cpu runs the plain versions)")
-    ap.add_argument("-N", "--novelsplicing", type=int, choices=(0, 1),
-                    default=0, help="look for novel splice junctions")
-    ap.add_argument("-w", "--max-intron", type=int, default=200_000,
-                    help="longest novel intron (bp)")
-    ap.add_argument("-s", "--use-splicing", dest="use_splicing",
-                    help="known splice sites/introns map (.iit from "
-                         "iit_store, or .npz from --splices-dump)")
-    ap.add_argument("--pairmax", type=int, default=2000,
-                    help="longest concordant insert (paired end)")
-    ap.add_argument("--orientation", default="FR", choices=["FR", "RF", "FF"],
-                    help="paired-end orientation")
-    ap.add_argument("--mode", default="standard", choices=list(MODE_SPACES),
-                    help="alignment mode (cmet: bisulfite, atoi/ttoc: RNA "
-                         "editing; the db needs tpumap-cmetindex or "
-                         "tpumap-atoiindex)")
-    ap.add_argument("-v", "--use-snps", dest="use_snps", action="store_true",
-                    help="SNP-tolerant alignment (db must be prepared with "
-                         "tpumap-snpindex)")
-    args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("tpumap_torch-gsnap: no CUDA device (pass "
-                         "--device cpu to run the plain versions)")
-    db = GenomeDB.load(args.dir)
-    if args.use_snps and "snp" not in (db.mode_indexes or {}):
-        sys.stderr.write("error: -v requires a SNP-tolerant database "
-                         "(run tpumap-snpindex first)\n")
-        return 2
-    known = None
-    if args.use_splicing:
-        if args.use_splicing.endswith(".npz"):
-            known = KnownSplicing.load(args.use_splicing)
-        else:
-            known = KnownSplicing.from_splicing_iit(
-                IIT.read(args.use_splicing), db)
-    index = DeviceIndex.from_host(db, device)
-    records = list(read_seqs(args.reads))
-    kw = dict(config=AlignConfig(mode=args.mode,
-                                 snp_tolerant=args.use_snps),
-              batch_size=args.batch_size,
-              novelsplicing=bool(args.novelsplicing),
-              max_intron=args.max_intron, known=known)
-    sys.stdout.write(sam.header(db, " ".join(argv or sys.argv)))
-    if args.mates is None:
-        for r in align_records(db, index, records, **kw):
-            sys.stdout.write(r.lines())
-        return 0
-    from tpumap_torch.gsnap.paired import align_paired_records
-    pairs = list(zip(records, read_seqs(args.mates)))
-    for r1, r2 in align_paired_records(db, index, pairs,
-                                       pairmax=args.pairmax,
-                                       orientation=args.orientation, **kw):
-        sys.stdout.write(r1.lines())
-        sys.stdout.write(r2.lines())
-    return 0
+    With sink=..., each group's streamed bytes are buffered locally and
+    flushed only when the group succeeds, so a quarantine retry never
+    duplicates partial output."""
+    sink = kw.pop("sink", None)
 
+    def run(grp):
+        if sink is None:
+            return align_records(db, index, grp, config,
+                                 batch_size=batch_size, **kw)
+        chunks = []
+        align_records(db, index, grp, config, batch_size=batch_size,
+                      sink=chunks.append, **kw)
+        for c in chunks:
+            sink(c)
+        return []
 
-if __name__ == "__main__":
-    sys.exit(main())
+    out = []
+    for i in range(0, len(records), batch_size):
+        grp = records[i:i + batch_size]
+        try:
+            out.extend(run(grp))
+            continue
+        except KeyboardInterrupt:
+            raise
+        except Exception as exc:
+            sys.stderr.write(f"warning: batch starting at read {i} failed "
+                             f"({type(exc).__name__}: {exc}); retrying "
+                             f"reads individually\n")
+        for rec in grp:
+            try:
+                out.extend(run([rec]))
+            except KeyboardInterrupt:
+                raise
+            except Exception as exc:
+                sys.stderr.write(f"error: read {rec.accession} failed "
+                                 f"({type(exc).__name__}: {exc}); "
+                                 f"reported as unmapped\n")
+                unm = sam.unmapped_record(rec.accession, rec.sequence,
+                                          rec.quality)
+                if sink is not None:
+                    sink(unm.lines().encode())
+                else:
+                    out.append(unm)
+    return out

@@ -7,7 +7,8 @@ of the reference's indexdb offsets/positions pair, src/indexdb.c), plus
 the mode and SNP tables. `save`/`load` read and write tpumap's directory
 format (meta.json + arrays.npz + mode_<space>.npz), so a database built
 by either package loads in the other. The mode tables are built by
-tpumap_torch.ops.mode.add_mode_index.
+GenomeDB.add_mode_index (tpumap_torch.ops.mode.add_mode_index); the
+`.genomecomp` writer is the reference-format parity oracle of tpumap's.
 """
 from __future__ import annotations
 
@@ -132,6 +133,14 @@ class GenomeDB:
         return len(snp_coords)
 
     # --- host-side sequence access (for output printers / splice models) ---
+
+    def add_mode_index(self, space: str) -> None:
+        """Build a base-space-transformed k-mer index (cmetindex/atoiindex
+        equivalent): k-mers hashed in the reduced alphabet so converted
+        reads still seed (src/cmetindex.c, src/atoiindex.c). The table is
+        tpumap_torch.ops.mode.add_mode_index's."""
+        from tpumap_torch.ops.mode import add_mode_index
+        add_mode_index(self, space)
 
     def get_codes(self, start: int, length: int) -> np.ndarray:
         """2-bit codes for univcoords [start, start+length)."""
@@ -258,6 +267,35 @@ class GenomeDB:
                    genomealt_packed=(z["genomealt_packed"]
                                      if "genomealt_packed" in z else None))
 
+    # --- reference-format parity writer ---
+
+    def write_genomecomp(self, path: str) -> None:
+        """Write the reference `.genomecomp` file (parity oracle).
+
+        Layout per 32-base block: uint32 high (bases 16..31), uint32 low
+        (bases 0..15), uint32 flags (bit i = non-ACGT); final partial block
+        padded with X (T+flag); two trailing 0xFFFFFFFF sentinel words.
+        """
+        L = self.genome_length
+        nblocks = (L + 31) // 32
+        codes = np.zeros(nblocks * 32, dtype=np.uint8)
+        codes[:L] = dna.unpack_2bit(self.genome_packed, L)
+        flags = np.zeros(nblocks * 32, dtype=bool)
+        flags[:L] = self.get_nmask(0, L).astype(bool)
+        codes[L:] = 3       # X = T + flag
+        flags[L:] = True
+        lanes = codes.reshape(nblocks, 32).astype(np.uint32)
+        shifts = (2 * np.arange(16, dtype=np.uint32))[None, :]
+        low = (lanes[:, :16] << shifts).sum(axis=1, dtype=np.uint32)
+        high = (lanes[:, 16:] << shifts).sum(axis=1, dtype=np.uint32)
+        fbits = (flags.reshape(nblocks, 32).astype(np.uint32)
+                 << np.arange(32, dtype=np.uint32)[None, :]).sum(axis=1, dtype=np.uint32)
+        out = np.empty(nblocks * 3 + 2, dtype="<u4")
+        out[0:-2:3] = high
+        out[1:-2:3] = low
+        out[2:-2:3] = fbits
+        out[-2:] = 0xFFFFFFFF
+        out.tofile(path)
 
 
 def build_db(fasta_paths, name: str = "genome", k: int = 15, interval: int = 3,

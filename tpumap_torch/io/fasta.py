@@ -1,5 +1,5 @@
-"""FASTA/FASTQ readers (host input pipeline; the readers of
-tpumap/io/fasta.py).
+"""FASTA/FASTQ readers (host input pipeline) and the read preprocessing
+of the gsnap CLI: a copy of tpumap/io/fasta.py.
 
 Replaces the reference's input layer (src/sequence.c for GMAP queries,
 src/shortread.c for GSNAP FASTA/FASTQ) with a simple streaming parser.
@@ -109,3 +109,141 @@ def read_seqs(path, read_files_command: str | None = None
     if first == "@":
         return read_fastq(fh)
     return read_fasta(fh)
+
+
+@dataclass
+class ReadOptions:
+    """Input preprocessing knobs (src/shortread.c / src/gsnap.c input
+    options): barcode/end trimming, FASTQ identifier field selection,
+    chastity filtering, quality-score protocol."""
+    barcode_length: int = 0        # --barcode-length
+    endtrim_length: int = 0        # --endtrim-length
+    fastq_id_start: int = 1        # --fastq-id-start (1-based field)
+    fastq_id_end: int = 1          # --fastq-id-end
+    filter_chastity: str = "off"   # off | either | both
+    quality_shift: int = 0         # -j/--quality-print-shift
+    quality_zero: int = 33         # -J/--quality-zero-score
+
+    @property
+    def active(self) -> bool:
+        return (self.barcode_length > 0 or self.endtrim_length > 0
+                or self.fastq_id_start != 1 or self.fastq_id_end != 1
+                or self.quality_shift != 0)
+
+
+def chastity_fail(rec: Record) -> bool:
+    """True if the Illumina chastity field marks this read as filtered:
+    description like '1:Y:0:CTTGTA' (src/shortread.c chastity parsing,
+    gsnap --filter-chastity help text)."""
+    field0 = rec.description.split(" ", 1)[0] if rec.description else ""
+    parts = field0.split(":")
+    return len(parts) >= 2 and parts[0].isdigit() and parts[1] == "Y"
+
+
+def apply_read_options(rec: Record, opts: ReadOptions) -> Record:
+    """Trim barcode/end, reselect the accession fields, shift quality."""
+    if opts.fastq_id_start != 1 or opts.fastq_id_end != 1:
+        fields = (rec.accession + " " + rec.description).split()
+        lo, hi = opts.fastq_id_start - 1, opts.fastq_id_end
+        if fields[lo:hi]:
+            rec.accession = " ".join(fields[lo:hi])
+            rec.description = ""
+    seq, qual = rec.sequence, rec.quality
+    if opts.barcode_length > 0:
+        seq = seq[opts.barcode_length:]
+        if qual:
+            qual = qual[opts.barcode_length:]
+    if opts.endtrim_length > 0:
+        seq = seq[:-opts.endtrim_length] if opts.endtrim_length < len(seq) \
+            else ""
+        if qual:
+            qual = qual[:len(seq)]
+    if qual and opts.quality_shift:
+        qual = "".join(chr(min(126, max(33, ord(c) + opts.quality_shift)))
+                       for c in qual)
+    rec.sequence, rec.quality = seq, qual
+    return rec
+
+
+def preprocess_reads(it: Iterator[Record],
+                     opts: ReadOptions) -> Iterator[Record]:
+    """Single-end preprocessing: chastity skip + per-read transforms."""
+    for rec in it:
+        # single-end: 'both' means the only end ('either' likewise)
+        if opts.filter_chastity != "off" and chastity_fail(rec):
+            continue
+        yield apply_read_options(rec, opts) if opts.active else rec
+
+
+def preprocess_pairs(it, opts: ReadOptions):
+    """Paired preprocessing: chastity either/both semantics + transforms."""
+    for r1, r2 in it:
+        if opts.filter_chastity != "off":
+            c1, c2 = chastity_fail(r1), chastity_fail(r2)
+            if opts.filter_chastity == "either" and (c1 or c2):
+                continue
+            if opts.filter_chastity == "both" and c1 and c2:
+                continue
+        if opts.active:
+            r1, r2 = apply_read_options(r1, opts), apply_read_options(r2, opts)
+        yield r1, r2
+
+
+def check_pair_names(r1: Record, r2: Record) -> bool:
+    """Paired accessions must match after stripping /1, /2 (or .1/.2)
+    suffixes (src/shortread.c Shortread_strip_subscripts)."""
+
+    def base(acc: str) -> str:
+        if len(acc) >= 2 and acc[-2] == "/" and acc[-1] in "12":
+            return acc[:-2]
+        return acc
+
+    return base(r1.accession) == base(r2.accession)
+
+
+def strip_adapters_pair(r1: Record, r2: Record,
+                        min_overlap: int = 12) -> tuple[Record, Record]:
+    """gsnap -a/--adapter-strip=paired (src/shortread.c chop_primers):
+    detect paired-end read-through — the fragment is shorter than the
+    read length, so each read runs into the other end's adapter — and
+    trim both reads down to the fragment.
+
+    Model: fragment F of length f; r1 = F[:L1] (+adapter if f < L1),
+    rc(r2) = F[f-L2:f] (+adapter bases before, if f < L2). For each
+    candidate f the overlap of r1 and rc(r2) in fragment coordinates is
+    checked; the best high-identity overlap wins.
+    """
+    from tpumap_torch.utils import dna as _dna
+    s1, s2 = r1.sequence, r2.sequence
+    L1, L2 = len(s1), len(s2)
+    if L1 < min_overlap or L2 < min_overlap:
+        return r1, r2
+    rc2 = _dna.revcomp(s2)
+    best_f, best_score = None, 0
+    for f in range(min_overlap, L1 + L2 - min_overlap + 1):
+        lo, hi = max(0, f - L2), min(L1, f)
+        ov = hi - lo
+        if ov < min_overlap:
+            continue
+        a = s1[lo:hi]
+        b = rc2[lo - (f - L2):hi - (f - L2)]
+        mm = sum(1 for x, y in zip(a, b) if x != y)
+        if mm > ov // 12:
+            continue
+        score = ov - 4 * mm
+        if score > best_score:
+            best_score, best_f = score, f
+    if best_f is None or best_f >= max(L1, L2):
+        return r1, r2          # no read-through evidence
+    f = best_f
+    if f < L1:
+        r1.sequence = s1[:f]
+        if r1.quality:
+            r1.quality = r1.quality[:f]
+    if f < L2:
+        # read 2 sequences from the fragment's far end: its first f bases
+        # are fragment, the rest adapter
+        r2.sequence = s2[:f]
+        if r2.quality:
+            r2.quality = r2.quality[:f]
+    return r1, r2

@@ -1,16 +1,33 @@
-"""IIT (interval index tree) map files: the reader and the range queries
-of tpumap/io/iit.py, as far as known splicing (-s) and gmap's map hits
-(-m) reach them, and the in-memory builder the
-transcriptome takes its genes map from.
+"""IIT (interval index tree) file format: read, write, query.
 
-Reads the reference's versioned interval-tree-on-disk format
-(src/iitdef.h:40-80): version 1 ("univ", no divisions) and versions 2-6
-("div", one division per chromosome, intervals with a sign).
-`parse_map_fasta` and `build_iit` assemble an IIT from iit_store's
-FASTA-format input (divisions in the reference's chromosome order);
-`IIT.interval` reads one back, and `IIT.get` queries a division for
-the intervals that overlap a range (gmap -m). tpumap's file writer
-(and its FNode tree build) is not here.
+Binary-compatible reimplementation of the reference's versioned
+interval-tree-on-disk format (src/iitdef.h:40-80, src/iit-write.c:360-416
+layout comment, src/iit-write-univ.c:344-368 for version 1), so map files
+produced by the reference tools (iit_store, gff3_splicesites | iit_store,
+etc.) load directly, and files we write load in the reference.
+
+Two on-disk layouts:
+
+* version 1 ("univ"): no divisions; used for <db>.chromosome.iit /
+  <db>.contig.iit and for iit_store inputs without chromosomes.
+  Layout: nintervals (negative => 8-byte coords), ntypes, nnodes,
+  sigmas/omegas (n+1 ints), FNodes, intervals (low, high, type),
+  typepointers/strings, labelorder, labelpointers, labels,
+  annotpointers, annotations.
+
+* versions 2-6 ("div"): starts with int 0 then the version number;
+  multiple divisions (chromosomes), per-div alphas/betas/sigmas/omegas +
+  FNode trees, intervals carry a sign; version >= 5 stores the
+  rest-of-header line with the annotation (src/iit-read.c IIT_annotation:
+  "" => empty; leading '\n' => no rest-of-header); version 6 adds a
+  valueorder/values section.
+
+The FNode tree build reproduces src/iit-write.c Node_make/node_select so
+trees (and hence whole files) are byte-identical to the reference's.
+
+The port's copy of tpumap/io/iit.py: reader, range queries, writer and
+the iit_store-style builder, so each package reads the files the other
+writes, byte for byte the same.
 """
 from __future__ import annotations
 
@@ -84,6 +101,80 @@ def _pad_key(k):
     return k
 
 
+# ---------------------------------------------------------------------------
+# FNode tree construction (src/iit-write.c:169-266)
+
+
+def _build_fnodes(lows: np.ndarray, highs: np.ndarray):
+    """Build the reference's interval tree.
+
+    Returns (sigmas, omegas, nodes) where sigmas/omegas are int arrays of
+    length n+1 (1-based interval indices) and nodes is a list of
+    [value, a, b, leftindex, rightindex] in preorder (the file order).
+    """
+    n = len(lows)
+    sigmas = np.zeros(n + 1, dtype=np.int64)
+    order = np.argsort(lows, kind="stable")
+    sigmas[1:] = order + 1
+    omegas = np.zeros(n + 1, dtype=np.int64)
+    nodes: list[list[int]] = []
+
+    def contained(x, idx):
+        return lows[idx - 1] <= x <= highs[idx - 1]
+
+    # iterative preorder construction (explicit stack; the reference
+    # recurses, src/iit-write.c:199-258)
+    root_slot = [-1]
+    stack = [(1, n, root_slot, 0)]
+    while stack:
+        i, j, parent_slot, slot_pos = stack.pop()
+        if i > j:
+            continue
+        # node_select (src/iit-write.c:169-196)
+        r = j - (j - i) // 3
+        k = lows[sigmas[r] - 1]
+        while r < j and lows[sigmas[r + 1] - 1] == k:
+            r += 1
+        if not contained(k, sigmas[r]):
+            while r > i and not contained(k, sigmas[r - 1]):
+                r -= 1
+            if not contained(k, sigmas[r]):
+                r -= 1
+        value = int(k)
+        # partition contains/left-of (src/iit-write.c:216-245)
+        q = r
+        for lam in range(r, i - 1, -1):
+            if contained(value, sigmas[lam]):
+                omegas[q] = sigmas[lam]
+                sigmas[lam] = 0
+                q -= 1
+        iota = i
+        for lam in range(i, r + 1):
+            if sigmas[lam] != 0:
+                sigmas[iota] = sigmas[lam]
+                iota += 1
+        sigmas[q + 1:r + 1] = omegas[q + 1:r + 1]
+        seg = omegas[q + 1:r + 1]
+        omegas[q + 1:r + 1] = seg[np.argsort(highs[seg - 1], kind="stable")]
+        node = [value, q + 1, r, -1, -1]
+        my_index = len(nodes)
+        nodes.append(node)
+        parent_slot[slot_pos] = my_index
+        # push right first so left is processed next (preorder index order:
+        # the reference assigns indices via preorder Node_index then writes
+        # preorder, so left subtree indices precede right subtree indices)
+        # LIFO: left subtree is fully created (and numbered) before the
+        # right one, so creation order == the reference's preorder
+        # Node_index numbering (src/iit-write.c:262-268)
+        stack.append((r + 1, j, node, 4))
+        stack.append((i, q, node, 3))
+
+    return sigmas, omegas, nodes
+
+
+# ---------------------------------------------------------------------------
+
+
 @dataclass
 class IITDiv:
     """Intervals of one division (chromosome)."""
@@ -112,6 +203,8 @@ class IIT:
     restofheaders: list[str] = field(default_factory=list)  # "" if none
     divsort: int = CHROM_SORT
     coords_8p: bool = False
+
+    # ---------------- construction ----------------
 
     @property
     def total_nintervals(self) -> int:
@@ -143,6 +236,21 @@ class IIT:
         base = self.cum_nintervals()[divno]
         return np.nonzero(hit)[0] + base + 1
 
+    def get_typed(self, divstring: str, x: int, y: int, typeint: int):
+        divno = self.div_index(divstring)
+        if divno < 0:
+            return np.zeros(0, dtype=np.int64)
+        d = self.divdata[divno]
+        hit = (d.lows <= y) & (d.highs >= x) & (d.types == typeint)
+        base = self.cum_nintervals()[divno]
+        return np.nonzero(hit)[0] + base + 1
+
+    def find(self, label: str) -> np.ndarray:
+        """1-based indices of records with this label (IIT_find)."""
+        return np.asarray(
+            [i + 1 for i, lab in enumerate(self.labels) if lab == label],
+            dtype=np.int64)
+
     def interval(self, index: int):
         """(div, low, high, sign, typestring) for 1-based global index."""
         cum = self.cum_nintervals()
@@ -157,6 +265,184 @@ class IIT:
             return self.typestrings.index(typestring)
         except ValueError:
             return -1
+
+    def header_line(self, index: int) -> str:
+        """Reconstruct the FASTA-style header line (as iit_dump prints)."""
+        div, low, high, sign, typestr = self.interval(index)
+        parts = [">" + self.labels[index - 1]]
+        if low == 0 and high == 0:
+            return parts[0]
+        coords = f"{high}..{low}" if sign < 0 else f"{low}..{high}"
+        if div:
+            coords = f"{div}:{coords}"
+        parts.append(coords)
+        if typestr:
+            parts.append(typestr)
+        line = " ".join(parts)
+        roh = self.restofheaders[index - 1]
+        if roh:
+            line += " " + roh
+        return line
+
+    def dump(self, fh) -> None:
+        """Text dump identical to the input FASTA (iit_dump)."""
+        for index in range(1, self.total_nintervals + 1):
+            fh.write(self.header_line(index) + "\n")
+            fh.write(self.annotations[index - 1])
+
+    # ---------------- binary write ----------------
+
+    def write(self, path: str) -> None:
+        if self.version == 1:
+            self._write_univ(path)
+        else:
+            self._write_div(path, self.version)
+
+    def _annot_stored(self, index0: int) -> bytes:
+        """v5+ stored annotation: restofheader + '\\n' + annotation lines;
+        '' if both empty (src/iit_store.c:596-636)."""
+        roh = self.restofheaders[index0]
+        ann = self.annotations[index0]
+        if not roh and not ann:
+            return b"\0"
+        if roh:
+            return (roh + "\n" + ann).encode() + b"\0"
+        return ("\n" + ann).encode() + b"\0"
+
+    def _annot_stored_v1(self, index0: int) -> bytes:
+        # version 1 files written by iit_store also carry the leading '\n'
+        # marker (observed in reference output); restofheader goes first
+        return self._annot_stored(index0)
+
+    def _labelorder(self) -> np.ndarray:
+        labs = [lab.encode() for lab in self.labels]
+        return np.argsort(np.asarray(labs, dtype=object), kind="stable").astype(np.int64)
+
+    @staticmethod
+    def _strings_block(strings: list[str], pad: bool = False):
+        """Pointers + concatenated NUL-terminated strings; pad=True pads the
+        final pointer and blob to a 4-byte multiple (the reference's
+        PAD_STRINGS mode, used by the div-format writer only)."""
+        pointers = [0]
+        blobs = []
+        for s in strings:
+            b = s.encode() + b"\0"
+            blobs.append(b)
+            pointers.append(pointers[-1] + len(b))
+        if pad:
+            padded = (pointers[-1] + 3) & ~3
+            blobs.append(b"\0" * (padded - pointers[-1]))
+            pointers[-1] = padded
+        return pointers, b"".join(blobs)
+
+    def _write_univ(self, path: str) -> None:
+        d = self.divdata[0]
+        n = len(d)
+        lows, highs = d.lows, d.highs
+        sigmas, omegas, nodes = _build_fnodes(lows, highs)
+        coord8 = bool(self.coords_8p or (n and int(highs.max()) > 0xFFFFFFFF))
+        cfmt = "<Q" if coord8 else "<I"
+        with open(path, "wb") as fp:
+            w = fp.write
+            w(_INT.pack(-n if coord8 else n))
+            w(_INT.pack(len(self.typestrings)))
+            w(_INT.pack(len(nodes)))
+            w(sigmas.astype("<i4").tobytes())
+            w(omegas.astype("<i4").tobytes())
+            for value, a, b, li, ri in nodes:
+                w(struct.pack(cfmt, value))
+                w(struct.pack("<iiii", a, b, li, ri))
+            for r in range(n):
+                w(struct.pack(cfmt, int(lows[r])))
+                w(struct.pack(cfmt, int(highs[r])))
+                w(_INT.pack(int(d.types[r])))
+            tp, tblob = self._strings_block(self.typestrings)
+            w(np.asarray(tp, dtype="<u4").tobytes())
+            w(tblob)
+            w(self._labelorder().astype("<i4").tobytes())
+            lp, lblob = self._strings_block(self.labels)
+            w(np.asarray(lp, dtype="<u4").tobytes())
+            w(lblob)
+            annots = [self._annot_stored_v1(i) for i in range(n)]
+            ap = np.cumsum([0] + [len(a) for a in annots])
+            w(ap.astype("<u4").tobytes())
+            w(b"".join(annots))
+
+    def _write_div(self, path: str, version: int = 5) -> None:
+        ndivs = len(self.divs)
+        nintervals = [len(d) for d in self.divdata]
+        cum_ni = self.cum_nintervals()
+        trees = []
+        for d in self.divdata:
+            if len(d):
+                alphas = np.zeros(len(d) + 1, dtype=np.int64)
+                alphas[1:] = np.argsort(d.lows, kind="stable") + 1
+                betas = np.zeros(len(d) + 1, dtype=np.int64)
+                betas[1:] = np.argsort(d.highs, kind="stable") + 1
+                sigmas, omegas, nodes = _build_fnodes(d.lows, d.highs)
+            else:
+                alphas = betas = sigmas = omegas = np.zeros(1, dtype=np.int64)
+                nodes = []
+            trees.append((alphas, betas, sigmas, omegas, nodes))
+        nnodes = [len(t[4]) for t in trees]
+        cum_nn = [0]
+        for x in nnodes:
+            cum_nn.append(cum_nn[-1] + x)
+
+        with open(path, "wb") as fp:
+            w = fp.write
+            w(_INT.pack(0))
+            w(_INT.pack(version))
+            if version >= 5:
+                w(_INT.pack(4))   # label pointer size
+                w(_INT.pack(4))   # annot pointer size
+            w(_INT.pack(self.total_nintervals))
+            w(_INT.pack(len(self.typestrings)))
+            w(_INT.pack(len(self.fieldstrings)))
+            w(_INT.pack(ndivs))
+            for x in nintervals:
+                w(_INT.pack(x))
+            for x in cum_ni:
+                w(_INT.pack(x))
+            for x in nnodes:
+                w(_INT.pack(x))
+            for x in cum_nn:
+                w(_INT.pack(x))
+            w(_INT.pack(self.divsort))
+            dp, dblob = self._strings_block(self.divs, pad=True)
+            w(np.asarray(dp, dtype="<u4").tobytes())
+            w(dblob)
+            for alphas, betas, sigmas, omegas, nodes in trees:
+                w(alphas.astype("<i4").tobytes())
+                w(betas.astype("<i4").tobytes())
+                w(sigmas.astype("<i4").tobytes())
+                w(omegas.astype("<i4").tobytes())
+                for value, a, b, li, ri in nodes:
+                    w(struct.pack("<Iiiii", value, a, b, li, ri))
+            for d in self.divdata:
+                for r in range(len(d)):
+                    w(struct.pack("<IIii", int(d.lows[r]), int(d.highs[r]),
+                                  int(d.signs[r]), int(d.types[r])))
+            tp, tblob = self._strings_block(self.typestrings, pad=True)
+            w(np.asarray(tp, dtype="<u4").tobytes())
+            w(tblob)
+            fpnt, fblob = self._strings_block(self.fieldstrings, pad=True)
+            w(np.asarray(fpnt, dtype="<u4").tobytes())
+            w(fblob)
+            w(self._labelorder().astype("<i4").tobytes())
+            lp, lblob = self._strings_block(self.labels, pad=True)
+            w(np.asarray(lp, dtype="<u4").tobytes())
+            w(lblob)
+            annots = [self._annot_stored(i)
+                      for i in range(self.total_nintervals)]
+            ap = np.cumsum([0] + [len(a) for a in annots])
+            padded = (int(ap[-1]) + 3) & ~3
+            pad = padded - int(ap[-1])
+            ap[-1] = padded
+            w(ap.astype("<u4").tobytes())
+            w(b"".join(annots) + b"\0" * pad)
+
+    # ---------------- binary read ----------------
 
     @classmethod
     def read(cls, path: str) -> "IIT":
@@ -330,6 +616,10 @@ class _Reader:
             out.append(blob[start:end if end >= 0 else None].decode(
                 "utf-8", errors="replace"))
         return out
+
+
+# ---------------------------------------------------------------------------
+# iit_store-style builder from FASTA-format map input
 
 
 @dataclass

@@ -1,5 +1,5 @@
-"""SAM output (host side): the records of tpumap/io/sam.py that the
-port emits, copied so its SAM stays byte-identical to tpumap's.
+"""SAM output (host side): a copy of tpumap/io/sam.py, so the port's SAM
+stays byte-identical to tpumap's.
 
 Capability analog of src/path-print-sam.c (Path_print_sam) + samheader.c.
 Takes finished alignment records and prints SAM lines; CIGAR/MD/NM are
@@ -490,6 +490,45 @@ def ungapped_record(db: GenomeDB, qname: str, seq: str, qual: str | None,
         cigar=cigar, seq=oriented, qual=q, tags=tags)
 
 
+def extend_soft_clips(db: GenomeDB, rec: SamRecord) -> None:
+    """gsnap --extend-soft-clips (src/gsnap.c:698): convert terminal soft
+    clips back to M and recompute MD/NM over the extended span."""
+    if rec.flag & 4 or rec.cigar == "*":
+        return
+    ops = _cigar_ops(rec.cigar)
+    if not any(op == "S" for _n, op in ops):
+        return
+    if ops and ops[0][1] == "S":
+        n = ops.pop(0)[0]
+        if rec.pos - 1 - n < 0:
+            n_fit = rec.pos - 1
+        else:
+            n_fit = n
+        ops.insert(0, (n_fit, "M"))
+        if n_fit < n:
+            ops.insert(0, (n - n_fit, "S"))
+        rec.pos -= n_fit
+    if ops and ops[-1][1] == "S":
+        n = ops.pop(-1)[0]
+        chrlen = db.chrom_length(db.chrom_names.index(rec.rname))
+        span = rec.pos - 1 + sum(m for m, op in ops if op in "MDN=X")
+        n_fit = min(n, chrlen - span)
+        ops.append((n_fit, "M"))
+        if n_fit < n:
+            ops.append((n - n_fit, "S"))
+    # merge adjacent M runs
+    merged: list[tuple[int, str]] = []
+    for n, op in ops:
+        if merged and merged[-1][1] == op:
+            merged[-1] = (merged[-1][0] + n, op)
+        else:
+            merged.append((n, op))
+    rec.cigar = "".join(f"{n}{op}" for n, op in merged)
+    recompute_md(db, rec)
+
+
+# --- SAM output post-processing (reference SAM-option flags) ----------------
+
 _CIGAR_RE = re.compile(r"(\d+)([MIDNSHP=X])")
 
 
@@ -582,3 +621,157 @@ def apply_sam_options(rec: SamRecord, extended_cigar_p: bool = False,
         if sparse_secondaries and r.flag & 0x100:
             r.seq, r.qual = "*", "*"
     return rec
+
+
+# --- paired-end overlap handling (--clip-overlap / --merge-overlap) ---------
+
+def ref_consumed(cigar: str) -> int:
+    """Reference bases consumed by the CIGAR (M/D/N/=/X)."""
+    return sum(n for n, op in _cigar_ops(cigar) if op in "MDN=X")
+
+
+def _univ(db: GenomeDB, rec: SamRecord) -> int:
+    return int(db.chrom_offsets[db.chrom_names.index(rec.rname)]
+               + rec.pos - 1)
+
+
+def recompute_md(db: GenomeDB, rec: SamRecord) -> None:
+    """Rebuild MD/NM tags from the record's CIGAR + position (used after
+    CIGAR surgery so 'mismatches and the MD string reflect the clipped
+    CIGAR', gsnap --extend-soft-clips help text)."""
+    g = _univ(db, rec)
+    qpos, parts_read, parts_genome, ops = 0, [], [], []
+    for n, op in _cigar_ops(rec.cigar):
+        if op in "M=X":
+            parts_read.append(rec.seq[qpos:qpos + n])
+            parts_genome.append(db.get_seq(g, n))
+            ops.extend([0] * n)
+            qpos += n
+            g += n
+        elif op == "I":
+            parts_read.append(rec.seq[qpos:qpos + n])
+            ops.extend([1] * n)
+            qpos += n
+        elif op == "D":
+            parts_genome.append(db.get_seq(g, n))
+            ops.extend([2] * n)
+            g += n
+        elif op == "N":
+            g += n
+        elif op == "S":
+            qpos += n
+    md, nm = md_nm_from_ops(ops, "".join(parts_read), "".join(parts_genome))
+    rec.tags = [t for t in rec.tags
+                if not (t.startswith("MD:Z:") or t.startswith("NM:i:"))]
+    rec.tags = [f"NM:i:{nm}", f"MD:Z:{md}"] + rec.tags
+
+
+def clip_record_left(rec: SamRecord, ref_clip: int) -> SamRecord | None:
+    """Soft-clip the first `ref_clip` reference bases off an alignment
+    (CIGAR + POS surgery). Returns None if nothing would remain."""
+    ops = _cigar_ops(rec.cigar)
+    lead_s = q_clip = 0
+    remaining = ref_clip
+    new_ops: list | None = None
+    for idx, (n, op) in enumerate(ops):
+        if remaining <= 0:
+            new_ops = ops[idx:]
+            break
+        if op == "S":
+            lead_s += n
+        elif op in "M=X":
+            take = min(n, remaining)
+            q_clip += take
+            remaining -= take
+            if take < n:
+                new_ops = [(n - take, op)] + ops[idx + 1:]
+                break
+        elif op == "I":
+            q_clip += n
+        elif op in "DN":
+            take = min(n, remaining)
+            remaining -= take
+            if take < n:
+                new_ops = [(n - take, op)] + ops[idx + 1:]
+                break
+    if new_ops is None:
+        new_ops = []
+    extra = 0                      # leading D/N after the cut: skip them
+    while new_ops and new_ops[0][1] in "DN":
+        extra += new_ops[0][0]
+        new_ops.pop(0)
+    if not any(op in "M=X" for _n, op in new_ops):
+        return None
+    total_s = lead_s + q_clip
+    rec.cigar = ((f"{total_s}S" if total_s else "")
+                 + "".join(f"{n}{op}" for n, op in new_ops))
+    rec.pos += ref_clip + extra
+    return rec
+
+
+def clip_overlap_pair(db: GenomeDB, s1: SamRecord, s2: SamRecord) -> None:
+    """gsnap --clip-overlap: when both ends of a pair align to
+    overlapping reference intervals, soft-clip the overlap off the
+    downstream record (the leftmost end keeps its bases).
+
+    Note: dead code in the 2024-02-22 reference (Stage3pair_overlap is
+    compiled out under `#ifdef TO_FIX`, path-print-sam.c:2011), so this
+    implementation exceeds the reference."""
+    if (s1.flag & 4) or (s2.flag & 4) or s1.rname != s2.rname:
+        return
+    low, high = (s1, s2) if s1.pos <= s2.pos else (s2, s1)
+    end_low = low.pos + ref_consumed(low.cigar) - 1
+    ov = end_low - high.pos + 1
+    if ov <= 0:
+        return
+    if ov >= ref_consumed(high.cigar):
+        ov = ref_consumed(high.cigar) - 1       # keep at least one base
+        if ov <= 0:
+            return
+    if clip_record_left(high, ov) is not None:
+        recompute_md(db, high)
+
+
+def merge_overlap_pair(db: GenomeDB, s1: SamRecord,
+                       s2: SamRecord) -> SamRecord | None:
+    """gsnap --merge-overlap (beta in the reference too): overlapping
+    FR ends merge into ONE single-end record spanning the union.
+    Only simple all-M alignments merge; returns None otherwise.
+
+    Note: in the 2024-02-22 reference this feature is dead code — the
+    overlap computation and Pathpair_merge call sit inside `#ifdef
+    TO_FIX` blocks that are never defined (path-print-sam.c:2011,2057),
+    so reference gsnap prints both ends unmerged regardless of the
+    flag.  This working all-M implementation therefore exceeds the
+    reference; extending it to indel/spliced CIGARs has no oracle to
+    match against."""
+    if (s1.flag & 4) or (s2.flag & 4) or s1.rname != s2.rname:
+        return None
+    for r in (s1, s2):
+        if _cigar_ops(r.cigar) != [(len(r.seq), "M")]:
+            return None
+    low, high = (s1, s2) if s1.pos <= s2.pos else (s2, s1)
+    end_low = low.pos + len(low.seq) - 1
+    end_high = high.pos + len(high.seq) - 1
+    if high.pos > end_low + 1:
+        return None                              # disjoint: nothing to merge
+    span = max(end_low, end_high) - low.pos + 1
+    seq = list(low.seq) + ["N"] * (span - len(low.seq))
+    qual = (list(low.qual) + ["!"] * (span - len(low.seq))
+            if low.qual != "*" else None)
+    off = high.pos - low.pos
+    for k, (b, q) in enumerate(zip(high.seq,
+                                   high.qual if high.qual != "*"
+                                   else "!" * len(high.seq))):
+        p = off + k
+        if p >= len(low.seq):                    # beyond read-1: read-2 wins
+            seq[p] = b
+            if qual is not None:
+                qual[p] = q
+    merged = SamRecord(
+        qname=low.qname, flag=low.flag & 16, rname=low.rname, pos=low.pos,
+        mapq=min(s1.mapq, s2.mapq), cigar=f"{span}M",
+        seq="".join(seq), qual="".join(qual) if qual is not None else "*",
+        tags=[])
+    recompute_md(db, merged)
+    return merged
