@@ -86,7 +86,7 @@ fusions, the transcriptome rung single and paired), and fails (exit code
    four staged subsets of 13 through the port on the CPU (plain
    versions) and on the GPU with the same batching: byte-identical SAM;
    the first 256 GMAP cDNAs of 12: byte-identical GFF3 (-f 3 and -f 2);
-   and gmap_cli.main on them (-f 3, -A, -S, -f 9, -f samse) and on the
+   and gmap_cli.main on the first 128 (-f 3, -A, -S, -f 9, -f samse) and on the
    first 64 chimeras of 14 (-x 30 -f 1), --device cpu and the card:
    byte-identical output;
 12. GMAP end to end on the k=14 index: 2,048 cDNAs made as
@@ -154,6 +154,38 @@ fusions, the transcriptome rung single and paired), and fails (exit code
    byte for byte (stdout and every file written) on the first 2,048 DNA
    reads with CLI_CPU_LISTS, on 512 RNA reads with -N 1 -s and on 512
    pairs, each at least a line a read (m8: 0.99 of them).
+16. Several devices, large genomes, several processes (after 15; the
+   card's distinct devices where a grid asks for more than one and the
+   card has them, else cuda:0 repeated, whose shards run in turn):
+   a. a MeshContext of data axis 2 (parallel/pipeline.py: row-parallel
+      stages split over the devices, every compaction ranked once)
+      through align_records over the 50,000 DNA reads at batch 32,768
+      and the 50,000 RNA reads with novel splicing at 16,384,
+      align_paired_records over 2,048 pairs and align_queries_bulk over
+      the 2,048 cDNAs of 12 (-f 3 GFF3): each byte-identical to the same
+      call without device_ctx, its rate beside the single-device one's,
+      K1-K3 (RNA: all seven GSNAP kernels; GMAP: K7a and K7b) launched;
+   b. the index-sharded aligners (parallel/sharded.py) at 1 x 4
+      (make_sharded_aligner) and 2 x 2 (make_sharded_full_aligner with
+      splicing and salvage) over the 50,000 DNA reads in calls of 8,192:
+      mapped and within 10 bp of truth >= 0.99; the full aligner over
+      the first 16,384 RNA reads, its accepted chain rows' junction
+      precision and recall logged (no floor); CPU == card on every
+      result array for the first 2,048 DNA and 512 RNA reads;
+   c. a large=True build of the bench genome (uint64 positions, cached
+      under .bench_data/db_k14_large; DeviceIndex must refuse it) in 4
+      windows overlapping by 1,024 bases (parallel/large.py, a window
+      index each): the 50,000 DNA reads rebased to uint64 univcoords
+      within 10 bp of truth >= 0.99, CPU == card on 2,048;
+   d. two processes in a gloo group sharing the card
+      (torch.distributed on the host): gsnap_cli.main -O over the first
+      8,192 DNA reads with no --part, process 0's file byte-identical
+      to the one-process run's and process 1's empty; --two-pass over
+      the first 16,384 RNA reads (--pass1-min-support 1), the two
+      processes' --splices-dump and --indels-dump (the gathered tables)
+      equal and junctions learned. A failing worker fails the run.
+   K1's rows at the sharded cascade's and a window's shape (phase 3's
+   columns) join the kernel table.
 
 Phase 3 also holds K1 against its plain version on the mode index: in
 each base space at the mode rung's [32,768, 8] x 8, ref-OR-alt at the
@@ -1914,8 +1946,11 @@ def db_patched(db, index):
         yield
 
 
-# main's argument lists held CPU == card: on the first GMAP_WARM cDNAs,
-# and -x 30 -f 1 on the first N_CHIM_CPU chimeras
+# main's argument lists held CPU == card: on the first N_GMAP_MAIN cDNAs,
+# and -x 30 -f 1 on the first N_CHIM_CPU chimeras. 128, not 256: at 256
+# the lists took 234 s (their CPU runs 166 s) of a 1,101.6-s run with
+# phase 16 on one H100 host, too near the run's 1,200-s limit
+N_GMAP_MAIN = 128
 GMAP_MAIN_RUNS = (["-f", "3"], ["-A"], ["-S"], ["-f", "9"], ["-f", "samse"],
                   ["-x", "30", "-f", "1"])
 
@@ -1923,7 +1958,7 @@ GMAP_MAIN_RUNS = (["-f", "3"], ["-A"], ["-S"], ["-f", "9"], ["-f", "samse"],
 def gmap_main_runs(db, index, queries, cseqs):
     """gmap_cli.main's stdout for each of GMAP_MAIN_RUNS on the device
     of index, with the echoed --device taken out, and its seconds."""
-    qfa = write_fasta("gmap_main_q.fa", "q", queries[:GMAP_WARM])
+    qfa = write_fasta("gmap_main_q.fa", "q", queries[:N_GMAP_MAIN])
     cfa = write_fasta("gmap_main_chim.fa", "c", cseqs[:N_CHIM_CPU])
     dev = index.device.type
     out = []
@@ -2564,6 +2599,462 @@ def k7a_wide_rows(reduce_ns):
     return check_rows(rows)
 
 
+# ------------------------------------------------ phase 16: multi-device
+
+N_MESH_PE = 2048        # PE pairs of the device_ctx run
+SHARD_B = 8192          # reads a call of the sharded aligners
+N_SHARD_RNA = 16384     # RNA reads of the index-sharded full aligner
+N_SHARD_CPU = 2048      # DNA reads of the sharded CPU == card checks
+N_SHARD_CPU_RNA = 512   # RNA reads of the same
+N_WINDOWS = 4           # genome windows of the large-genome path
+WINDOW_OVERLAP = 1024
+N_MP_DNA = 8192         # DNA reads of the two-process -O run
+N_MP_RNA = 16384        # RNA reads of the two-process --two-pass run
+
+# one process of a two-process gloo group sharing the card: rank and the
+# gsnap argument list ("{rank}" replaced) from the command line
+MP_WORKER = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["tpumap"] = None
+import torch.distributed as tdist
+addr, rank = sys.argv[1], int(sys.argv[2])
+tdist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=2,
+                         rank=rank)
+from tpumap_torch.cli import gsnap_cli
+rc = gsnap_cli.main([a.replace("{rank}", str(rank)) for a in sys.argv[3:]])
+tdist.destroy_process_group()
+sys.exit(rc or 0)
+"""
+
+
+def grid_devices(n):
+    """n devices for a grid: the card's distinct devices where it has n,
+    else cuda:0 n times (shards that share the card run on it in turn)."""
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * n
+
+
+def timed_call(fn):
+    """(fn(), seconds), the card synchronised before either clock read."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def gff3_text(db, hits, enc):
+    """-f 3 GFF3 of bulk hits (query names q0, q1, ...)."""
+    from tpumap_torch.io import gff3
+    out = []
+    for i, h in enumerate(hits):
+        if h is None:
+            continue
+        c, off = h
+        ci = db.chrnum(off + c.exons[0].gstart)
+        out.append(gff3.match_cdna(
+            c, f"q{i}", db.chrom_names[ci], "tpumap",
+            chrom_offset=off - int(db.chrom_offsets[ci]),
+            qlen=len(enc[i][0])))
+    return "".join(out)
+
+
+def split_layers(label, fn, smi):
+    """One call of fn by layer: its wall ms, its device ms (every kernel,
+    copy and memset) and, of that, the concatenations and copies that
+    gather the shards' rows (the all-gathers of tpumap's programs) and
+    K1's; the host's share (the loop over shards, the wrappers, the
+    copies to the host) is the rest of the wall."""
+    fn()
+    _r, wall = timed_call(fn)
+    prof = profile_ms(fn)
+    names = [k for k in prof if isinstance(k, str)]
+    dev = sum(prof[k] for k in names)
+    gather = sum(prof[k] for k in names
+                 if "CatArray" in k or ("Memcpy" in k and "DtoD" in k))
+    k1 = sum(prof[k] for k in names if "verify_kernel" in k)
+    wall *= 1e3
+    log(f"{label}, one call by layer: wall {wall:.2f} ms, device "
+        + (f"{dev:.3f} ms (gathers {gather:.3f}, K1 {k1:.3f}), idle "
+           f"{1 - dev / wall:.3f}" if dev else "time not measured")
+        + f" [{smi}]")
+
+
+def mesh_phase(db, index, config, reads, rna_reads, pe_pairs, enc, smi):
+    """16a: align_records (DNA at batch 32,768; RNA with novel splicing
+    at 16,384), align_paired_records (2,048 pairs) and
+    align_queries_bulk (2,048 cDNAs, GFF3) with a MeshContext of data
+    axis 2, each byte-identical to the same call without device_ctx;
+    rates beside the single-device call's. Returns each run's launches."""
+    from tpumap_torch import kernels
+    from tpumap_torch.cli import gmap_cli
+    from tpumap_torch.gsnap.driver import align_records
+    from tpumap_torch.gsnap.paired import align_paired_records
+    from tpumap_torch.parallel import mesh, pipeline
+    devs = grid_devices(2)
+    ctx, dt = timed_call(lambda: pipeline.MeshContext(
+        mesh.make_mesh(devices=devs), db))
+    log(f"16a: MeshContext over {[str(d) for d in devs]}: "
+        f"{len(ctx.indexes)} index copies placed in {dt:.2f} s [{smi}]")
+
+    def gsnap(fn, batch, **kw):
+        def run(idx, c, items):
+            buf = io.BytesIO()
+            fn(db, idx, items, config, batch_size=batch, sink=buf.write,
+               device_ctx=c, **kw)
+            return buf.getvalue()
+        return run
+
+    def gmap(idx, c, items):
+        return gff3_text(db, gmap_cli.align_queries_bulk(
+            db, idx, items, device_ctx=c), items)
+    cases = (("DNA", reads, gsnap(align_records, B), 1, DNA_KERNELS, B),
+             ("RNA", rna_reads, gsnap(align_records, RB, novelsplicing=True),
+              1, GSNAP_KERNELS, RB),
+             ("PE", pe_pairs[:N_MESH_PE],
+              gsnap(align_paired_records, PB, pairmax=PAIRMAX), 2,
+              DNA_KERNELS, N_MESH_PE),
+             ("GMAP", enc, gmap, 1, GMAP_KERNELS, GMAP_WARM))
+    out = {}
+    for name, items, run, per, must, warm in cases:
+        run(ctx.index, ctx, items[:warm])       # warm-up through the grid
+        want, t1 = timed_call(lambda: run(index, None, items))
+        kernels.reset_launches()
+        ctx.rows.split = ctx.rows.whole = 0
+        got, t2 = timed_call(lambda: run(ctx.index, ctx, items))
+        launches = dict(kernels.LAUNCHES)
+        n = per * len(items)
+        unit = "queries" if name == "GMAP" else "reads"
+        log(f"16a {name} through the MeshContext: {n} {unit} in {t2:.3f} s "
+            f"= {n / t2:.1f} {unit}/s (single device {t1:.3f} s = "
+            f"{n / t1:.1f}); byte-identical to the single-device call: "
+            f"{got == want} ({len(want)} bytes); stage calls split "
+            f"{ctx.rows.split}, whole {ctx.rows.whole}; launches="
+            f"{launches} [{smi}]")
+        if got != want:
+            raise AssertionError(f"16a {name}: the MeshContext's output "
+                                 f"differs from the single-device call's")
+        missing = [k for k in must if launches[k] <= 0]
+        if missing or not ctx.rows.split:
+            raise AssertionError(f"16a {name}: never launched {missing}, "
+                                 f"or no stage split ({ctx.rows.split})")
+        out[name] = launches
+    from tpumap_torch.gsnap.driver import align_records as ar
+    for label, idx, c in (("single device", index, None),
+                          ("MeshContext", ctx.index, ctx)):
+        split_layers(f"16a DNA batch of {B}, {label}", lambda: ar(
+            db, idx, reads[:B], config, batch_size=B,
+            sink=io.BytesIO().write, device_ctx=c), smi)
+    del ctx
+    return out
+
+
+@contextlib.contextmanager
+def k1_calls():
+    """Record each K1 wrapper call's arguments while the block runs."""
+    from tpumap_torch.ops import verify
+    vd = verify.verify_diagonals
+    calls = []
+
+    def rec(*args, **kw):
+        calls.append(args)
+        return vd(*args, **kw)
+    verify.verify_diagonals = rec
+    try:
+        yield calls
+    finally:
+        verify.verify_diagonals = vd
+
+
+def encode(records, B_):
+    """codes, nmask and lengths of records in a batch of B_ rows (128)."""
+    from tpumap_torch.gsnap.driver import make_batch
+    b = make_batch(records, B_, 128)
+    return {k: b[k] for k in ("codes", "nmask", "lengths")}
+
+
+def batched(align, arrays, records, per_batch):
+    """align over records in batches of SHARD_B rows (the tail padded);
+    per_batch(result, records of the batch, first read) for each."""
+    for s in range(0, len(records), SHARD_B):
+        chunk = records[s:s + SHARD_B]
+        per_batch(align(arrays, encode(chunk, SHARD_B)), chunk, s)
+
+
+def near_truth(bench_data, diags, strands, mapped):
+    """(mapped fraction, within 10 bp of truth on its strand) of the DNA
+    reads' results (univcoords)."""
+    starts, tstrands, _subs = bench_data.read_plan()
+    n = len(starts)
+    near = (mapped & (np.abs(diags.astype(np.int64) - starts[:n]) <= 10)
+            & (strands == tstrands[:n].astype(np.int64)))
+    return float(mapped.mean()), float(near.mean())
+
+
+def dna_grade(label, res_iter, bench_data, smi, extra=""):
+    """Collect (diag univcoords, strand, mapped) over all DNA reads and
+    apply the 0.99 floors."""
+    d, s, m = (np.concatenate(x) for x in zip(*res_iter))
+    mapped, near = near_truth(bench_data, d, s, m)
+    log(f"{label}: mapped {mapped:.5f}, within 10 bp of truth {near:.5f}"
+        f"{extra} [{smi}]")
+    if mapped < 0.99 or near < 0.99:
+        raise AssertionError(f"{label}: below 0.99")
+
+
+def same_results(label, cpu, card, smi):
+    """CPU == card, every result array."""
+    same = sorted(cpu) == sorted(card) and all(
+        torch.equal(cpu[k].cpu(), card[k].cpu()) for k in cpu)
+    log(f"{label}: CPU == card on every result array: {same} "
+        f"({len(cpu)} arrays) [{smi}]")
+    if not same:
+        raise AssertionError(f"{label}: CPU and card results differ")
+
+
+def k1_row(label, call):
+    """K1 against its plain version on one recorded call's inputs."""
+    from tpumap_torch.ops import verify
+    li, packed = call[0], call[1]
+    return measure("verify_diagonals", label,
+                   partial(verify.verify_diagonals, *call),
+                   partial(verify.verify_diagonals_plain, *call), 50, 10,
+                   *verify_work(li, packed, call[4]))
+
+
+def sharded_phase(bench_data, db, config, reads, rna_reads, truth, smi):
+    """16b: make_sharded_aligner at 1 x 4 and make_sharded_full_aligner
+    at 2 x 2 over the 50,000 DNA reads (floors 0.99), the full aligner
+    over the first 16,384 RNA reads (junctions logged), CPU == card on
+    2,048 DNA and 512 RNA reads; K1's row at the sharded cascade's shape.
+    Returns ({run: launches}, [K1 row])."""
+    from tpumap_torch import kernels
+    from tpumap_torch.ops import pathdp
+    from tpumap_torch.parallel import mesh, sharded
+    cpu4 = [torch.device("cpu")] * 4
+    launches, rows = {}, []
+    sc = pathdp.PathScoring(max_intron=200_000)
+    fkw = dict(scoring=sc, splicing=True, salvage=True,
+               r_chain=SHARD_B // 4, r_salv=SHARD_B // 64,
+               r_indel=SHARD_B // 8)
+    for label, shards, make, kw in (
+            ("1 x 4", 4, sharded.make_sharded_aligner, {}),
+            ("2 x 2 full", 2, sharded.make_sharded_full_aligner, fkw)):
+        (arrays, align), dt = timed_call(lambda: make(
+            mesh.make_mesh(4, index_shards=shards,
+                           devices=grid_devices(4)), db, config, **kw))
+        log(f"16b {label}: the index in {shards} oligo shards placed in "
+            f"{dt:.2f} s [{smi}]")
+        got = []
+        kernels.reset_launches()
+        with k1_calls() as calls:
+            _r, dt = timed_call(lambda: batched(
+                align, arrays, reads, lambda r, ch, _s: got.append(
+                    (r["diag"][:len(ch)].cpu().numpy(),
+                     r["strand"][:len(ch)].cpu().numpy().astype(np.int64),
+                     r["mapped"][:len(ch)].cpu().numpy()))))
+        launches[f"sharded {label} DNA"] = dict(kernels.LAUNCHES)
+        if label == "1 x 4":
+            rows.append(k1_row(f"sharded cascade (1 x 4): [{SHARD_B}, "
+                               f"{config.top_k}]", calls[0]))
+        del calls
+        dna_grade(f"16b {label} over {len(reads)} DNA reads", got,
+                  bench_data, smi, f", {len(reads) / dt:.1f} reads/s, "
+                  f"launches={launches[f'sharded {label} DNA']}")
+        if kernels.LAUNCHES["verify_diagonals"] <= 0:
+            raise AssertionError(f"16b {label}: K1 never launched")
+        batch = encode(reads[:SHARD_B], SHARD_B)
+        split_layers(f"16b {label} ({shards} index shards), {SHARD_B} "
+                     f"reads", lambda: align(arrays, batch), smi)
+        cpu_arrays, cpu_align = make(mesh.make_mesh(
+            4, index_shards=shards, devices=cpu4), db, config, **kw)
+        sub = encode(reads[:N_SHARD_CPU], N_SHARD_CPU)
+        same_results(f"16b {label}, {N_SHARD_CPU} DNA reads",
+                     cpu_align(cpu_arrays, sub), align(arrays, sub), smi)
+        if label == "2 x 2 full":
+            sub = encode(rna_reads[:N_SHARD_CPU_RNA], N_SHARD_CPU_RNA)
+            same_results(f"16b {label}, {N_SHARD_CPU_RNA} RNA reads",
+                         cpu_align(cpu_arrays, sub), align(arrays, sub), smi)
+            tp = fp = fn = 0
+            kernels.reset_launches()
+
+            def score(r, ch, s):
+                nonlocal tp, fp, fn
+                pred = [set() for _ in ch]
+                sel = r["ch_sel"].cpu().numpy()
+                idx = r["ch_idx"].cpu().numpy()
+                ns = r["ch_nsegs"].cpu().numpy()
+                sq = r["ch_segq"].cpu().numpy().astype(np.int64)
+                sd = r["ch_segd"].cpu().numpy()
+                for c in np.nonzero(sel)[0]:
+                    i = int(idx[c])
+                    if i < len(ch):
+                        pred[i] = {(int(sd[c, t] + sq[c, t + 1]),
+                                    int(sd[c, t + 1] + sq[c, t + 1]))
+                                   for t in range(int(ns[c]) - 1)}
+                for i, pj in enumerate(pred):
+                    tj = truth[s + i][0]
+                    tp += len(pj & tj)
+                    fp += len(pj - tj)
+                    fn += len(tj - pj)
+            _r, dt = timed_call(lambda: batched(
+                align, arrays, rna_reads[:N_SHARD_RNA], score))
+            launches[f"sharded {label} RNA"] = dict(kernels.LAUNCHES)
+            log(f"16b {label} over {N_SHARD_RNA} RNA reads: "
+                f"{N_SHARD_RNA / dt:.1f} reads/s, junction precision "
+                f"{tp / max(tp + fp, 1):.5f}, recall "
+                f"{tp / max(tp + fn, 1):.5f} (the device's accepted chain "
+                f"rows; no floor), launches="
+                f"{launches[f'sharded {label} RNA']} [{smi}]")
+        del arrays, align, cpu_arrays, cpu_align
+    return launches, rows
+
+
+def large_phase(bench_data, config, reads, smi):
+    """16c: a large=True (uint64 positions) build of the bench genome,
+    cached under .bench_data/db_k14_large, in N_WINDOWS windows
+    overlapping by WINDOW_OVERLAP on a 1 x N_WINDOWS grid: the 50,000 DNA
+    reads rebased to uint64 (floors 0.99), CPU == card on 2,048, K1's
+    row at a window's shape. Returns (launches, [K1 row])."""
+    from tpumap_torch import kernels
+    from tpumap_torch.index.build import GenomeDB, build_db
+    from tpumap_torch.index.device import DeviceIndex
+    from tpumap_torch.parallel import large, mesh
+    t0 = time.perf_counter()
+    dbdir = bench_data.ROOT / "db_k14_large"
+    if (dbdir / "meta.json").exists():
+        dbl = GenomeDB.load(str(dbdir))
+    else:
+        gfa, _rfa = bench_data.ensure_files()
+        dbl = build_db(gfa, name="bench_large", k=14, interval=3, large=True)
+        dbl.save(str(dbdir))
+    if dbl.positions.dtype != np.uint64:
+        raise AssertionError("16c: the large build's positions are not "
+                             "uint64")
+    try:
+        DeviceIndex.from_host(dbl, "cuda")
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("16c: DeviceIndex took a uint64 db")
+    t1 = time.perf_counter()
+    parts = large.shard_genome_host(dbl, N_WINDOWS, WINDOW_OVERLAP)
+    t2 = time.perf_counter()
+    arrays, align, bases = large.make_genome_sharded_aligner(
+        mesh.make_mesh(N_WINDOWS, index_shards=N_WINDOWS,
+                       devices=grid_devices(N_WINDOWS)), dbl, config,
+        WINDOW_OVERLAP, parts=parts)
+    torch.cuda.synchronize()
+    log(f"16c: large=True build ready in {t1 - t0:.1f} s (positions "
+        f"{dbl.positions.dtype}; DeviceIndex refuses it: {refusal!r}); "
+        f"{N_WINDOWS} windows (bases {bases.tolist()}) indexed in "
+        f"{t2 - t1:.1f} s, on the card in {time.perf_counter() - t2:.1f} s "
+        f"[{smi}]")
+    got = []
+    kernels.reset_launches()
+    with k1_calls() as calls:
+        _r, dt = timed_call(lambda: batched(
+            align, arrays, reads, lambda r, ch, _s: got.append(
+                (large.rebase_results(r, bases)[:len(ch)],
+                 r["strand"][:len(ch)].cpu().numpy().astype(np.int64),
+                 r["mapped"][:len(ch)].cpu().numpy()))))
+    launches = dict(kernels.LAUNCHES)
+    row = k1_row(f"genome window (1 x {N_WINDOWS}): [{SHARD_B}, "
+                 f"{config.top_k}]", calls[0])
+    del calls
+    if got[0][0].dtype != np.uint64:
+        raise AssertionError("16c: rebase_results is not uint64")
+    dna_grade(f"16c windows over {len(reads)} DNA reads", got, bench_data,
+              smi, f", {len(reads) / dt:.1f} reads/s, launches={launches}")
+    batch = encode(reads[:SHARD_B], SHARD_B)
+    split_layers(f"16c {N_WINDOWS} windows, {SHARD_B} reads",
+                 lambda: align(arrays, batch), smi)
+    cpu_arrays, cpu_align, _b = large.make_genome_sharded_aligner(
+        mesh.make_mesh(N_WINDOWS, index_shards=N_WINDOWS,
+                       devices=[torch.device("cpu")] * N_WINDOWS), dbl,
+        config, WINDOW_OVERLAP, parts=parts)
+    sub = encode(reads[:N_SHARD_CPU], N_SHARD_CPU)
+    same_results(f"16c windows, {N_SHARD_CPU} DNA reads",
+                 cpu_align(cpu_arrays, sub), align(arrays, sub), smi)
+    return launches, [row]
+
+
+def run_pair(argv, timeout=600):
+    """gsnap_cli.main(argv) in two processes of a gloo group on this
+    host, both on the card; fails the run where either fails."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MP_WORKER, f"127.0.0.1:{port}", str(r)]
+        + argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            _o, err = p.communicate(timeout=timeout)
+            if p.returncode:
+                raise AssertionError(f"16d: process {r} of {argv} returned "
+                                     f"{p.returncode}: "
+                                     f"{err.decode()[-2000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def two_process_phase(bench_data, reads, rna_reads, smi):
+    """16d: two processes in a gloo group sharing the card: gsnap -O over
+    the first 8,192 DNA reads with no --part (each takes its rank's
+    shard), process 0's file byte-identical to the one-process run's and
+    process 1's empty; --two-pass over the first 16,384 RNA reads, both
+    processes' --splices-dump and --indels-dump equal (pass 1 learns
+    a junction from one read, so each process's half teaches some)."""
+    d = bench_data.ROOT / "multi"
+    d.mkdir(exist_ok=True)
+    dbdir = str(bench_data.ROOT / "db_k14")
+    for name, recs in (("dna.fa", reads[:N_MP_DNA]),
+                       ("rna.fa", rna_reads[:N_MP_RNA])):
+        (d / name).write_text("".join(f">{r.accession}\n{r.sequence}\n"
+                                      for r in recs))
+    base = ["-D", dbdir, "-O", "--no-sam-headers", str(d / "dna.fa")]
+    rc, t1, _o, err = gsnap_main(base + ["-o", str(d / "one.sam")])
+    if rc:
+        raise AssertionError(f"16d: the one-process run returned {rc}: "
+                             f"{err}")
+    _r, t2 = timed_call(lambda: run_pair(base + ["-o",
+                                                 str(d / "p{rank}.sam")]))
+    one = (d / "one.sam").read_bytes()
+    p0, p1 = ((d / f"p{r}.sam").read_bytes() for r in range(2))
+    log(f"16d gsnap -O, {N_MP_DNA} DNA reads: one process {t1:.2f} s, two "
+        f"processes sharing the card {t2:.2f} s (whole runs, start-up "
+        f"included); process 0's file byte-identical to the one-process "
+        f"run's: {p0 == one} ({len(one)} bytes), process 1's empty: "
+        f"{p1 == b''} [{smi}]")
+    if p0 != one or p1 != b"" or one.count(b"\n") < N_MP_DNA:
+        raise AssertionError("16d: the merged -O output differs")
+    _r, t3 = timed_call(lambda: run_pair(
+        ["-D", dbdir, "-N", "1", "--two-pass", "--pass1-min-support", "1",
+         "--splices-dump",
+         str(d / "s{rank}"), "--indels-dump", str(d / "i{rank}"), "-o",
+         str(d / "tp{rank}.sam"), str(d / "rna.fa")]))
+    sizes = []
+    for kind in ("s", "i"):
+        a, b = (np.load(d / f"{kind}{r}.npz") for r in range(2))
+        same = sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[f], b[f]) for f in a.files)
+        sizes.append(f"{kind}: {[len(a[f]) for f in a.files]} equal {same}")
+        if not same or (kind == "s" and not len(a["junctions"])):
+            raise AssertionError(f"16d: the two processes' {kind} dumps "
+                                 f"differ, or no junction was learned")
+    log(f"16d gsnap --two-pass, {N_MP_RNA} RNA reads in two processes: "
+        f"{t3:.2f} s; the gathered tables each process dumped: "
+        f"{'; '.join(sizes)} [{smi}]")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -2755,6 +3246,16 @@ def main():
     rows += k7a_wide_rows(reduce_ns)
     cli_runs = gsnap_cli_phase(bench_data, db, rfa, rna_rfa, (f1, f2), truth,
                                smi)
+    # phase 16: several devices, large genomes, several processes
+    t16 = time.perf_counter()
+    mesh_launches = mesh_phase(db, index, config, reads, rna_reads,
+                               pe_pairs, gmap_enc, smi)
+    shard_launches, shard_rows = sharded_phase(bench_data, db, config,
+                                               reads, rna_reads, truth, smi)
+    win_launches, win_rows = large_phase(bench_data, config, reads, smi)
+    rows += shard_rows + win_rows
+    two_process_phase(bench_data, reads, rna_reads, smi)
+    log(f"phase 16 in {time.perf_counter() - t16:.1f} s [{smi}]")
 
     # GPU vs CPU (plain versions) on the first reads, same batching; the
     # last four on the mode index
@@ -2829,7 +3330,7 @@ def main():
             raise AssertionError(f"GMAP {fmt}: CPU and GPU GFF3 differ")
     cpu_main = gmap_main_runs(db, cpu_index, gmap_q, cseqs)
     for extra, (c, ct), (g, gt) in zip(GMAP_MAIN_RUNS, cpu_main, gpu_main):
-        nq = N_CHIM_CPU if "-x" in extra else GMAP_WARM
+        nq = N_CHIM_CPU if "-x" in extra else N_GMAP_MAIN
         log(f"GMAP main {' '.join(extra)} on {nq} cDNAs: CPU plain run "
             f"{ct:.1f} s, card {gt:.2f} s: byte-identical: {c == g} "
             f"({len(g)} bytes) [{smi}]")
@@ -2851,7 +3352,15 @@ def main():
               "rna_twopass": tw_launches, "rna_fusions": fus_launches,
               "rna_tr": tr_launches, "pe_tr": pe_tr_launches,
               "cli_dna": cli_runs["dna"], "cli_pe": cli_runs["pe"],
-              "cli_rna_known": cli_runs["rna_known"]}
+              "cli_rna_known": cli_runs["rna_known"],
+              "mesh_dna": mesh_launches["DNA"],
+              "mesh_rna": mesh_launches["RNA"],
+              "mesh_pe": mesh_launches["PE"],
+              "mesh_gmap": mesh_launches["GMAP"],
+              "sharded_1x4": shard_launches["sharded 1 x 4 DNA"],
+              "sharded_2x2_dna": shard_launches["sharded 2 x 2 full DNA"],
+              "sharded_2x2_rna": shard_launches["sharded 2 x 2 full RNA"],
+              "windows": win_launches}
     n_batches = {"dna": -(-len(reads) // B), "rna": -(-len(rna_reads) // RB),
                  "rna_known": -(-len(rna_reads) // RB),
                  "pe": -(-len(pe_pairs) // PB), "pe_repair": 1,
@@ -2862,7 +3371,14 @@ def main():
                  "rna_fusions": -(-(RB + N_FUSION) // RB), "rna_tr": 1,
                  "pe_tr": 1, "cli_dna": -(-len(reads) // 1024),
                  "cli_pe": -(-len(pe_pairs) // 1024),
-                 "cli_rna_known": -(-len(rna_reads) // 1024)}
+                 "cli_rna_known": -(-len(rna_reads) // 1024),
+                 "mesh_dna": -(-len(reads) // B),
+                 "mesh_rna": -(-len(rna_reads) // RB),
+                 "mesh_pe": -(-N_MESH_PE // PB), "mesh_gmap": 1,
+                 "sharded_1x4": -(-len(reads) // SHARD_B),
+                 "sharded_2x2_dna": -(-len(reads) // SHARD_B),
+                 "sharded_2x2_rna": -(-N_SHARD_RNA // SHARD_B),
+                 "windows": -(-len(reads) // SHARD_B)}
     per_batch = {name: {ph: launches[name] / n_batches[ph]
                         for ph, launches in phases.items()}
                  for name in SOURCES}

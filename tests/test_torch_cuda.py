@@ -977,3 +977,109 @@ def test_gsnap_main_on_gpu_matches_cpu(dev, tmp_path, case):
     assert all(kernels.LAUNCHES[k] > 0 for k in launched), kernels.LAUNCHES
     assert texts[0][0].count("\n") + sum(
         v.count(b"\n") for v in texts[0][1].values()) > 40
+
+
+# ------------------------------------------------ several devices
+
+def grid(dev, n):
+    """n devices: the card's distinct ones where it has n, else dev n
+    times."""
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [dev] * n
+
+
+def test_mesh_context_on_gpu_matches_cpu(dev, tmp_path):
+    """align_records (DNA, RNA), align_paired_records and
+    align_queries_bulk through a MeshContext of data axis 2 on the card
+    give the plain single-device CPU run's output; every stage split."""
+    from dataclasses import asdict
+
+    from tpumap_torch.cli import gmap_cli
+    from tpumap_torch.parallel import mesh, pipeline
+    db, reads, _gfa = mixed_workload(tmp_path, port=True)
+    cfg = AlignConfig(top_k=4, max_occ=8)
+    cpu_index = DeviceIndex.from_host(db, "cpu")
+    ctx = pipeline.MeshContext(mesh.make_mesh(devices=grid(dev, 2)), db)
+    for novel in (False, True):
+        want = sam_text(align_records(db, cpu_index, reads, cfg,
+                                      batch_size=32, novelsplicing=novel))
+        kernels.reset_launches()
+        got = sam_text(align_records(db, ctx.index, reads, cfg,
+                                     batch_size=32, novelsplicing=novel,
+                                     device_ctx=ctx))
+        assert got == want
+        assert min(kernels.LAUNCHES[k] for k in DNA_KERNELS) > 0
+    pairs = stream_pairs(db, port=True)
+    want = [(a.lines(), b.lines()) for a, b in align_paired_records(
+        db, cpu_index, pairs, cfg, batch_size=16, pairmax=1000)]
+    got = [(a.lines(), b.lines()) for a, b in align_paired_records(
+        db, ctx.index, pairs, cfg, batch_size=16, pairmax=1000,
+        device_ctx=ctx)]
+    assert got == want
+    assert ctx.rows.split > 0
+    (tmp_path / "gmap").mkdir()
+    gdb, recs, _qfa = gmap_world(tmp_path / "gmap", port=True)
+    enc = [dna.encode(r.sequence) for r in recs]
+    gctx = pipeline.MeshContext(mesh.make_mesh(devices=grid(dev, 2)), gdb)
+    want = gmap_cli.align_queries_bulk(gdb, DeviceIndex.from_host(gdb, "cpu"),
+                                       enc)
+    kernels.reset_launches()
+    got = gmap_cli.align_queries_bulk(gdb, gctx.index, enc, device_ctx=gctx)
+    assert kernels.LAUNCHES["chain_segments"] > 0
+    assert [None if h is None else (asdict(h[0]), h[1]) for h in got] == \
+        [None if h is None else (asdict(h[0]), h[1]) for h in want]
+
+
+@pytest.mark.parametrize("shape,full", [((1, 4), False), ((2, 2), False),
+                                        ((2, 2), True)])
+def test_sharded_on_gpu_matches_cpu(dev, tmp_path, shape, full):
+    """The index-sharded aligners on a grid of the card against the same
+    grid of `cpu` devices: every result array equal, K1 launched."""
+    from tpumap_torch.ops import pathdp
+    from tpumap_torch.parallel import mesh, sharded
+    from tpumap_torch.gsnap.driver import make_batch
+    db, reads, _gfa = mixed_workload(tmp_path, port=True)
+    cfg = AlignConfig(top_k=4, max_occ=8)
+    make = (sharded.make_sharded_full_aligner if full
+            else sharded.make_sharded_aligner)
+    kw = dict(scoring=pathdp.PathScoring(max_intron=5000), salvage=True,
+              paired=True, pairmax=1000) if full else {}
+    b = make_batch(reads[:64], 64, 128)
+    batch = {k: b[k] for k in ("codes", "nmask", "lengths")}
+    out = []
+    for devices in ([torch.device("cpu")] * 4, grid(dev, 4)):
+        arrays, align = make(mesh.make_mesh(4, index_shards=shape[1],
+                                            devices=devices), db, cfg, **kw)
+        kernels.reset_launches()
+        out.append({k: v.cpu() for k, v in align(arrays, batch).items()})
+    assert kernels.LAUNCHES["verify_diagonals"] > 0
+    assert sorted(out[0]) == sorted(out[1])
+    for k in out[0]:
+        assert torch.equal(out[0][k], out[1][k]), k
+
+
+def test_genome_windows_on_gpu_match_cpu(dev, tmp_path):
+    """The genome-window aligner (a uint64 build) on 1 x 4 of the card
+    against the same grid of `cpu` devices, and its rebase."""
+    from tpumap_torch.gsnap.driver import make_batch
+    from tpumap_torch.index.build import build_db
+    from tpumap_torch.parallel import large, mesh
+    db, reads, gfa = mixed_workload(tmp_path, port=True)
+    dbl = build_db(gfa, name="g64", k=db.k, interval=db.interval, large=True)
+    cfg = AlignConfig(top_k=4, max_occ=8)
+    b = make_batch(reads[:64], 64, 128)
+    batch = {k: b[k] for k in ("codes", "nmask", "lengths")}
+    parts = large.shard_genome_host(dbl, 4, 256)
+    out = []
+    for devices in ([torch.device("cpu")] * 4, grid(dev, 4)):
+        arrays, align, bases = large.make_genome_sharded_aligner(
+            mesh.make_mesh(4, index_shards=4, devices=devices), dbl, cfg,
+            256, parts=parts)
+        kernels.reset_launches()
+        out.append({k: v.cpu() for k, v in align(arrays, batch).items()})
+    assert kernels.LAUNCHES["verify_diagonals"] > 0
+    for k in out[0]:
+        assert torch.equal(out[0][k], out[1][k]), k
+    np.testing.assert_array_equal(large.rebase_results(out[1], bases),
+                                  large.rebase_results(out[0], bases))

@@ -11,7 +11,7 @@ test_single_cell:
   recompute_md, clip_record_left, clip_overlap_pair, merge_overlap_pair);
 - driver.align_records_isolated's quarantine, with and without a sink;
 - io/gsnapfmt.py (-A default), io/m8.py (-A m8), gsnap/single_cell.py
-  and parallel/outmerge.py (one process; more raise).
+  and parallel/outmerge.py (one process, and a simulated group of two).
 
 main, byte for byte but for the echoed command line (the port's ends in
 --device cpu): one parametrised test over argument lists on
@@ -312,27 +312,48 @@ def test_single_cell_matches(tmp_path):
 
 def test_ordered_merge_matches(monkeypatch):
     """OrderedMerge and MergeRouter in one process write the chunks in
-    global input order, headers first, as tpumap's; a process group of
-    two raises NotImplementedError (the transport is a later slice)."""
-    got = []
-    for mod in (joutmerge, outmerge):
-        merge = mod.OrderedMerge((1, 3))
-        router = mod.MergeRouter(merge)
-        merge.file(None).write("@HD\n")
-        router.get("unpaired_uniq").write("@HD split\n")
-        for i in mod.OrderedMerge.iter(merge, [5, 1, 3]):
-            router.get("nomapping" if i == 1 else "unpaired_uniq").write(
-                f"r{i}\n")
-            merge.file(None).write(f"d{i}\n")
-        router.close()
-        out = []
-        assert merge.finalize(lambda cat, text: out.append((cat, text)))
-        got.append(out)
-    assert got[1] == got[0]
+    global input order, headers first, as tpumap's; in a group of two
+    (simulated: every gather returns this process's array twice) rank 0
+    writes tpumap's merged stream and rank 1 nothing."""
+    def run(part):
+        got = []
+        for mod in (joutmerge, outmerge):
+            merge = mod.OrderedMerge(part)
+            router = mod.MergeRouter(merge)
+            merge.file(None).write("@HD\n")
+            router.get("unpaired_uniq").write("@HD split\n")
+            for i in mod.OrderedMerge.iter(merge, [5, 1, 3]):
+                router.get("nomapping" if i == 1
+                           else "unpaired_uniq").write(f"r{i}\n")
+                merge.file(None).write(f"d{i}\n")
+            router.close()
+            out = []
+            ret = merge.finalize(lambda cat, text: out.append((cat, text)))
+            got.append((ret, out))
+        return got
+
+    got = run((1, 3))
+    assert got[1] == got[0] and got[0][0]
+    import jax
+    from jax.experimental import multihost_utils as mh
+    from tpumap.parallel import distributed as jdist
+    monkeypatch.setattr(jdist, "_nprocs", lambda: 2)
+    monkeypatch.setattr(joutmerge, "_nprocs", lambda: 2)
+    monkeypatch.setattr(mh, "process_allgather",
+                        lambda x: np.stack([np.asarray(x)] * 2))
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        outmerge.OrderedMerge((0, 2)).finalize(lambda c, t: None)
+
+    def all_gather(out, x):
+        for o in out:
+            o.copy_(x)
+    monkeypatch.setattr(torch.distributed, "all_gather", all_gather)
+    for r in (0, 1):
+        monkeypatch.setattr(jax, "process_index", lambda: r)
+        monkeypatch.setattr(torch.distributed, "get_rank", lambda: r)
+        got = run((r, 2))
+        assert got[1] == got[0]
+        assert got[0][0] == (r == 0) and bool(got[0][1]) == (r == 0)
 
 
 # ------------------------------------------------------------- main

@@ -6,7 +6,9 @@ modules give tpumap's results on the same inputs.
     phase_ab.py, function-local imports included;
 (b) a subprocess where JAX and tpumap are refused: every port module
     imports (the staged path's knownindels, transcriptome, remap and
-    twopass among them), and align_records (DNA, RNA and the staged path
+    twopass, and the multi-device parallel modules among them), the
+    index-sharded aligner and align_records through a MeshContext run,
+    and align_records (DNA, RNA and the staged path
     with fusions), align_paired_records and main --device cpu give the
     SAM of the port's in-process runs on tpumap's objects (which
     test_torch_slice/splice/paired/staged hold to tpumap's own SAM);
@@ -51,7 +53,7 @@ from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.io import fasta, iit, sam, sam_bulk
 from tpumap_torch.ops import splice
 from torch_workloads import (NO_TPUMAP, gmap_world, mixed_workload, sam_text,
-                             stream_pairs)
+                             sharded_diags, stream_pairs)
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -135,17 +137,25 @@ def mixed(tmp_path_factory):
     align_paired_records(db, ti, stream_pairs(db), batch_size=16,
                          pairmax=1000, sink=chunks.append,
                          config=kw["config"])
-    return dna, rna, b"".join(bytes(c) for c in chunks), noq, staged
+    return (dna, rna, b"".join(bytes(c) for c in chunks), noq, staged,
+            sharded_diags(db, reads, kw["config"]))
 
 
 def test_port_runs_without_tpumap_and_jax(mixed, tmp_path):
-    dna, rna, pe, noq, staged = mixed
+    dna, rna, pe, noq, staged, shard = mixed
     mods = sorted(m.name for m in pkgutil.walk_packages(
         tpumap_torch.__path__, "tpumap_torch."))
     assert {"tpumap_torch.native", "tpumap_torch.io.sam",
             "tpumap_torch.io.iit", "tpumap_torch.gsnap.knownindels",
             "tpumap_torch.gsnap.transcriptome", "tpumap_torch.gsnap.remap",
-            "tpumap_torch.gsnap.twopass"} <= set(mods)
+            "tpumap_torch.gsnap.twopass", "tpumap_torch.parallel.mesh",
+            "tpumap_torch.parallel.pipeline", "tpumap_torch.parallel.sharded",
+            "tpumap_torch.parallel.large",
+            "tpumap_torch.parallel.distributed",
+            "tpumap_torch.parallel.outmerge", "tpumap_torch.cli.cat_cli",
+            "tpumap_torch.cli.get_genome_cli",
+            "tpumap_torch.cli.fa_coords_cli",
+            "tpumap_torch.io.fastread"} <= set(mods)
     script = NO_TPUMAP + f"""
 import importlib, io, pathlib
 from contextlib import redirect_stdout
@@ -183,15 +193,25 @@ with redirect_stdout(buf):
     gsnap_cli.main(["-D", str(root / "db"), str(root / "r.fa"), "--device",
                     "cpu", "--batch-size", "32", "-n", "1"])
 out.write(buf.getvalue().encode())
+out.write(b"=====\\n")
+from torch_workloads import sharded_diags
+out.write(sharded_diags(db, reads, cfg))
+out.write(b"=====\\n")
+from tpumap_torch.parallel import mesh, pipeline
+ctx = pipeline.MeshContext(mesh.make_mesh(devices=[torch.device("cpu")] * 4),
+                           db)
+driver.align_records(db, ctx.index, reads, cfg, batch_size=32,
+                     sink=out.write, device_ctx=ctx)
 assert sys.modules["jax"] is None
 assert not [m for m in sys.modules if m.split(".")[0] == "tpumap"]
 """
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
                        timeout=600)
     assert r.returncode == 0, r.stderr.decode()[-3000:]
-    got_dna, got_rna, got_pe, got_staged, got_main = r.stdout.split(
-        b"=====\n")
+    (got_dna, got_rna, got_pe, got_staged, got_main, got_shard,
+     got_mesh) = r.stdout.split(b"=====\n")
     assert got_dna == dna and got_rna == rna and got_pe == pe
+    assert got_shard == shard and got_mesh == dna
     assert got_staged == staged
     body = [ln for ln in got_main.decode().splitlines()
             if not ln.startswith("@")]

@@ -435,22 +435,24 @@ def test_main_paired_refuses_missing_card(world, tmp_path, monkeypatch):
 @pytest.mark.parametrize("option", ["tr", "known_indels", "device_ctx",
                                     "mode", "snp_tolerant"])
 def test_unported_paired_options_raise(world, option):
-    """Device meshes (device_ctx) are a later slice and raise
-    NotImplementedError. The staged paired path (tr, known_indels), the
-    alignment mode and SNP tolerance are ported: the port accepts them
-    and gives tpumap's SAM on the same pairs (no mode or SNP tables
-    here, so both fall back to the standard ones, as in tpumap; a
-    transcriptome of one two-exon gene over the world's genome)."""
+    """Device meshes (device_ctx: tpumap's MeshContext on 8 virtual
+    devices, the port's on 8 `cpu` devices), the staged paired path (tr,
+    known_indels), the alignment mode and SNP tolerance are ported: the
+    port accepts them and gives tpumap's SAM on the same pairs (no mode
+    or SNP tables here, so both fall back to the standard ones, as in
+    tpumap; a transcriptome of one two-exon gene over the world's
+    genome)."""
     db, pairs, _owner, _ks, _want, _dicts = world
     ti = DeviceIndex.from_host(db, "cpu")
-    if option == "device_ctx":
-        with pytest.raises(NotImplementedError):
-            paired.align_paired_records(db, ti, pairs[:2],
-                                        engine.AlignConfig(),
-                                        device_ctx=object())
-        return
     jkw, tkw = {}, {}
-    if option == "known_indels":
+    if option == "device_ctx":
+        from tpumap.parallel import mesh as jmesh
+        from tpumap.parallel import pipeline as jpipe
+        from tpumap_torch.parallel import mesh, pipeline
+        jkw["device_ctx"] = jpipe.MeshContext(jmesh.make_mesh(8), db)
+        tkw["device_ctx"] = pipeline.MeshContext(
+            mesh.make_mesh(devices=[torch.device("cpu")] * 8), db)
+    elif option == "known_indels":
         from tpumap.gsnap.knownindels import KnownIndels as JKnownIndels
         from tpumap_torch.gsnap.knownindels import KnownIndels
         none = (np.zeros(0, np.uint64), np.zeros(0, np.int32),

@@ -232,22 +232,25 @@ MIXED_GENES = (">TRA chr1:1001..3100 gene\nGENEA NM_A\n1001 1200\n"
                                 {"find_fusions": True},
                                 {"config": engine.AlignConfig(
                                     mode="cmet-stranded")},
-                                {"device_ctx": object()},
+                                {"device_ctx": "mesh"},
                                 {"config": engine.AlignConfig(
                                     snp_tolerant=True)}])
 def test_later_slices_raise(mixed, kw):
-    """Device meshes (device_ctx) are a later slice and raise
-    NotImplementedError. The staged path (known_indels, find_fusions),
-    the transcriptome rung (tr), the alignment modes and SNP tolerance
-    are ported: the port accepts them and gives tpumap's SAM (this db has
-    no mode or SNP tables, so both fall back to the standard ones, as
-    tpumap's mode_index does)."""
+    """Device meshes (device_ctx: tpumap's MeshContext on 8 virtual
+    devices, the port's on 8 `cpu` devices), the staged path
+    (known_indels, find_fusions), the transcriptome rung (tr), the
+    alignment modes and SNP tolerance are ported: the port accepts them
+    and gives tpumap's SAM (this db has no mode or SNP tables, so both
+    fall back to the standard ones, as tpumap's mode_index does)."""
     db, ji, ti, reads, _ = mixed
-    if "device_ctx" in kw:
-        with pytest.raises(NotImplementedError):
-            driver.align_records(db, ti, reads[:4], **kw)
-        return
     jkw, tkw = dict(kw), dict(kw)
+    if "device_ctx" in kw:
+        from tpumap.parallel import mesh as jmesh
+        from tpumap.parallel import pipeline as jpipe
+        from tpumap_torch.parallel import mesh, pipeline
+        jkw["device_ctx"] = jpipe.MeshContext(jmesh.make_mesh(8), db)
+        tkw["device_ctx"] = pipeline.MeshContext(
+            mesh.make_mesh(devices=[torch.device("cpu")] * 8), db)
     if "known_indels" in kw:
         from tpumap.gsnap.knownindels import KnownIndels as JKnownIndels
         from tpumap_torch.gsnap.knownindels import KnownIndels

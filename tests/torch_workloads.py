@@ -553,3 +553,18 @@ def gsnap_cli_world(root, port=False):
     snpindex_cli.main(["-D", out["SNPD"], str(root / "snps.iit")])
     modeindex_cli.main_cmet(["-D", out["CMETD"]])
     return out
+
+
+def sharded_diags(db, reads, config) -> bytes:
+    """The index-sharded aligner's diagonals over the first 32 reads on a
+    2 x 2 grid of `cpu` devices (test_torch_parallel holds the aligner
+    to tpumap's)."""
+    import torch
+
+    from tpumap_torch.gsnap import driver
+    from tpumap_torch.parallel import mesh, sharded
+    m = mesh.make_mesh(4, index_shards=2, devices=[torch.device("cpu")] * 4)
+    arrays, align = sharded.make_sharded_aligner(m, db, config)
+    L = max(len(r.sequence) for r in reads[:32])
+    res = align(arrays, driver.make_batch(reads[:32], 32, L))
+    return repr(res["diag"].tolist()).encode()

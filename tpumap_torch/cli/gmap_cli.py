@@ -159,7 +159,8 @@ def align_query_paths(db: GenomeDB, index: DeviceIndex, qcodes, qnmask,
 def align_queries_bulk(db: GenomeDB, index: DeviceIndex, encoded: list,
                        config: GmapConfig = GmapConfig(),
                        s1config: Stage1Config = Stage1Config(),
-                       known=None, strand=None, chr_range=None):
+                       known=None, strand=None, chr_range=None,
+                       device_ctx=None):
     """Best path for many queries (tpumap gmap_cli.py:134-255): one
     stage-1 pass for the batch, then one chain pass per window-size
     bucket, all buckets dispatched before the first is refined on the
@@ -167,7 +168,10 @@ def align_queries_bulk(db: GenomeDB, index: DeviceIndex, encoded: list,
     regions of queries without a near-perfect path) and two
     repetitive-region retries (stage 1 keeping overabundant oligos, and
     the chain stage at max_occ 128 keeping them). Returns
-    [(chain, univ_off) | None] parallel to encoded [(codes, nmask)]."""
+    [(chain, univ_off) | None] parallel to encoded [(codes, nmask)].
+    device_ctx (parallel/pipeline.MeshContext) runs the chain passes
+    over its device grid; stage 1 stays on index's device, as in
+    tpumap."""
     regions_per_q = [_filter_regions(regs, strand, chr_range)
                      for regs in find_regions_bulk(index, encoded,
                                                    s1config)]
@@ -203,7 +207,7 @@ def align_queries_bulk(db: GenomeDB, index: DeviceIndex, encoded: list,
         for _sz, subset in sorted(groups.items()):
             pairs = [make_pair(qi, r) for qi, r in subset]
             handles.append((subset, pairs, align_cdna_windows_dispatch(
-                index, pairs, config)))
+                index, pairs, config, device_ctx=device_ctx)))
         for subset, pairs, h in handles:
             res = align_cdna_windows_finish(db, h, known=known)
             for (qi, _r), p, ch in zip(subset, pairs, res):

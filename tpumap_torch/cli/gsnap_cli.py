@@ -695,10 +695,16 @@ def main(argv=None):
         return recs
 
     part = parse_part(args.part) if args.part else None
+    if part is None:
+        # multi-process data parallelism: in a torch.distributed group
+        # each process takes its rank's shard of the input
+        from tpumap_torch.parallel import distributed
+        if distributed.nprocs() > 1:
+            part = (distributed.rank(), distributed.nprocs())
 
-    # gsnap --ordered with --part: record every output chunk with its
-    # global input ordinal and write them in that order
-    # (parallel/outmerge.py; the gather across processes is item 15)
+    # gsnap --ordered in a multi-process run: record every output chunk
+    # with its global input ordinal, gather them, process 0 writes the
+    # merged stream (parallel/outmerge.py)
     merge = None
     out_real, router_real = out, router
     if args.ordered and part is not None and part[1] > 1:

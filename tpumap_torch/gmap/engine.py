@@ -209,13 +209,16 @@ def _n_segments(config: GmapConfig, Qp: int) -> GmapConfig:
 
 
 def align_cdna_windows_dispatch(index, pairs: list,
-                                config: GmapConfig = GmapConfig()):
+                                config: GmapConfig = GmapConfig(),
+                                device_ctx=None):
     """Enqueue the device chain stage of a window group and the copy of
     its result to pinned host memory, without waiting: returns the
     handle align_cdna_windows_finish takes. Dispatching several groups
     before finishing any overlaps their device work with the host
     refinement. pairs: (qcodes, qnmask, gstart, glen, strand) with the
-    query in its aligned orientation."""
+    query in its aligned orientation. device_ctx: a
+    parallel/pipeline.MeshContext splits the window rows over its
+    device grid (MeshContext.gmap_windows)."""
     Qp = _bucket(max(len(p[0]) for p in pairs))
     Rp = _bucket(max(p[3] for p in pairs))
     config = _n_segments(config, Qp)
@@ -231,11 +234,15 @@ def align_cdna_windows_dispatch(index, pairs: list,
         ws[i] = gstart
         wl[i] = glen
         sp[i] = strand          # strand selects the mode space (fwd/rc)
-    dev = index.device
-    cdiag, cqs, cqe, cok = _chain_pipeline_windows(
-        index.genome_packed, index.genome_nmask,
-        *(torch.from_numpy(a).to(dev) for a in (qc, qv, ws, wl, sp)),
-        Rp, config)
+    if device_ctx is not None:
+        cdiag, cqs, cqe, cok = device_ctx.gmap_windows(qc, qv, ws, wl, sp,
+                                                       Rp, config)
+    else:
+        dev = index.device
+        cdiag, cqs, cqe, cok = _chain_pipeline_windows(
+            index.genome_packed, index.genome_nmask,
+            *(torch.from_numpy(a).to(dev) for a in (qc, qv, ws, wl, sp)),
+            Rp, config)
     wait = start_fetch({"diag": cdiag, "qstart": cqs, "qend": cqe,
                         "ok": cok})
     return (pairs, config, wait)

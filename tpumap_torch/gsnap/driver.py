@@ -24,8 +24,9 @@ stages, each its own launches: the indel DP (K2, K3), the chain stage
 (find_splice_ends, K6b), the fusion joins (refine_splices, torch ops);
 the next batch is dispatched after them. The transcriptome rung (tr)
 is a cascade of its own a batch (K1) on the transcript db's index;
-its records carry the XX/XY remap tags. Device meshes (device_ctx) are
-a later slice of the port and raise NotImplementedError.
+its records carry the XX/XY remap tags. With device_ctx (a
+parallel/pipeline.MeshContext) the device calls run data-parallel over a
+device grid and give the single-device records.
 """
 from __future__ import annotations
 
@@ -211,7 +212,7 @@ def refine_unsolved(db, index, batch, res, config, novelsplicing=False,
                     tr_records=None, L=None, max_insertions=6,
                     max_deletions=9, indel_endlength=4, use_localdb=True,
                     known_indels=None, quals=None, amb_out=None,
-                    dict_all=False):
+                    dict_all=False, device_ctx=None):
     """The refinement ladder after the cascade, shared by the single-end
     and paired drivers (tpumap driver.py:271-680). On the fused ladder's
     results (res holds in_idx) the host acceptance of its chain and indel
@@ -241,7 +242,8 @@ def refine_unsolved(db, index, batch, res, config, novelsplicing=False,
         if novelsplicing or known is not None:
             splice_result = _staged_chains(
                 db, index, batch, res, dp_result, tr_records, L, chunk_len,
-                len_v, novelsplicing, max_intron, known, use_localdb, quals)
+                len_v, novelsplicing, max_intron, known, use_localdb, quals,
+                device_ctx)
     return _late_stages(db, index, batch, res, config, dp_result,
                         splice_result, novelsplicing, max_intron, known,
                         find_fusions, tr_records, L, amb_out, chunk_len,
@@ -413,7 +415,7 @@ def _staged_indels(index, batch, res, tr_records, L, chunk_len, len_v,
 
 def _staged_chains(db, index, batch, res, dp_result, tr_records, L,
                    chunk_len, len_v, novelsplicing, max_intron, known,
-                   use_localdb, quals):
+                   use_localdb, quals, device_ctx=None):
     """The staged chain stage (tpumap driver.py:476-668): each row at
     the splice trigger (mismatches or clipped bases) gets its ranked
     candidates, known-junction partners and, with one candidate, the
@@ -482,7 +484,11 @@ def _staged_chains(db, index, batch, res, dp_result, tr_records, L,
         cquals[:len(rows)] = sc_quals[row_js]
     for row, (_i, _st0, cands) in enumerate(rows):
         cdiags[row, :len(cands)] = cands
-    cres = pathdp.chain_solve(
+    # a device context (parallel/pipeline.py) runs the chain solver over
+    # its device grid
+    _chain = (device_ctx.chain_solve if device_ctx is not None
+              else pathdp.chain_solve)
+    cres = _chain(
         index, _put(index, codes), _put(index, nmask),
         _put(index, lengths), _put(index, cdiags),
         scoring=pathdp.PathScoring(max_intron=max(max_intron, MIN_INTRON)),
@@ -1334,10 +1340,10 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
     its transcript db) pair, adds the transcriptome rung, its own
     cascade a batch, with the XX/XY remap tags on every mapped record.
     merge_distant_samechr emits a colinear same-chromosome distant join
-    as one spliced line."""
-    if device_ctx is not None:
-        raise NotImplementedError(
-            "device_ctx is a later slice of the port (ROADMAP item 15)")
+    as one spliced line. device_ctx (parallel/pipeline.MeshContext)
+    runs the batches' device work over its device grid; a context
+    without a fused ladder (SingleChipContext) takes the staged path, as
+    in tpumap."""
     out = []
     remapper = None
     if tr is not None:
@@ -1345,7 +1351,9 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
         if remapper is None:
             remapper = remap_mod.TranscriptRemapper(tr[0])
             tr[0]._remapper = remapper
-    use_fused = not find_fusions and known_indels is None
+    use_fused = (not find_fusions and known_indels is None
+                 and (device_ctx is None
+                      or hasattr(device_ctx, "ladder_full")))
     scoring = pathdp.PathScoring(max_intron=max(max_intron, MIN_INTRON))
     known_dev = (known_to_device(known, index.device)
                  if known is not None and use_fused else None)
@@ -1372,11 +1380,17 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
             # compactions scale with the batch: an RNA batch can be ~50%
             # spliced
             r_chain = min(max(8192, B // 2), B)
-            dev = ladder.align_batch_full(
-                index, pbatch, config, run_L, scoring, splicing_on,
-                novelsplicing and use_localdb, r_chain,
-                min(max(2048, B // 8), r_chain), min(2048, B),
-                known=known_dev)
+            args = (config, run_L, scoring, splicing_on,
+                    novelsplicing and use_localdb, r_chain,
+                    min(max(2048, B // 8), r_chain), min(2048, B))
+            if device_ctx is not None:
+                dev = device_ctx.ladder_full(pbatch, *args, known=known_dev)
+            else:
+                dev = ladder.align_batch_full(index, pbatch, *args,
+                                              known=known_dev)
+        elif device_ctx is not None:
+            dev = ladder.narrow_result(device_ctx.cascade(
+                index, pbatch, config, run_L))
         else:
             dev = ladder.narrow_result(align_batch_cascaded_packed(
                 index, pbatch, config, run_L))
@@ -1410,7 +1424,7 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
             db, index, batch, res, config, novelsplicing, max_intron, known,
             find_fusions, tr_records, run_L, max_insertions, max_deletions,
             indel_endlength, use_localdb, known_indels, batch.get("quals"),
-            amb_result)
+            amb_result, device_ctx=device_ctx)
         # secondaries (-n > 1): the fused path's sec_* compaction, or the
         # staged path's full candidate lists of multimapping rows
         sec_map = {}

@@ -292,22 +292,37 @@ def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask
 
 
+def row_map(rows, fn, index, *args):
+    """fn(index, *args) for a row-independent fn; with rows (a
+    parallel/pipeline.RowSplit) over contiguous row chunks of args, each
+    on its data device with that device's index, concatenated back."""
+    if rows is None:
+        return fn(index, *args)
+    return rows.map(fn, *args)
+
+
 def align_batch_cascaded(index, batch, config: AlignConfig,
-                         solved_nmm: int = 3, stage2_rows: int = 512):
+                         solved_nmm: int = 3, stage2_rows: int = 512,
+                         rows=None):
     """Two-rung cascade: the ends rung for every read, then the
     prevalent rung on the up-to-stage2_rows worst unsolved reads
-    (fixed-size top-k), scattered back where it improved."""
+    (fixed-size top-k), scattered back where it improved. With rows
+    each rung and the trim stage run over row chunks (row_map); the
+    compaction ranks the whole batch once."""
     codes, nmask, lengths = batch["codes"], batch["nmask"], batch["lengths"]
     B, L = codes.shape
     S = min(stage2_rows, B)
-    res = align_batch_ends(index, batch, config)
+    res = row_map(rows, lambda ix, b: align_batch_ends(ix, b, config),
+                  index, {"codes": codes, "nmask": nmask,
+                          "lengths": lengths})
 
     unsolved = res["nmismatch"] > solved_nmm
     prio = torch.where(unsolved, res["nmismatch"], -1)
     _, idx = stable_topk(prio, S)
     selected = unsolved[idx]
     sub = {"codes": codes[idx], "nmask": nmask[idx], "lengths": lengths[idx]}
-    res2 = align_batch(index, sub, config)
+    res2 = row_map(rows, lambda ix, b: align_batch(ix, b, config), index,
+                   sub)
 
     better = selected & (res2["nmismatch"] < res["nmismatch"][idx])
     out = {}
@@ -328,8 +343,12 @@ def align_batch_cascaded(index, batch, config: AlignConfig,
     n_uns = _i32(unsolved.sum())
     out["stage2_overflow"] = torch.clamp(n_uns - _i32(selected.sum()), min=0)
     if config.soft_clips:
-        out.update(_trim_stage(index, codes, nmask, lengths, out, config,
-                               quals=batch.get("quals")))
+        out.update(row_map(
+            rows, lambda ix, c, m, ln, r, q: _trim_stage(ix, c, m, ln, r,
+                                                         config, quals=q),
+            index, codes, nmask, lengths,
+            {"strand": out["strand"], "diag": out["diag"]},
+            batch.get("quals")))
     return out
 
 
@@ -525,7 +544,7 @@ def mapq_from_scores(nmm: np.ndarray, second: np.ndarray, n_best: np.ndarray,
 
 def align_batch_cascaded_packed(index, pbatch, config: AlignConfig, L: int,
                                 solved_nmm: int = 3,
-                                stage2_rows: int = 512):
+                                stage2_rows: int = 512, rows=None):
     """align_batch_cascaded fed by host-packed reads: pbatch holds packed
     int32[B, W], pnmask int32[B, W] (or a (1, 1) stub for N-free
     batches), lengths int32[B] and optionally quals uint8[B, L]."""
@@ -539,4 +558,4 @@ def align_batch_cascaded_packed(index, pbatch, config: AlignConfig, L: int,
     if "quals" in pbatch:
         batch["quals"] = pbatch["quals"]
     return align_batch_cascaded(index, batch, config, solved_nmm,
-                                stage2_rows)
+                                stage2_rows, rows)

@@ -11,7 +11,10 @@ program: the same ladder over interleaved mates, keeping the candidate
 lists for the concordance reduction (gsnap/paired.py).
 
 All compaction sizes are fixed (top-k), so a batch is one asynchronous
-chain of launches. `start_fetch`/`fetch_result` bring the dict to the
+chain of launches. With `rows` (parallel/pipeline.RowSplit, the
+data-parallel MeshContext) every row-independent stage runs over row
+chunks on the data devices while each compaction ranks the whole batch
+once on the lead device, so the result equals the single-device one. `start_fetch`/`fetch_result` bring the dict to the
 host with the key set and numpy dtypes that tpumap's host half reads
 after widen_ints(device_fetch(...)).
 
@@ -25,7 +28,8 @@ import torch
 
 from tpumap_torch.gsnap.engine import (AlignConfig,
                                        align_batch_cascaded_packed,
-                                       indel_forward, indel_traceback)
+                                       indel_forward, indel_traceback,
+                                       row_map)
 from tpumap_torch.gsnap.params import (CLIP_INDEL_TRIGGER,
                                        CLIP_SPLICE_TRIGGER, INDEL_BAND,
                                        INDEL_MARGIN, INDEL_NMM_TRIGGER,
@@ -105,6 +109,13 @@ def _ranked(need, k: int, signal=None):
     return stable_topk(torch.where(need, prio, 0), k)[1]
 
 
+def _on(known, device):
+    """The known-splicing tables (a dict of tensors, or None) on device."""
+    if known is None:
+        return None
+    return {k: v.to(device) for k, v in known.items()}
+
+
 def narrow_result(d: dict) -> dict:
     """Cast result fields to their wire dtypes (device side)."""
     return {k: (v.to(_TORCH_WIRE[_WIRE_DTYPES[k]]) if k in _WIRE_DTYPES
@@ -114,7 +125,7 @@ def narrow_result(d: dict) -> dict:
 def align_batch_full(index, pbatch, config: AlignConfig, L: int,
                      scoring: pathdp.PathScoring, splicing: bool,
                      salvage: bool, r_chain: int, r_salv: int,
-                     r_indel: int, known=None):
+                     r_indel: int, known=None, rows=None):
     """One batch through the fused ladder; a flat dict of device
     tensors: cascade fields, ch_* chain solutions of the r_chain
     compacted rows (splicing), in_* indel solutions, amb_* splice-end
@@ -122,10 +133,10 @@ def align_batch_full(index, pbatch, config: AlignConfig, L: int,
     counters. Compaction sizes as tpumap's driver passes them. With
     known (a dict of knownsplicing.known_to_device) this is tpumap's
     align_batch_full_known."""
-    res = align_batch_cascaded_packed(index, pbatch, config, L)
+    res = align_batch_cascaded_packed(index, pbatch, config, L, rows=rows)
     return narrow_result(refine_full(index, pbatch, res, config, L, scoring,
                                      splicing, salvage, r_chain, r_salv,
-                                     r_indel, known=known))
+                                     r_indel, known=known, rows=rows))
 
 
 def _partners(known, adiag, li, max_intron: int):
@@ -158,7 +169,7 @@ def _partners(known, adiag, li, max_intron: int):
 
 
 def _chain_stage(index, pbatch, res, L, sc, r_chain, r_salv, salvage,
-                 trim_nmm, clip, known):
+                 trim_nmm, clip, known, rows=None):
     """Chain compaction, pass 1, optional salvage and pass 2. Returns
     (idx, sel, c1) for the compacted rows."""
     lengths = pbatch["lengths"]
@@ -189,17 +200,17 @@ def _chain_stage(index, pbatch, res, L, sc, r_chain, r_salv, salvage,
                           - torch.arange(L, device=q.device)[None, :],
                           0, L - 1)
         quals = torch.where((st == 1)[:, None], torch.gather(q, 1, rev), q)
-    c1 = pathdp.chain_solve(index, codes, nmask, li, cands, scoring=sc,
-                            with_quals=quals is not None, quals=quals,
-                            known=known)
+    c1 = row_map(rows, lambda ix, c, m, ln, d, q: pathdp.chain_solve(
+        ix, c, m, ln, d, scoring=sc, with_quals=q is not None, quals=q,
+        known=_on(known, ix.device)), index, codes, nmask, li, cands, quals)
     if salvage:
         _salvage(index, codes, nmask, li, quals, cands, adiag, sel, c1, sc,
-                 min(r_salv, rc), L, known)
+                 min(r_salv, rc), L, known, rows)
     return idx, sel, c1
 
 
 def _salvage(index, codes, nmask, li, quals, cands, adiag, sel, c1, sc,
-             rs: int, L: int, known):
+             rs: int, L: int, known, rows=None):
     """Pass 2 on rows whose pass-1 path leaves a residual clip: window
     scans for the missing exon, 8 rebuilt candidate lanes, and the
     better solution scattered into c1 (in place)."""
@@ -229,10 +240,16 @@ def _salvage(index, codes, nmask, li, quals, cands, adiag, sel, c1, sc,
     ws_p = torch.where(base_p > W + sc.min_intron,
                        base_p - (W + sc.min_intron), 0)
     frag16_p = _take_window(s_codes, torch.zeros_like(s_qs), F, L)
-    pos_s, run_s = localscan.scan_fragment_runs(g, ws_s, frag16_s, W, 8,
-                                                True)
-    pos_p, run_p = localscan.scan_fragment_runs(g, ws_p, frag16_p, W, 8,
-                                                False)
+    def runs(ws, frag, suffix):
+        return row_map(rows, lambda ix, w, f: localscan.scan_fragment_runs(
+            ix.genome_packed, w, f, W, 8, suffix), index, ws, frag)
+
+    def frags(ws, frag, flen):
+        return row_map(rows, lambda ix, w, f, n: localscan.scan_fragment(
+            ix.genome_packed, w, f, n, W, F, 4), index, ws, frag, flen)
+
+    pos_s, run_s = runs(ws_s, frag16_s, True)
+    pos_p, run_p = runs(ws_p, frag16_p, False)
     fl_s = torch.clamp(s_li - s_qe, 0, F)
     fl_p = torch.clamp(s_qs, 0, F)
     long_read = (s_li >= F)[:, None]
@@ -266,14 +283,13 @@ def _salvage(index, codes, nmask, li, quals, cands, adiag, sel, c1, sc,
     # middle-exon fragments (two junctions): q_end-anchored forward and
     # q_start-anchored backward mismatch scans (K6a)
     frag_m = _take_window(s_codes, s_qe, F, L)
-    pos_m, mm_m = localscan.scan_fragment(
-        g, ws_s, frag_m, torch.where(fl_s >= MIN_FRAG, fl_s, 0), W, F, 4)
+    pos_m, mm_m = frags(ws_s, frag_m, torch.where(fl_s >= MIN_FRAG, fl_s, 0))
     ok_m = (mm_m <= 1) & (fl_s >= MIN_FRAG)[:, None]
     dM = (pos_m - s_qe64[:, None]) & MASK32
     ok_m &= ((dM - last_d[:, None]) & MASK32) <= MI
     frag_mp = _take_window(s_codes, s_qs - fl_p, F, L)
-    pos_mp, mm_mp = localscan.scan_fragment(
-        g, ws_p, frag_mp, torch.where(fl_p >= MIN_FRAG, fl_p, 0), W, F, 4)
+    pos_mp, mm_mp = frags(ws_p, frag_mp,
+                          torch.where(fl_p >= MIN_FRAG, fl_p, 0))
     ok_mp = (mm_mp <= 1) & (fl_p >= MIN_FRAG)[:, None]
     dMp = (pos_mp - (s_qs - fl_p).to(torch.int64)[:, None]) & MASK32
     ok_mp &= ((first_d[:, None] - dMp) & MASK32) <= MI
@@ -288,9 +304,10 @@ def _salvage(index, codes, nmask, li, quals, cands, adiag, sel, c1, sc,
                           stable=True)
     new_cands = torch.gather(new_cands, 1, order)[:, :cands.shape[1]]
     s_quals = quals[sidx] if quals is not None else None
-    c2 = pathdp.chain_solve(index, s_codes, nmask[sidx], s_li, new_cands,
-                            scoring=sc, with_quals=s_quals is not None,
-                            quals=s_quals, known=known)
+    c2 = row_map(rows, lambda ix, c, m, ln, d, q: pathdp.chain_solve(
+        ix, c, m, ln, d, scoring=sc, with_quals=q is not None, quals=q,
+        known=_on(known, ix.device)), index, s_codes, nmask[sidx], s_li,
+        new_cands, s_quals)
     c1_sc, c1_ns = c1["score"][sidx], c1["nsegs"][sidx]
     # ties prefer the solution with more segments (more of the read
     # explained at equal score)
@@ -306,7 +323,7 @@ def _salvage(index, codes, nmask, li, quals, cands, adiag, sel, c1, sc,
 def refine_full(index, pbatch, res, config: AlignConfig, L: int,
                 scoring: pathdp.PathScoring, splicing: bool, salvage: bool,
                 r_chain: int, r_salv: int, r_indel: int,
-                keep_cands: bool = False, known=None):
+                keep_cands: bool = False, known=None, rows=None):
     """The post-cascade half: chain stage (splicing), the indel stage on
     rows the splices did not solve, the ambiguous splice-end review
     (splicing) and the secondary-candidate compaction; keep_cands (the
@@ -332,7 +349,8 @@ def refine_full(index, pbatch, res, config: AlignConfig, L: int,
     splice_accept_b = torch.zeros(B, dtype=torch.bool, device=dev)
     if splicing:
         idx, sel, c1 = _chain_stage(index, pbatch, res, L, sc, r_chain,
-                                    r_salv, salvage, trim_nmm, clip, known)
+                                    r_salv, salvage, trim_nmm, clip, known,
+                                    rows)
         # acceptance: strictly better than the trimmed/full substitution
         # alternative, all segments on one chromosome
         if "trim_score" in res:
@@ -377,7 +395,8 @@ def refine_full(index, pbatch, res, config: AlignConfig, L: int,
     icodes, _inm, ili = _oriented_rows_dev(pbatch["packed"], pbatch["pnmask"],
                                            lengths, iidx, strand[iidx], L)
     idg = torch.where(valid[iidx], diag[iidx], 0)
-    fwd = indel_forward(index, icodes, ili, idg, INDEL_BAND, INDEL_MARGIN)
+    fwd = row_map(rows, lambda ix, c, ln, d: indel_forward(
+        ix, c, ln, d, INDEL_BAND, INDEL_MARGIN), index, icodes, ili, idg)
     # second compaction before the traceback: only rows whose DP score
     # beats their substitution score can be accepted by the host
     r_tb = min(max(r_indel // 8, 32), ri)
@@ -393,7 +412,8 @@ def refine_full(index, pbatch, res, config: AlignConfig, L: int,
     iidx = iidx[tbx]
     fwd = {"score": fwd["score"][tbx], "end_k": fwd["end_k"][tbx],
            "dirs": fwd["dirs"][tbx], "gstart_off": fwd["gstart_off"][tbx]}
-    ref = indel_traceback(fwd, ili[tbx], INDEL_BAND)
+    ref = row_map(rows, lambda _ix, f, ln: indel_traceback(f, ln, INDEL_BAND),
+                  index, fwd, ili[tbx])
     out["in_idx"] = iidx.to(i32)
     out["in_sel"] = isel & (ref["nruns"] <= MAXRUNS)
     out["in_score"] = ref["score"].to(torch.int16)
@@ -406,7 +426,7 @@ def refine_full(index, pbatch, res, config: AlignConfig, L: int,
         indel_b[iidx] = isel
         out.update(_amb_review(index, pbatch, res, config, L, sc, tqs, tqe,
                                trim_nmm, splice_accept_b, indel_b, idx,
-                               accept & sel, c1))
+                               accept & sel, c1, rows))
 
     if keep_cands:
         return out
@@ -428,7 +448,7 @@ def refine_full(index, pbatch, res, config: AlignConfig, L: int,
 
 
 def _amb_review(index, pbatch, res, config, L, sc, tqs, tqe, trim_nmm,
-                splice_accept_b, indel_b, idx, multi_ok, c1):
+                splice_accept_b, indel_b, idx, multi_ok, c1, rows=None):
     """The in-program ambiguous splice-end review (ladder.py:539-738):
     review tasks over BOUNDARY_SHIFTS on both read ends, gated by the
     proximal dinucleotide's sense, fragments of dinucleotide + residue,
@@ -572,9 +592,10 @@ def _amb_review(index, pbatch, res, config, L, sc, tqs, tqe, trim_nmm,
     t_ok = ok_t[tix]
     out["amb_task_overflow"] = torch.clamp(
         ok_t.sum(dtype=i32) - t_ok.sum(dtype=i32), min=0)
-    pos_a, count_a = localscan.scan_exact_sites(
-        index.genome_packed, ws_t[tix], frag_t[tix],
-        torch.where(t_ok, flen_t[tix], 0), W_amb, F, TOP_ALTS)
+    pos_a, count_a = row_map(
+        rows, lambda ix, w, f, n: localscan.scan_exact_sites(
+            ix.genome_packed, w, f, n, W_amb, F, TOP_ALTS),
+        index, ws_t[tix], frag_t[tix], torch.where(t_ok, flen_t[tix], 0))
     out["amb_valid"] = t_ok
     out["amb_idx"] = rows_t[tix].to(i32)
     out["amb_side"] = side_t[tix]
@@ -590,7 +611,7 @@ def align_pair_full(index, pbatch, config: AlignConfig, L: int,
                     scoring: pathdp.PathScoring, splicing: bool,
                     salvage: bool, r_chain: int, r_salv: int, r_indel: int,
                     pairmax: int, orientation: str, pairexpect: int,
-                    pairdev: int, known=None):
+                    pairdev: int, known=None, rows=None):
     """The fused paired program (ladder.py:767-814): the ladder over the
     interleaved batch (read 1 of pair p at row 2p, read 2 at 2p + 1),
     then the concordance reduction over the mates' candidate lists.
@@ -598,10 +619,10 @@ def align_pair_full(index, pbatch, config: AlignConfig, L: int,
     pe_insert and the chosen candidates' pe_cd*, pe_cs*, pe_cn*; no
     cand_* or sec_* keys."""
     from tpumap_torch.gsnap.paired import concordance_device
-    res = align_batch_cascaded_packed(index, pbatch, config, L)
+    res = align_batch_cascaded_packed(index, pbatch, config, L, rows=rows)
     out = refine_full(index, pbatch, res, config, L, scoring, splicing,
                       salvage, r_chain, r_salv, r_indel, keep_cands=True,
-                      known=known)
+                      known=known, rows=rows)
     lengths = pbatch["lengths"]
     cd, cs, cn = (out.pop("cand_diags"), out.pop("cand_strands"),
                   out.pop("cand_nmm"))

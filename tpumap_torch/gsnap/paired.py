@@ -20,8 +20,9 @@ field computed vectorised, the rest through the Python records.
 The alignment modes and SNP tolerance change the cascade only; as in
 tpumap, the rescue verifies in standard space and the pair emitters
 count NM/MD without the mode's space (a cmet conversion counts as a
-mismatch there, unlike single-end). Device meshes (device_ctx) raise
-NotImplementedError.
+mismatch there, unlike single-end). With device_ctx (a
+parallel/pipeline.MeshContext) the device calls run data-parallel over a
+device grid and give the single-device records.
 """
 from __future__ import annotations
 
@@ -168,10 +169,9 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
     SAM record pairs in input order, or, with sink (a callable taking
     bytes), streams the SAM text to it and returns []. known: a
     KnownSplicing (-s). stats, if given, counts the rescue rows, the
-    mates rescued, the repair rows and the mates repaired."""
-    if device_ctx is not None:
-        raise NotImplementedError(
-            "device_ctx is a later slice of the port (ROADMAP item 15)")
+    mates rescued, the repair rows and the mates repaired. device_ctx
+    (parallel/pipeline.MeshContext) runs the paired program, the cascade
+    and the chain solver over its device grid."""
     dev = index.device
     remapper = None
     if tr is not None:
@@ -179,7 +179,9 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
         if remapper is None:
             remapper = remap_mod.TranscriptRemapper(tr[0])
             tr[0]._remapper = remapper
-    use_fused = tr is None and known_indels is None
+    use_fused = (tr is None and known_indels is None
+                 and (device_ctx is None
+                      or hasattr(device_ctx, "pair_full")))
     known_dev = (known_to_device(known, dev)
                  if known is not None and use_fused else None)
     sc = pathdp.PathScoring(max_intron=max(max_intron, 9))
@@ -194,16 +196,23 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
         B = (2 * batch_size if (pad_tail or len(chunk) == batch_size)
              else pad_to_bucket(2 * len(chunk)))
         batch = make_batch(flat, B, run_L)
+        pbatch = _to_device(batch, dev)
         if use_fused:
-            res = ladder.align_pair_full(
-                index, _to_device(batch, dev), config, run_L, sc,
-                novelsplicing or known is not None,
-                novelsplicing and use_localdb, min(max(8192, B // 2), B),
-                min(max(2048, B // 8), B), min(2048, B), pairmax,
-                orientation, pairexpect or 1000, pairdev, known=known_dev)
+            args = (config, run_L, sc, novelsplicing or known is not None,
+                    novelsplicing and use_localdb, min(max(8192, B // 2), B),
+                    min(max(2048, B // 8), B), min(2048, B), pairmax,
+                    orientation, pairexpect or 1000, pairdev)
+            if device_ctx is not None:
+                res = device_ctx.pair_full(pbatch, *args, known=known_dev)
+            else:
+                res = ladder.align_pair_full(index, pbatch, *args,
+                                             known=known_dev)
+        elif device_ctx is not None:
+            res = ladder.narrow_result(device_ctx.cascade(
+                index, pbatch, config, run_L))
         else:
             res = ladder.narrow_result(align_batch_cascaded_packed(
-                index, _to_device(batch, dev), config, run_L))
+                index, pbatch, config, run_L))
         return chunk, batch, ladder.start_fetch(res)
 
     bulk_ok = remapper is None and sam_bulk._get_lib() is not None
@@ -223,7 +232,7 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
                                 max_insertions, max_deletions,
                                 indel_endlength, use_localdb, known_indels,
                                 remapper, resolve_inner, bulk_ok, sink,
-                                stats)
+                                stats, device_ctx)
         if sink is None:
             out.extend(out_chunk)
     return out
@@ -270,7 +279,7 @@ def _rescue(index, batch, res, rescue_rows, L, pairmax, config):
 
 
 def _mate_repair(db, index, batch, res, repair_rows, bases, L, pairmax,
-                 max_intron, config):
+                 max_intron, config, device_ctx=None):
     """GMAP-style mate repair (paired.py:394-496): an unplaced mate's
     end and middle 16-base fragments located in the insert window (K6a),
     their diagonals chained (K5). Returns {row: splice_result dict}."""
@@ -331,7 +340,9 @@ def _mate_repair(db, index, batch, res, repair_rows, bases, L, pairmax,
         nmask2[rr, :li] = m
         lengths2[rr] = li
         cdiags2[rr, :len(cands)] = np.asarray(cands, np.uint32)
-    cres2 = pathdp.chain_solve(
+    _chain = (device_ctx.chain_solve if device_ctx is not None
+              else pathdp.chain_solve)
+    cres2 = _chain(
         index, _put(codes2, dev), _put(nmask2, dev), _put(lengths2, dev),
         _put(cdiags2, dev),
         scoring=pathdp.PathScoring(max_intron=max(max_intron, 30)))
@@ -422,7 +433,7 @@ def _pair_chunk(db, index, chunk, batch, res, config, L, pairmax,
                 novelsplicing, max_intron, known, orientation, pairexpect,
                 pairdev, max_insertions, max_deletions, indel_endlength,
                 use_localdb, known_indels, remapper, resolve_inner, bulk_ok,
-                sink, stats):
+                sink, stats, device_ctx=None):
     """The host half of one batch (paired.py:286-691). Returns the
     chunk's record pairs, or streams them to sink and returns []."""
     n = len(chunk)
@@ -478,7 +489,8 @@ def _pair_chunk(db, index, chunk, batch, res, config, L, pairmax,
     repair_result = {}
     if repair_rows:
         repair_result = _mate_repair(db, index, batch, res, repair_rows,
-                                     bases, L, pairmax, max_intron, config)
+                                     bases, L, pairmax, max_intron, config,
+                                     device_ctx)
     if stats is not None:
         for key, v in (("rescue_rows", len(rescue_rows)),
                        ("rescued", len(rescued)),
@@ -492,7 +504,7 @@ def _pair_chunk(db, index, chunk, batch, res, config, L, pairmax,
         L=L, max_insertions=max_insertions, max_deletions=max_deletions,
         indel_endlength=indel_endlength, use_localdb=use_localdb,
         known_indels=known_indels, quals=batch.get("quals"),
-        amb_out=amb_res, dict_all=True)
+        amb_out=amb_res, dict_all=True, device_ctx=device_ctx)
     for bad, s_rep in repair_result.items():
         cur = splice_result.get(bad)
         if cur is not None:

@@ -12,9 +12,9 @@ Knownsplicing_T/Knownindels_T, fits the insert-length model
 The port's copy (tpumap/gsnap/twopass.py): pass 1 is the fused path,
 pass 2 the staged path (it carries the learned KnownIndels), both on the
 index's device; "accumulate under a mutex" is a host-side reduction over
-the emitted junction records. tpumap's multi-host all-gather of the
-learned tables before pass 2 is a no-op in one process and is left out
-until the port's parallel/distributed.py (ROADMAP item 15) brings it.
+the emitted junction records. In a torch.distributed group of more
+than one process the learned tables are all-gathered before pass 2
+(parallel/distributed.py), so every process realigns with the union.
 """
 from __future__ import annotations
 
@@ -109,8 +109,11 @@ def two_pass_align(db, index, records, config=None, max_intron: int = 200_000,
                           tr=tr, device_ctx=device_ctx)
     ks = learn_knownsplicing(db, pass1, min_support)
     ki = KnownIndels.from_sam(db, pass1, min_support)
-    # tpumap all-gathers each host's learned tables here (no-ops in one
-    # process); the port's multi-device runs are ROADMAP item 15
+    # a multi-process run all-gathers each process's learned tables
+    # before pass 2 (identities in one process; parallel/distributed.py)
+    from tpumap_torch.parallel import distributed as dist
+    ks = dist.allgather_knownsplicing(ks)
+    ki = dist.allgather_knownindels(ki)
     if splices_dump:
         ks.dump(splices_dump)
     if indels_dump:
