@@ -14,11 +14,11 @@ fusions, the transcriptome rung single and paired), and fails (exit code
 1. card name and power limit; build the CUDA kernels from csrc/ (each
    kernel instance's ptxas registers, stack and spills; no K5 instance,
    not the K2 instance of the indel band, not K3, no K6a instance and
-   not K6b, no K7a instance nor K7b function may have a stack frame or
-   spills); the port's native host library must load; the latency of a
-   chain of
-   dependent shared-memory loads (one and two a step, one thread), for
-   the floor of K3's walk, and of a dependent first-maximum reduction
+   not K6b, no K7a instance nor K7b function, no K8 instance and not K4
+   may have a stack frame or spills); the port's native host library
+   must load; the latency of a chain of dependent shared-memory loads
+   (one and two a step, one thread), for the floor of K3's walk, and of
+   a dependent first-maximum reduction
    (one warp with shuffles only, and blocks of 64-512 threads), for the
    floor of K7a's DP;
 2. the chr21-scale bench genome (46.7 Mbp, tools/bench_data.py) and
@@ -37,34 +37,40 @@ fusions, the transcriptome rung single and paired), and fails (exit code
    a poly-A genome with all-A fragments, and K6b with the splice-end
    review's fragment lengths (with and without its empty rows, and at 3
    and 10 bases alone) over the bench genome and with all-A fragments
-   over the poly-A genome);
+   over the poly-A genome, K8 (the ends rung's lanes) at the DNA rung's
+   32,768 reads in standard mode (max_occ 4) and at cmet's (max_occ 32),
+   and K4 (end trimming) at B = 32,768, L = 128 with and without quals,
+   each with the device time of the torch ops it replaces, its plain
+   version, and K8's with its sorts alone and a bound over 32-byte
+   sectors);
 4. DNA end to end: one warm-up call, then align_records over all 50,000
    100-bp reads at batch size 32,768 with launch counters reset just
    before; reads/s, aligned fraction and agreement with the generator's
    truth (>= 99% within 10 bp on the truth strand); the DNA kernels
-   (K1-K3) must have launched;
+   (K1-K3, K8 and K4) must have launched;
 5. RNA end to end: the bench's 50,000 RNA reads (40% spliced) with
    novelsplicing=True at batch size 16,384, one warm-up call, then the
    timed run with launch counters reset; reads/s, mapped fraction and
    junction precision and recall against the generator's truth (>= 0.99
-   mapped, >= 0.99 precision, >= 0.95 recall); all seven kernels must
-   have launched;
+   mapped, >= 0.99 precision, >= 0.95 recall); all nine GSNAP kernels
+   must have launched;
 6. RNA with known splicing: the same 50,000 reads with novelsplicing=True
    and the bench genes' junctions as a KnownSplicing, batch 16,384, one
    warm-up call, then the timed run; reads/s and the floors of 5; all
-   seven kernels must have launched (K5 with 14 lanes and known-site
+   nine GSNAP kernels must have launched (K5 with 14 lanes and known-site
    masks);
 7. paired-end DNA: the bench's 20,000 FR pairs (tools/bench_data.py),
    8,192 pairs per batch, pairmax 1,000, one warm-up call, then the
    timed run; reads/s (2 x pairs), the concordant fraction as bench.py
    computes it and the pairs whose mates both lie within 10 bp of the
-   plan (>= 0.99 each); the DNA kernels (K1-K3) must have launched;
+   plan (>= 0.99 each); the DNA kernels (K1-K3, K8, K4) must have
+   launched;
 8. paired RNA through the mate repair: 512 pairs from the bench genes
    (mate 1 inside an exon, mate 2 the reverse complement of a read
    across the gene's next junction, introns of 200 or 1,000 bp),
    novelsplicing=True, pairmax 2,000; the rescue and the repair must
-   have run (K1 at [512, 2000], K6a at W = 2,000, K5), and all seven
-   kernels launched;
+   have run (K1 at [512, 2000], K6a at W = 2,000, K5), and all nine
+   GSNAP kernels launched;
 9. bisulfite (cmet) end to end on a second index, the k=14 db with its
    ct and ga tables and a SNP index of ~155,000 SNPs (one per 300 bp,
    the density of a common-SNP catalogue), cached under
@@ -73,12 +79,12 @@ fusions, the transcriptome rung single and paired), and fails (exit code
    methylated), mode cmet-stranded, max_occ 32, batch 32,768, one
    warm-up call, then the timed run; reads/s, aligned fraction and
    within 10 bp of truth (>= 0.274 and 0.270: tpumap's semantics, see
-   check_cmet); K1 must have launched;
+   check_cmet); K1, K8 and K4 must have launched;
 10. SNP-tolerant end to end on that index: the 50,000 DNA reads of the
    plan regenerated with every SNP they cover set to its alt allele;
    reads/s, aligned fraction, within 10 bp (>= 0.99 each), and the sum
    of XV:i: over the primary lines against the alt alleles in the reads
-   (>= 0.95); K1 must have launched;
+   (>= 0.95); K1, K8 and K4 must have launched;
 11. the first 2,048 DNA reads, the first 512 RNA reads (novel, and with
    known splicing), the first 2,048 PE pairs, the 512 repair pairs, the
    first 2,048 cmet and SNP reads, the first 512 RNA reads as cmet with
@@ -145,10 +151,10 @@ fusions, the transcriptome rung single and paired), and fails (exit code
    benchtr). Runs, each with its host layers (db load, index upload,
    reading, the aligner's call, record shaping, SAM text): the bare
    command over the 50,000 DNA reads (the record path at batch 1,024,
-   graded as 4, K1-K3 must launch), the same with --sam-use-0M 0
+   graded as 4, K1-K3, K8 and K4 must launch), the same with --sam-use-0M 0
    (tpumap's stream) and with --batch-size 32768, the 20,000 PE pairs
    (the floors of 7), -N 1 -s bench_splicesites.iit over the 50,000 RNA
-   reads (the floors of 5, all seven GSNAP kernels), -N 1 -c benchtr
+   reads (the floors of 5, all nine GSNAP kernels), -N 1 -c benchtr
    over the first 16,384 RNA reads (TR_FLOORS); the device time and idle share
    of the bare command; --check (0); and the card against --device cpu
    byte for byte (stdout and every file written) on the first 2,048 DNA
@@ -164,11 +170,13 @@ fusions, the transcriptome rung single and paired), and fails (exit code
       align_paired_records over 2,048 pairs and align_queries_bulk over
       the 2,048 cDNAs of 12 (-f 3 GFF3): each byte-identical to the same
       call without device_ctx, its rate beside the single-device one's,
-      K1-K3 (RNA: all seven GSNAP kernels; GMAP: K7a and K7b) launched;
+      K1-K3, K8, K4 (RNA: all nine GSNAP kernels; GMAP: K7a and K7b)
+      launched;
    b. the index-sharded aligners (parallel/sharded.py) at 1 x 4
       (make_sharded_aligner) and 2 x 2 (make_sharded_full_aligner with
       splicing and salvage) over the 50,000 DNA reads in calls of 8,192:
-      mapped and within 10 bp of truth >= 0.99; the full aligner over
+      mapped and within 10 bp of truth >= 0.99 (K1, and the full
+      aligner's K4, launched); the full aligner over
       the first 16,384 RNA reads, its accepted chain rows' junction
       precision and recall logged (no floor); CPU == card on every
       result array for the first 2,048 DNA and 512 RNA reads;
@@ -262,7 +270,10 @@ PATH_LENGTHS = (4571, 0, 0, 6, 0, 6, 2, 4, 5, 8, 6)
 HBM_BPS = 3.35e12
 INT_OPS = 132 * 64 * 1.98e9
 POPC_OPS = 132 * 16 * 1.98e9
-DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
+# K8 and K4 run in every GSNAP cascade (the ends rung; the trim stage)
+ENDS_KERNELS = ("end_lanes", "trim_stage")
+DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback") \
+    + ENDS_KERNELS
 GSNAP_KERNELS = DNA_KERNELS + ("chain_dp", "scan_fragment",
                                "scan_exact_sites", "scan_fragment_runs")
 GMAP_KERNELS = ("chain_segments", "region_anchors")
@@ -313,6 +324,10 @@ SOURCES = {
                        ("chain_segments_kernel", "chain_gap_table_kernel")),
     "region_anchors": ("tpumap_torch/csrc/gmapchain.cu",
                        "tpumap/ops/chain.py:63", K7B_FUNCS),
+    "end_lanes": ("tpumap_torch/csrc/ends.cu", "tpumap/gsnap/engine.py:277",
+                  ("end_lanes_kernel",)),
+    "trim_stage": ("tpumap_torch/csrc/trim.cu", "tpumap/gsnap/engine.py:458",
+                   ("trim_kernel",)),
 }
 
 
@@ -693,7 +708,7 @@ def measure(name, shape, fn, plain_fn, reps, plain_reps, in_bytes, nops,
                          else cuda_ms(plain_fn, plain_reps)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "fn": fn, "reps": reps}
+            "fn": fn, "reps": reps, "plain_fn": plain_fn}
 
 
 def verify_work(index, packed, diags, snp=False):
@@ -974,11 +989,158 @@ def kernel_phase(index, gpu, known, mindex):
     rows += rna_kernel_rows(index, rng, reads_at)
     rows += pe_known_kernel_rows(index, rng, reads_at, known)
     rows += mode_kernel_rows(mindex, rng, reads_at)
+    rows += ends_trim_rows(index, mindex, rng, reads_at)
     rows.append(long_chain_row(index, rng, known))
     for r in rows:
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{r['name']} disagrees with its plain "
                                  f"version at {r['shape']}")
+    return rows
+
+
+def strand_reads(rng, reads_at, n, conv=None):
+    """n reads of 100 bases at L = 128 (reads_at), every other one
+    reverse-complemented; with conv (a code), 80% of that base in each
+    read's own text turned into conv + 2 (cmet: C -> T). Returns
+    (diagonals, codes, strands)."""
+    d, codes = reads_at(n)
+    strand = np.arange(n) % 2
+    codes[1::2, :100] = 3 - codes[1::2, 99::-1]
+    if conv is not None:
+        hit = (codes == conv) & (rng.random(codes.shape) < 0.8)
+        hit[:, 100:] = False
+        codes[hit] = (conv + 2) % 4
+    return d, codes, strand.astype(np.int32)
+
+
+def ends_work(index, codes, lengths, cfg):
+    """K8's bytes read, each input word once (each read's end bases and
+    length; each end k-mer's two offsets and its live positions; in
+    standard mode each row's probe word and two genome words a valid
+    lane of the 8), the same in 32-byte sectors (a sector a k-mer's
+    offsets, ceil(live / 8) a k-mer's positions, one a probe lane; the
+    contiguous reads as their sectors), its integer operations (4 a
+    k-mer base, 2 a live lane in each of the K selection rounds, 8 a
+    probe lane) and popcounts (one a probe lane)."""
+    from tpumap_torch.gsnap import engine
+    from tpumap_torch.ops.mode import MODE_SPACES
+    from tpumap_torch.ops.seed import _take_clip
+    k, iv, occ = index.k, engine._ends_iv(index), cfg.max_occ
+    NE = 2 * iv
+    ok = (lengths >= k)[:, None]
+    n_ok = int(ok.sum())
+    live, valid = 0, 0
+    pos_sectors = 0
+    for (offsets, positions), oligos, q in engine.end_kmers(
+            index, codes, lengths, cfg):
+        start = _take_clip(offsets, oligos)
+        cnt = _take_clip(offsets, oligos + 1) - start
+        n = torch.where(ok & (cnt > 0) & (cnt <= occ), cnt, 0)
+        live += int(n.sum())
+        pos_sectors += int(((n + 7) // 8).sum())
+        lanes = engine._dedup_lanes(engine._end_diags(
+            offsets, positions, oligos, q, occ, ok[..., None]),
+            engine.ENDS_K)
+        valid += int((lanes != INVALID).sum())
+    standard = MODE_SPACES[cfg.mode] == (None, None)
+    B = codes.shape[0]
+    span = 2 * (k + iv - 1)
+    code_bytes = int(torch.clamp(lengths, 0, span).sum())
+    nbytes = (code_bytes + 4 * B + 8 * 2 * NE * n_ok + 4 * live
+              + ((4 * 2 * B + 8 * valid) if standard else 0))
+    sectors = (32 * (-(-code_bytes // 32) + -(-4 * B // 32))
+               + 32 * (2 * NE * n_ok + pos_sectors)
+               + ((32 * (-(-8 * B // 32) + valid)) if standard else 0))
+    K = min(engine.ENDS_K, NE * occ)
+    nops = 2 * NE * n_ok * k * 4 + 2 * K * live + (8 * valid if standard
+                                                   else 0)
+    return nbytes, sectors, nops, valid if standard else 0
+
+
+def trim_work(index, lengths, diag, got, quals, snp):
+    """K4's bytes read, each input word once (a row's codes and N flags
+    below its length, its length, strand and diagonal, the W + 1 genome
+    words and W / 2 + 2 N-bitmap words of a valid row's window, with
+    the alternate genome twice the genome words, and with quals the
+    quals of the kept interval), its integer operations (~60 a row word:
+    16 bases packed at 3 each, the xor, fold, masks and compress; ~20 a
+    mismatch: the scans' three walks; 3 a kept quality) and popcounts
+    (6 a row word)."""
+    B = lengths.shape[0]
+    L = int(lengths.max())
+    W = (L + 15) // 16
+    n_valid = int((diag != INVALID).sum())
+    nbytes = 2 * int(lengths.sum()) + 16 * B + n_valid * 4 * (
+        (W + 1) * (2 if snp else 1)
+        + ((W // 2 + 2) if index.genome_has_n else 0))
+    kept = int((got["trim_qend"] - got["trim_qstart"]).sum())
+    if quals:
+        nbytes += kept
+    words = int(((lengths + 15) // 16).sum())
+    nops = words * 60 + 20 * int(got["trim_nmm"].sum()) + (
+        3 * kept if quals else 0)
+    return nbytes, nops, words * 6
+
+
+def ends_trim_rows(index, mindex, rng, reads_at):
+    """K8 at the DNA ends rung's shape (32,768 reads, standard mode,
+    max_occ 4: 24 lanes a strand, the probe keeping 3) and at cmet's
+    (max_occ 32: 192 lanes a strand in its space's table), K4 at B =
+    32,768, L = 128 with and without quals; each row also holds the
+    device time of the torch ops that the kernel replaces (its plain
+    version; for K8 also its _dedup_lanes sorts alone) and, for K8, the
+    bound over 32-byte sectors."""
+    from tpumap_torch.gsnap import engine
+    from tpumap_torch.ops import pack
+    dev = index.device
+    rows = []
+    for label, idx, cfg, conv in (
+            ("DNA", index, engine.AlignConfig(top_k=4, max_occ=4), None),
+            ("cmet", mindex, engine.AlignConfig(mode=CMET, top_k=4,
+                                                max_occ=32), 1)):
+        _d, codes, _s = strand_reads(rng, reads_at, B, conv)
+        ct = torch.from_numpy(codes).to(dev)
+        lengths = torch.full((B,), 100, dtype=torch.int32, device=dev)
+        packed = pack.pack_reads(ct)
+        packed2 = (torch.cat([packed, pack.revcomp_packed(packed, lengths)])
+                   if conv is None else None)
+        args = (idx, ct, lengths, cfg, packed2)
+        nbytes, sectors, nops, popc = ends_work(idx, ct, lengths, cfg)
+        row = measure("end_lanes", f"[{B}] {label}, max_occ {cfg.max_occ}",
+                      partial(engine.end_lanes, *args),
+                      partial(engine.end_lanes_plain, *args), 50, 5, nbytes,
+                      nops, popc)
+        out_bytes = tensor_bytes(row["fn"]())
+        row["bound_sectors_ms"] = (sectors + out_bytes) / HBM_BPS * 1e3
+        k = idx.k
+        ok = (lengths >= k)[:, None, None]
+        raw = [engine._end_diags(*t, o, q, cfg.max_occ, ok)
+               for t, o, q in engine.end_kmers(idx, ct, lengths, cfg)]
+        row["replaced_fn"] = row["plain_fn"]
+        row["sorts_fn"] = partial(lambda r: [engine._dedup_lanes(
+            x, engine.ENDS_K) for x in r], raw)
+        rows.append(row)
+    d, codes, strand = strand_reads(rng, reads_at, B)
+    diag = d.astype(np.int64)
+    diag[rng.random(B) < 0.01] = INVALID
+    ct, st, dg = (torch.from_numpy(a).to(dev) for a in (codes, strand, diag))
+    nm = torch.zeros(ct.shape, dtype=torch.bool, device=dev)
+    lengths = torch.full((B,), 100, dtype=torch.int32, device=dev)
+    quals = torch.from_numpy(rng.integers(0, 41, codes.shape).astype(
+        np.uint8)).to(dev)
+    cfg = engine.AlignConfig(top_k=4, max_occ=4)
+    res = {"strand": st, "diag": dg}
+    for q in (None, quals):
+        args = (index, ct, nm, lengths, res, cfg)
+        fn = partial(engine._trim_stage, *args, quals=q)
+        plain = partial(engine.trim_stage_plain, *args, quals=q)
+        nbytes, nops, popc = trim_work(index, lengths, dg, fn(), q is not
+                                       None, False)
+        row = measure("trim_stage", f"B={B}, L=128, "
+                      + ("quals" if q is not None else "no quals"), fn,
+                      plain, 50, 5, nbytes, nops, popc)
+        row["replaced_fn"] = plain
+        rows.append(row)
     return rows
 
 
@@ -1063,6 +1225,7 @@ def profile_rows(rows, gpu, chain_ns, symbols=None):
     for r in rows:
         syms = r.pop("symbols", None) or (symbols or {}).get(
             r["name"], SOURCES[r["name"]][2])
+        r.pop("plain_fn", None)
         dev, parts = device_ms(r.pop("fn"), r.pop("reps"), syms)
         r["device_ms"] = dev
         log(f"kernel {r['name']:17s} {r['shape']:34s} "
@@ -1076,6 +1239,21 @@ def profile_rows(rows, gpu, chain_ns, symbols=None):
         if len(syms) > 1 and dev is not None:
             log("  device ms a call by function: " + ", ".join(
                 f"{s} {v:.4f}" for s, v in parts.items()))
+        for key, what in (("replaced", "the torch ops the kernel replaces "
+                           "(its plain version)"),
+                          ("sorts", "the plain version's _dedup_lanes "
+                           "sorts alone")):
+            if f"{key}_fn" in r:
+                ms = r[f"{key}_device_ms"] = call_device_ms(
+                    r.pop(f"{key}_fn"), 5)
+                log(f"  {what}: " + ("device time not measured"
+                                     if ms is None else
+                                     f"{ms:.4f} ms on the device")
+                    + f"  [{gpu}]")
+        if "bound_sectors_ms" in r:
+            log(f"  bound over 32-byte sectors {r['bound_sectors_ms']:.4f} "
+                f"ms, share {r['bound_sectors_ms'] / (dev or r['ms']):.3f}"
+                f"  [{gpu}]")
         if "library_fn" in r:
             lib = r["library_device_ms"] = call_device_ms(
                 r.pop("library_fn"), 10)
@@ -1105,7 +1283,8 @@ def profile_rows(rows, gpu, chain_ns, symbols=None):
 BATCH_PARTS = (("K5", ("chain_kernel",)), ("K3", ("traceback_kernel",)),
                ("K6a<4>", ("localscan_kernel<0, 4>",)),
                ("K6a<8>", ("localscan_kernel<0, 8>",)),
-               ("K6b", ("exact_sites_kernel",)))
+               ("K6b", ("exact_sites_kernel",)),
+               ("K8", ("end_lanes_kernel",)), ("K4", ("trim_kernel",)))
 GMAP_PARTS = (("K7a", SOURCES["chain_segments"][2]),
               ("K7b", SOURCES["region_anchors"][2]))
 
@@ -2863,8 +3042,11 @@ def sharded_phase(bench_data, db, config, reads, rna_reads, truth, smi):
         dna_grade(f"16b {label} over {len(reads)} DNA reads", got,
                   bench_data, smi, f", {len(reads) / dt:.1f} reads/s, "
                   f"launches={launches[f'sharded {label} DNA']}")
-        if kernels.LAUNCHES["verify_diagonals"] <= 0:
-            raise AssertionError(f"16b {label}: K1 never launched")
+        # the full aligner trims (K4); neither has the ends rung
+        need = ("verify_diagonals",) + (("trim_stage",) if kw else ())
+        missing = [k for k in need if kernels.LAUNCHES[k] <= 0]
+        if missing:
+            raise AssertionError(f"16b {label}: never launched: {missing}")
         batch = encode(reads[:SHARD_B], SHARD_B)
         split_layers(f"16b {label} ({shards} index shards), {SHARD_B} "
                      f"reads", lambda: align(arrays, batch), smi)
@@ -3101,8 +3283,10 @@ def main():
           + [f"region_anchors_{f}_kernel<{w}>" for f in ("scan", "place")
              for w in (0, 1)]
           + [f"region_anchors_fill_kernel<{v}>" for v in (1, 4)])
+    k8k4 = [f"end_lanes_kernel<{p}>" for p in (0, 1, 8)] + ["trim_kernel"]
     for name in (k2, "traceback_kernel", "localscan_kernel<0, 4>",
-                 "localscan_kernel<0, 8>", "exact_sites_kernel", *k7):
+                 "localscan_kernel<0, 8>", "exact_sites_kernel", *k7,
+                 *k8k4):
         if name not in ptxas or any(ptxas[name][1:]):
             raise AssertionError(f"{name}: no ptxas report, or stack or "
                                  f"spills: {ptxas.get(name)}")
@@ -3228,12 +3412,12 @@ def main():
     cmet_run = single(cmet_config, mdb)
     cmet_launches = run_e2e("cmet", cmet_reads, B, smi, mindex, cmet_run,
                             lambda buf: check_cmet(buf, bench_data),
-                            ("verify_diagonals",), jobs)
+                            ("verify_diagonals",) + ENDS_KERNELS, jobs)
     s_reads, n_alt = snp_reads(bench_data, snp_coords, snp_alts)
     snp_run = single(snp_config, mdb)
     snp_launches = run_e2e("SNP", s_reads, B, smi, mindex, snp_run,
                            lambda buf: check_snp(buf, bench_data, n_alt),
-                           ("verify_diagonals",), jobs)
+                           ("verify_diagonals",) + ENDS_KERNELS, jobs)
     gmap_launches, k7, gmap_q, gmap_truth, gmap_enc = gmap_phase(
         db, index, smi, jobs)
     rows += gmap_kernel_rows(db, index, k7, reduce_ns)
@@ -3389,7 +3573,7 @@ def main():
                                          for ph, v in pb.items()))
 
     # one entry per kernel, at its first (largest) main-path shape, with
-    # all its rows; launches from the RNA run, which drives all seven
+    # all its rows; launches from the RNA run, which drives all nine
     # GSNAP kernels, or from the GMAP run (K7a, K7b), and each phase's
     # launches per batch beside them (a GMAP batch: the 2,048-cDNA call;
     # on gmap_paths and gmap_chimeras a batch is one query).
@@ -3419,7 +3603,10 @@ def main():
                                         "bound_by", "walk_floor_ms",
                                         "reduce_floor_ms", "library_ms",
                                         "library_device_ms",
-                                        "calls_per_query")
+                                        "calls_per_query",
+                                        "replaced_device_ms",
+                                        "sorts_device_ms",
+                                        "bound_sectors_ms")
                       if k in x}
                      for x in rows if x["name"] == name],
             "launches_per_batch": per_batch[name]})

@@ -25,10 +25,11 @@ from tpumap_torch.gsnap.paired import align_paired_records, rescue_mate
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops import chain, dp, localscan, pack, pathdp, verify
 from tpumap_torch.utils import dna
-from torch_workloads import (gmap_repeat_query, gmap_segments, gmap_straddle,
-                             gmap_windows, gmap_world, mixed_workload,
-                             mode_pairs, mode_reads, mode_world, query_oligos,
-                             sam_text, stream_pairs, tie_rows)
+from torch_workloads import (ends_reads, ends_world, gmap_repeat_query,
+                             gmap_segments, gmap_straddle, gmap_windows,
+                             gmap_world, mixed_workload, mode_pairs,
+                             mode_reads, mode_world, query_oligos, sam_text,
+                             stream_pairs, tie_rows, trim_rows)
 
 DNA_KERNELS = ("verify_diagonals", "banded_align", "traceback")
 # the kernels of the GSNAP paths (GMAP's K7a and K7b never launch there)
@@ -1083,3 +1084,165 @@ def test_genome_windows_on_gpu_match_cpu(dev, tmp_path):
         assert torch.equal(out[0][k], out[1][k]), k
     np.testing.assert_array_equal(large.rebase_results(out[1], bases),
                                   large.rebase_results(out[0], bases))
+
+
+# ------------------------------------- K8 (the ends rung) and K4 (trim)
+
+ENDS_MODES = {"standard": ("standard", False),
+              "cmet": ("cmet-stranded", False),
+              "atoi": ("atoi-stranded", False),
+              "ttoc": ("ttoc-stranded", False),
+              "snp": ("standard", True), "cmet_snp": ("cmet-stranded", True)}
+
+
+@pytest.fixture(scope="module")
+def ends_worlds(dev, tmp_path_factory):
+    """{interval: (db, seq, coords, alts, the index on the card)} of
+    tests/torch_workloads.ends_world."""
+    out = {}
+    for iv in (1, 3):
+        db, seq, coords, alts = ends_world(
+            tmp_path_factory.mktemp(f"ends{iv}"), iv, port=True)
+        out[iv] = (db, seq, coords, alts, DeviceIndex.from_host(db, dev))
+    return out
+
+
+def with_n_flags(idx, glen, seed):
+    """The index with N flags in 4% of its genome (same device)."""
+    from tpumap_torch.utils import dna as tdna
+    rng = np.random.default_rng(seed)
+    nm = idx.genome_nmask.cpu().numpy().view(np.uint32).copy()
+    flags = np.zeros(len(nm) * 32, bool)
+    flags[:glen] = rng.random(glen) < 0.04
+    nm[:(glen + 31) // 32] |= tdna.pack_bits(flags)[:(glen + 31) // 32]
+    return dataclasses.replace(
+        idx, genome_has_n=True,
+        genome_nmask=torch.from_numpy(nm.view(np.int32)).to(idx.device))
+
+
+def end_lanes_both(idx, batch, cfg, dev):
+    """K8 and its plain version on the same CUDA tensors."""
+    from tpumap_torch.ops.pack import pack_reads, revcomp_packed
+    codes, lengths = to(dev, batch["codes"], batch["lengths"])
+    packed = pack_reads(codes)
+    packed2 = torch.cat([packed, revcomp_packed(packed, lengths)], 0)
+    got = engine.end_lanes(idx, codes, lengths, cfg, packed2)
+    want = engine.end_lanes_plain(idx, codes, lengths, cfg, packed2)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("max_occ", [1, 4, 32, 300, 1000])
+@pytest.mark.parametrize("interval", [1, 3])
+@pytest.mark.parametrize("name", list(ENDS_MODES))
+def test_end_lanes_kernel_matches_plain(dev, ends_worlds, name, interval,
+                                        max_occ):
+    """K8 in every mode and with SNP tolerance, at intervals 1 and 3, at
+    max_occ 1 (fewer lanes than 8), 4 and 32 (lanes in registers), 300
+    and 1,000 (the global scratch): reads shorter than k, rows with
+    every lane INVALID, repeats with more than 8 distinct lanes."""
+    from tpumap_torch.gsnap.driver import make_batch
+    db, seq, coords, alts, idx = ends_worlds[interval]
+    mode, snp = ENDS_MODES[name]
+    recs = ends_reads(seq, 107, interval * 10 + max_occ,
+                      None if mode == "standard" else mode,
+                      snps=(coords, alts), port=True)
+    cfg = AlignConfig(mode=mode, snp_tolerant=snp, top_k=4,
+                      max_occ=max_occ)
+    kernels.reset_launches()
+    got, want = end_lanes_both(idx, make_batch(recs, 56, 107), cfg, dev)
+    assert kernels.LAUNCHES["end_lanes"] == 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert bool((want == 0xFFFFFFFF).any()) and bool(
+        (want != 0xFFFFFFFF).any())
+
+
+@pytest.mark.parametrize("max_occ", [4, 1000])
+def test_end_lanes_kernel_long_reads(dev, ends_worlds, max_occ):
+    """K8 on reads of up to 7,680 bases (L = 7,680), standard and cmet."""
+    from tpumap_torch.gsnap.driver import make_batch
+    from tpumap_torch.io.fasta import Record
+    db, seq, coords, alts, idx = ends_worlds[3]
+    rng = np.random.default_rng(max_occ)
+    recs = [Record(f"l{i}", "", seq[p:p + n]) for i, (p, n) in enumerate(
+        zip(rng.integers(0, 40000, 24), rng.integers(5, 7681, 24)))]
+    recs.append(Record("rep", "", seq[36000:43680]))
+    for mode in ("standard", "cmet-stranded"):
+        cfg = AlignConfig(mode=mode, top_k=4, max_occ=max_occ)
+        got, want = end_lanes_both(idx, make_batch(recs, 32, 7680), cfg, dev)
+        assert torch.equal(got, want), mode
+
+
+@pytest.mark.parametrize("genome", ["plain", "n_qunk", "n_gunk"])
+@pytest.mark.parametrize("quals", [False, True])
+@pytest.mark.parametrize("snp", [False, True])
+@pytest.mark.parametrize("mode", ["standard", "cmet-stranded",
+                                  "atoi-stranded", "ttoc-stranded"])
+def test_trim_kernel_matches_plain(dev, ends_worlds, mode, snp, quals,
+                                   genome):
+    """K4 in every mode, with and without the alternate genome and
+    quals, with N flags under both N semantics: diagonals INVALID, near
+    the genome start and past its end; reads of 0-107 bases."""
+    db, _seq, _c, _a, idx = ends_worlds[3]
+    qunk = genome == "n_qunk"
+    if genome != "plain":
+        idx = with_n_flags(idx, db.genome_length, 3)
+    rng = np.random.default_rng(len(mode) * 8 + 4 * snp + 2 * quals
+                                + len(genome))
+    rows = trim_rows(rng, db.get_codes(0, db.genome_length), 1000, 107,
+                     0.02 if genome != "plain" else 0.0)
+    check_trim_kernel(idx, rows, mode, snp, quals, qunk, not qunk, dev)
+
+
+@pytest.mark.parametrize("L,B", [(128, 32768), (300, 512), (7680, 64),
+                                 (69633, 4)])
+def test_trim_kernel_long_reads(dev, ends_worlds, L, B):
+    """K4 at the main path's B = 32,768, L = 128, at windows of 16 words
+    or more (tpumap clamps their start), at L = 7,680, and past the
+    genome's padding with a row's words in the global scratch."""
+    db, _seq, _c, _a, idx = ends_worlds[1]
+    rng = np.random.default_rng(L)
+    gcodes = db.get_codes(0, db.genome_length)
+    if L > db.genome_length:
+        gcodes = np.concatenate([gcodes] * (L // len(gcodes) + 2))
+    rows = trim_rows(rng, gcodes, B, L)
+    for mode in ("standard", "cmet-stranded"):
+        check_trim_kernel(idx, rows, mode, True, True, False, True, dev)
+
+
+def check_trim_kernel(idx, rows, mode, snp, quals, qunk, gunk, dev):
+    codes, nmask, lengths, strand, diag, q = to(dev, *rows)
+    cfg = AlignConfig(mode=mode, snp_tolerant=snp, query_unk_mismatch=qunk,
+                      genome_unk_mismatch=gunk)
+    res = {"strand": strand, "diag": diag}
+    kernels.reset_launches()
+    got = engine._trim_stage(idx, codes, nmask, lengths, res, cfg,
+                             quals=q if quals else None)
+    assert kernels.LAUNCHES["trim_stage"] == 1
+    want = engine.trim_stage_plain(idx, codes, nmask, lengths, res, cfg,
+                                   quals=q if quals else None)
+    torch.cuda.synchronize()
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("run", ["dna", "cmet"])
+def test_align_records_launch_ends_and_trim(dev, tmp_path, run):
+    """A DNA and a cmet align_records on the card launch K8 and K4 (and
+    K1) and give the plain CPU run's SAM."""
+    if run == "dna":
+        db, reads, _gfa = mixed_workload(tmp_path, port=True)
+        cfg = AlignConfig(top_k=4, max_occ=8)
+    else:
+        db, seq, _c, _a = mode_world(tmp_path, port=True)
+        reads = mode_reads(seq, "cmet-stranded", 40, 11, port=True)
+        cfg = AlignConfig(mode="cmet-stranded", top_k=4, max_occ=32)
+    want = sam_text(align_records(db, DeviceIndex.from_host(db, "cpu"),
+                                  reads, cfg, batch_size=32))
+    gpu = DeviceIndex.from_host(db, dev)
+    kernels.reset_launches()
+    assert sam_text(align_records(db, gpu, reads, cfg, batch_size=32)) == want
+    for k in ("end_lanes", "trim_stage", "verify_diagonals"):
+        assert kernels.LAUNCHES[k] > 0, kernels.LAUNCHES

@@ -568,3 +568,118 @@ def sharded_diags(db, reads, config) -> bytes:
     L = max(len(r.sequence) for r in reads[:32])
     res = align(arrays, driver.make_batch(reads[:32], 32, L))
     return repr(res["diag"].tolist()).encode()
+
+
+# ------------------------------------------ the ends rung and trimming
+
+ENDS_K = 10             # k of ends_world's index
+
+
+def ends_world(root, interval, port=False):
+    """A 50.8-kbp genome for the ends rung and end trimming at every
+    setting: 30 kbp random; a 40-bp unit 150 times and a 20-bp unit 400
+    times (k-mers occurring ~150 and ~400 times, more than any max_occ
+    below 300 keeps); a 150-bp segment 20 times and another 4 times,
+    each copy followed by 50 random bases (reads with up to 20 and 4
+    distinct diagonals); 2 kbp random; k = ENDS_K at `interval`, the
+    four base spaces' tables and a SNP every 25 bp in [2000, 2600).
+    Returns (db, seq, snp coords, alt codes)."""
+    rng = np.random.default_rng(77)
+
+    def rand(n):
+        return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+    seq = rand(30000) + rand(40) * 150 + rand(20) * 400
+    for copies in (20, 4):
+        seg = rand(150)
+        seq += "".join(seg + rand(50) for _ in range(copies))
+    seq += rand(2000)
+    db = host(port).build_db(write_fasta(root / "g.fa", seq), name="g",
+                             k=ENDS_K, interval=interval)
+    for space in ("ct", "ga", "ag", "tc"):
+        add_mode_index(db, space)
+    coords = np.arange(2000, 2600, 25, dtype=np.int64)
+    alts = ((db.get_codes(0, db.genome_length)[coords] + 1) % 4).astype(
+        np.uint8)
+    db.add_snp_index(coords, alts)
+    return db, seq, coords, alts
+
+
+def ends_reads(seq, L, seed, mode=None, snps=None, port=False):
+    """Reads of ends_world for the ends rung (at most L <= 150 bases):
+    genome reads with 0-3 substitutions, every other one reverse-
+    complemented, of L and of 20-64 bases; reads of each repeat and of
+    each copied segment (many distinct diagonals, overabundant k-mers);
+    reads of 4-9 bases (shorter than
+    k), of k and k + 3; random reads; reads with an N; with snps, reads
+    of the SNP cluster carrying the alt alleles. With mode, each read as
+    the mode's library reads it."""
+    h = host(port)
+    Record, dna = h.Record, h.dna
+    rng = np.random.default_rng(seed)
+    g = list(seq)
+    if snps is not None:
+        for c, a in zip(*snps):
+            g[int(c)] = "ACGT"[int(a)]
+    g = "".join(g)
+    spans = ([(0, 29000, L)] * 10 + [(30000, 35900, L)] * 6
+             + [(36000, 43900, L)] * 6 + [(44000, 44150, L)] * 4
+             + [(48000, 48150, L)] * 4
+             + [(0, 29000, n) for n in (4, 7, 9, 9, ENDS_K, ENDS_K + 3,
+                                        20, 33, 50, 64)]
+             + ([(1950, 2500, L)] * 4 if snps is not None else []))
+    reads = []
+    for r, (lo, hi, n) in enumerate(spans):
+        p = int(rng.integers(lo, hi - n))
+        s = list(g[p:p + n])
+        for j in rng.integers(0, n, r % 4):
+            s[j] = "ACGT"[("ACGT".index(s[j]) + 1) % 4]
+        s = "".join(s)
+        if r % 2:
+            s = dna.revcomp(s)
+        if r % 7 == 3 and n > 20:
+            s = s[:12] + "N" + s[13:]
+        reads.append(s)
+    reads += ["".join("ACGT"[i] for i in rng.integers(0, 4, L))
+              for _ in range(4)]
+    if mode is not None:
+        reads = [convert(s, mode) for s in reads]
+    return [Record(f"e{i}", "", s) for i, s in enumerate(reads)]
+
+
+def trim_rows(rng, gcodes, B, L, n_frac=0.02):
+    """Rows for end trimming against genome codes gcodes: per row a
+    diagonal (random, near the genome's start or past its end, or
+    INVALID) and a strand; the read is the genome there with
+    substitutions at 0-30% (some clustered at either end, so trimming
+    cuts), complemented backwards on strand 1 (so the rc orientation
+    aligns); lengths L, shorter than L, below 16 and 0; N flags at
+    n_frac; quals 0-40. Returns (codes uint8[B, L], nmask bool[B, L],
+    lengths int32[B], strand int32[B], diag int64[B], quals uint8[B, L])."""
+    glen = len(gcodes)
+    padded = np.concatenate([gcodes, np.zeros(L, np.uint8)])
+    diag = rng.integers(0, glen - L, B).astype(np.int64)
+    diag[1::9] = rng.integers(0, 8, len(diag[1::9]))
+    diag[2::9] = glen - L // 2
+    diag[3::9] = 0xFFFFFFFF
+    strand = rng.integers(0, 2, B).astype(np.int32)
+    lengths = np.full(B, L, np.int32)
+    lengths[4::9] = rng.integers(16, L + 1, len(lengths[4::9]))
+    lengths[5::9] = rng.integers(1, 16, len(lengths[5::9]))
+    lengths[6::11] = 0
+    codes = np.zeros((B, L), np.uint8)
+    for r in range(B):
+        n = int(lengths[r])
+        d = int(diag[r]) if diag[r] != 0xFFFFFFFF else 0
+        s = padded[d:d + n].copy()
+        rate = (0.0, 0.01, 0.1, 0.3)[r % 4]
+        sub = rng.random(n) < rate
+        if r % 5 == 1:
+            sub[:min(n, 6)] = True
+        if r % 5 == 2:
+            sub[max(n - 9, 0):] = True
+        s[sub] = (s[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        codes[r, :n] = (3 - s[::-1]) if strand[r] else s
+    nmask = (rng.random((B, L)) < n_frac) & (np.arange(L) < lengths[:, None])
+    codes[nmask] = 0
+    quals = rng.integers(0, 41, (B, L)).astype(np.uint8)
+    return codes, nmask, lengths, strand, diag, quals

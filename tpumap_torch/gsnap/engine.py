@@ -2,8 +2,11 @@
 
 The whole [B] read batch flows through seed -> verify -> select under
 masks: the ends rung (end k-mers, 8 deduplicated lanes, a 16-base probe
-keeping 3, full verify) for every read, then the prevalent-diagonal rung
-on a fixed-size top-k compaction of the unsolved rows, then end trimming.
+keeping 3: kernel K8, csrc/ends.cu; then full verify, K1) for every
+read, then the prevalent-diagonal rung on a fixed-size top-k compaction
+of the unsolved rows, then end trimming (kernel K4, csrc/trim.cu).
+`end_lanes_plain` and `trim_stage_plain` beside their wrappers are the
+plain versions, which run for CPU tensors.
 The alignment modes (cmet, atoi, ttoc) seed and verify each strand in
 its reduced base space (ops/mode.py) and take the ends rung without the
 probe; SNP tolerance seeds from the SNP index and verifies ref-OR-alt.
@@ -20,9 +23,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tpumap_torch import kernels
 from tpumap_torch.gsnap.knownsplicing import coords_in_set
+from tpumap_torch.index.device import SAFE_PAD_WORDS
 from tpumap_torch.ops import dp, pack, pathdp, seed, verify
-from tpumap_torch.ops.mode import MODE_SPACES, map_codes
+from tpumap_torch.ops.mode import (CODE_MAPS, MODE_SPACES, SPACE_CODES,
+                                   map_codes)
 from tpumap_torch.ops.u32 import INVALID, MASK32, popcount32, stable_topk, u32
 
 ENDS_K = 8          # unique candidate lanes kept per strand in the ends rung
@@ -165,7 +171,7 @@ def _end_diags(offsets, positions, oligos, qpos, occ: int, ok_rows):
 def align_batch_ends(index, batch, config: AlignConfig):
     """The ends rung: candidates from the end k-mers only, both strands.
     Standard mode takes the gather-free _ends_standard; the modes take
-    _ends_mode."""
+    _ends_mode. Both take their lanes from end_lanes (K8)."""
     codes, nmask, lengths = batch["codes"], batch["nmask"], batch["lengths"]
     if MODE_SPACES[config.mode] == (None, None):
         return _ends_standard(index, codes, nmask, lengths, config)
@@ -174,83 +180,40 @@ def align_batch_ends(index, batch, config: AlignConfig):
 
 def _ends_mode(index, codes, nmask, lengths, config: AlignConfig):
     """The ends rung of the alignment modes (engine.py:183-258): each
-    strand's end oligos rolled from its space-mapped codes (the rc strand
-    from the reverse-complemented read), all ENDS_K lanes verified with
-    no probe, one verify per strand in its space. The N flags do not
-    gate the oligos, and with SNP tolerance the seeds come from the SNP
-    index whatever the space, as in tpumap."""
-    B, L = codes.shape
-    k = index.k
-    dev = codes.device
+    strand's ENDS_K lanes from end_lanes, all verified with no probe, one
+    verify per strand in its space."""
+    B = codes.shape[0]
     space_fwd, space_rc = MODE_SPACES[config.mode]
-    snp = config.snp_tolerant
     rc_codes, rc_nmask = _rc_rows(codes, nmask, lengths)
-    qpos = torch.stack(_end_qpos(index, lengths), dim=1).to(torch.int64)
-    long_enough = (lengths >= k)[:, None, None]
-
-    def end_candidates(c, space):
-        c = map_codes(c, space).to(torch.int64)
-        offsets, positions = index.mode_index("snp" if snp else space)
-        o = torch.zeros(qpos.shape, dtype=torch.int64, device=dev)
-        for j in range(k):
-            o = ((o << 2) & MASK32) | torch.gather(
-                c, 1, torch.clamp(qpos + j, max=L - 1))
-        return _dedup_lanes(_end_diags(offsets, positions, o, qpos,
-                                       config.max_occ, long_enough), ENDS_K)
-
-    fcands = end_candidates(codes, space_fwd)
-    rcands = end_candidates(rc_codes, space_rc)
+    fcands, rcands = end_lanes(index, codes, lengths, config)
 
     def strand_nmm(c, m, cands, space):
         return verify.verify_diagonals(
             index, pack.pack_reads(c), pack.pack_reads(m.to(torch.uint8)),
             lengths, cands, config.query_unk_mismatch,
-            config.genome_unk_mismatch, space=space, snp=snp)
+            config.genome_unk_mismatch, space=space,
+            snp=config.snp_tolerant)
 
     fnmm = strand_nmm(codes, nmask, fcands, space_fwd)
     rnmm = strand_nmm(rc_codes, rc_nmask, rcands, space_rc)
     return select_best(torch.cat([fcands, rcands], 1),
                        torch.cat([fnmm, rnmm], 1),
-                       _strand_cols(B, fcands.shape[1], dev), lengths, config)
+                       _strand_cols(B, fcands.shape[1], codes.device),
+                       lengths, config)
 
 
 def _ends_standard(index, codes, nmask, lengths, config: AlignConfig):
-    """Standard-mode ends rung: end-anchored candidates, no code gathers
-    (with SNP tolerance seeded from the SNP index and verified ref-OR-alt;
-    the probe reads the reference genome only)."""
-    B, L = codes.shape
-    k = index.k
-    dev = codes.device
-    offsets, positions = index.mode_index(
-        "snp" if config.snp_tolerant else None)
-    fwd_qpos = torch.stack(_end_qpos(index, lengths), dim=1).to(torch.int64)
-    # rolling k-mers over the whole read, then one take at the ends
-    acc = torch.zeros((B, L), dtype=torch.int64, device=dev)
-    for j in range(k):
-        acc = ((acc << 2) & MASK32) | torch.roll(codes, -j, dims=1).to(
-            torch.int64)
-    fwd_oligos = torch.gather(acc, 1, fwd_qpos)
-    # the rc oligo at rc-position (len - k - q) is the revcomp of the fwd
-    # oligo at q
-    rc_oligos = pack.revcomp_kmer(fwd_oligos, k)
-    rc_qpos = torch.clamp(lengths.to(torch.int64)[:, None] - k - fwd_qpos,
-                          min=0)
-    long_enough = (lengths >= k)[:, None, None]
-    fcands, rcands = (
-        _dedup_lanes(_end_diags(offsets, positions, o, q, config.max_occ,
-                                long_enough), ENDS_K)
-        for o, q in ((fwd_oligos, fwd_qpos), (rc_oligos, rc_qpos)))
-
+    """Standard-mode ends rung: the probe-ranked lanes of both strands
+    from end_lanes, one verify of the reads and their reverse complements
+    (with SNP tolerance ref-OR-alt)."""
+    B = codes.shape[0]
     packed = pack.pack_reads(codes)
     nmask2 = pack.pack_reads(nmask.to(torch.uint8))
     packed2 = torch.cat([packed, pack.revcomp_packed(packed, lengths)], 0)
     nmask22 = torch.cat(
         [nmask2, pack.revcomp_packed(nmask2, lengths, complement=False)], 0)
     lengths2 = torch.cat([lengths, lengths], 0)
-    cands2 = torch.cat([fcands, rcands], 0)                  # [2B, ENDS_K]
-    if ENDS_K > ENDS_VERIFY_K:
-        cands2 = _probe_rank(index, packed2, lengths2, cands2,
-                             ENDS_VERIFY_K)
+    cands2 = end_lanes(index, codes, lengths, config, packed2)  # [2B, K]
     stacked = verify.verify_diagonals(
         index, packed2, nmask22, lengths2, cands2,
         config.query_unk_mismatch, config.genome_unk_mismatch,
@@ -258,12 +221,131 @@ def _ends_standard(index, codes, nmask, lengths, config: AlignConfig):
     K = cands2.shape[1]
     return select_best(torch.cat([cands2[:B], cands2[B:]], 1),
                        torch.cat([stacked[:B], stacked[B:]], 1),
-                       _strand_cols(B, K, dev), lengths, config)
+                       _strand_cols(B, K, codes.device), lengths, config)
 
 
-def _probe_rank(index, packed2, lengths2, cands2, keep: int):
+def _end_tables(index, config: AlignConfig):
+    """The (offsets, positions) each strand seeds from: the SNP index with
+    SNP tolerance whatever the space, else the strand's space's table."""
+    return tuple(index.mode_index("snp" if config.snp_tolerant else space)
+                 for space in MODE_SPACES[config.mode])
+
+
+def end_kmers(index, codes, lengths, config: AlignConfig):
+    """Each strand's ((offsets, positions), k-mers int64[B, NE], their
+    read positions int64[B, NE]), as end_lanes_plain looks them up.
+    Standard mode rolls the k-mers over the whole read and takes the rc
+    strand's by arithmetic; a mode rolls each strand's from its
+    space-mapped codes (the rc strand's from the reverse-complemented
+    read)."""
+    B, L = codes.shape
+    k = index.k
+    dev = codes.device
+    qpos = torch.stack(_end_qpos(index, lengths), dim=1).to(torch.int64)
+    tables = _end_tables(index, config)
+    space_fwd, space_rc = MODE_SPACES[config.mode]
+    if space_fwd is None and space_rc is None:
+        # rolling k-mers over the whole read, then one take at the ends
+        acc = torch.zeros((B, L), dtype=torch.int64, device=dev)
+        for j in range(k):
+            acc = ((acc << 2) & MASK32) | torch.roll(codes, -j, dims=1).to(
+                torch.int64)
+        fwd = torch.gather(acc, 1, qpos)
+        # the rc oligo at rc-position (len - k - q) is the revcomp of the
+        # fwd oligo at q
+        rc_q = torch.clamp(lengths.to(torch.int64)[:, None] - k - qpos,
+                           min=0)
+        return [(tables[0], fwd, qpos),
+                (tables[1], pack.revcomp_kmer(fwd, k), rc_q)]
+
+    def rolled(c, space):
+        c = map_codes(c, space).to(torch.int64)
+        o = torch.zeros(qpos.shape, dtype=torch.int64, device=dev)
+        for j in range(k):
+            o = ((o << 2) & MASK32) | torch.gather(
+                c, 1, torch.clamp(qpos + j, max=L - 1))
+        return o
+
+    rc_codes = pack.revcomp_codes(codes, lengths)
+    return [(tables[0], rolled(codes, space_fwd), qpos),
+            (tables[1], rolled(rc_codes, space_rc), qpos)]
+
+
+def end_lanes_plain(index, codes, lengths, config: AlignConfig,
+                    packed2=None):
+    """K8's plain version. Each strand's end k-mers (end_kmers of codes
+    uint8[B, L]), their table positions as diagonals (_end_diags) and
+    the ENDS_K smallest distinct of those (_dedup_lanes). Standard mode
+    then ranks both strands' lanes by the probe word of packed2 (the
+    reads and their reverse complements, int32[2B, W]) and keeps
+    ENDS_VERIFY_K: int64[2B, <= 3]; a mode returns int64[2, B, <= 8]."""
+    long_enough = (lengths >= index.k)[:, None, None]
+    lanes = [_dedup_lanes(_end_diags(*table, oligos, q, config.max_occ,
+                                     long_enough), ENDS_K)
+             for table, oligos, q in end_kmers(index, codes, lengths,
+                                               config)]
+    if MODE_SPACES[config.mode] != (None, None):
+        return torch.stack(lanes)
+    return probe_rank_plain(index, packed2, torch.cat([lengths, lengths], 0),
+                            torch.cat(lanes, 0), ENDS_VERIFY_K)
+
+
+def end_lanes(index, codes, lengths, config: AlignConfig, packed2=None):
+    """end_lanes_plain for CPU tensors; the K8 kernel for CUDA. K8 builds
+    each (read, strand)'s k-mers in registers from the codes (the rc
+    strand's from the complement read backwards: the same k-mers and
+    positions as the plain version's when len >= k, and no lane when
+    len < k), so lanes and tie rules are the plain version's."""
+    if codes.device.type == "cpu":
+        return end_lanes_plain(index, codes, lengths, config, packed2)
+    B, L = codes.shape
+    dev = codes.device
+    NE = 2 * _ends_iv(index)
+    occ = max(int(config.max_occ), 0)
+    K = min(ENDS_K, NE * occ)
+    standard = MODE_SPACES[config.mode] == (None, None)
+    keep = min(ENDS_VERIFY_K, K) if standard else 0
+    out = torch.empty(((2 * B, keep) if standard else (2, B, K)),
+                      dtype=torch.int64, device=dev)
+    if out.numel() == 0:
+        return out
+    codes, lengths = codes.contiguous(), lengths.contiguous()
+    (off_f, pos_f), (off_r, pos_r) = _end_tables(index, config)
+    W = packed2.shape[1] if standard else 0
+    kernels.check_args(
+        "end_lanes", dev, (codes, torch.uint8, (B, L)),
+        (lengths, torch.int32, (B,)), (off_f, torch.int32, None),
+        (pos_f, torch.int32, None), (off_r, torch.int32, None),
+        (pos_r, torch.int32, None), (index.genome_packed, torch.int32, None),
+        *(((packed2, torch.int32, (2 * B, W)),) if standard else ()))
+    # lanes a warp holds in registers: 1 or 8 a thread; past 256 (or past
+    # 32 end k-mers) a global scratch of NE * occ words a warp
+    n = NE * occ
+    per = 1 if NE <= 32 and n <= 32 else 8 if NE <= 32 and n <= 256 else 0
+    nslots = -(-min(2 * B, 16 * kernels.n_sms(dev)) // 4) * 4 \
+        if per == 0 else 0                  # whole blocks of 4 warps
+    scratch = (torch.empty((nslots, n), dtype=torch.int32, device=dev)
+               if per == 0 else None)
+    space_fwd, space_rc = MODE_SPACES[config.mode]
+    kernels.launch(
+        "end_lanes", dev, codes, lengths, off_f, off_f.shape[0], pos_f,
+        pos_f.shape[0], off_r, off_r.shape[0], pos_r, pos_r.shape[0],
+        index.genome_packed, index.genome_packed.shape[0],
+        packed2 if standard else None, W, B, L, index.k, NE // 2, occ, K,
+        keep, _code_lut(space_fwd), _code_lut(space_rc), per, scratch,
+        nslots, out)
+    return out
+
+
+def _code_lut(space) -> int:
+    """CODE_MAPS[space] as 2 bits a code (K8 maps codes through it)."""
+    cmap = CODE_MAPS[space] if space is not None else range(4)
+    return sum(int(v) << (2 * c) for c, v in enumerate(cmap))
+
+
+def probe_rank_plain(index, packed2, lengths2, cands2, keep: int):
     """Rank candidate lanes by one mid-read 16-base probe word and keep
-    the `keep` best (INVALID lanes rank last)."""
+    the `keep` best (INVALID lanes rank last, ties to the lower lane)."""
     valid = cands2 != INVALID
     pw = torch.clamp(lengths2.to(torch.int64) // 32, 0, packed2.shape[1] - 1)
     rw = u32(torch.gather(packed2, 1, pw[:, None]))
@@ -278,7 +360,7 @@ def _probe_rank(index, packed2, lengths2, cands2, keep: int):
 
 def _dedup_lanes(cands: torch.Tensor, keep: int) -> torch.Tensor:
     """Sort lanes, drop duplicates, compact uniques to the front, keep
-    the first `keep`."""
+    the first `keep`: the `keep` smallest distinct lanes, INVALID after."""
     s = torch.sort(cands, dim=1).values
     dup = torch.cat([torch.zeros_like(s[:, :1], dtype=torch.bool),
                      s[:, 1:] == s[:, :-1]], dim=1)
@@ -352,11 +434,12 @@ def align_batch_cascaded(index, batch, config: AlignConfig,
     return out
 
 
-def _trim_stage(index, codes, nmask, lengths, res, config: AlignConfig,
-                quals=None):
-    """End trimming of the best diagonal: per-base mismatch mask in the
-    aligned orientation -> max-scoring query interval; with quals also
-    the quality-weighted MAPQ inputs mm_qualsum and qual_mean16."""
+def trim_stage_plain(index, codes, nmask, lengths, res, config: AlignConfig,
+                     quals=None):
+    """K4's plain version: end trimming of the best diagonal: per-base
+    mismatch mask in the aligned orientation -> max-scoring query
+    interval; with quals also the quality-weighted MAPQ inputs
+    mm_qualsum and qual_mean16."""
     B, L = codes.shape
     packed = pack.pack_reads(codes)
     nmask2 = pack.pack_reads(nmask.to(torch.uint8))
@@ -390,6 +473,58 @@ def _trim_stage(index, codes, nmask, lengths, res, config: AlignConfig,
             torch.div(16 * torch.where(kept, q_or, 0).sum(1), span,
                       rounding_mode="floor"))
     return out
+
+
+# K4 keeps a row's mismatch words in shared memory up to this many words
+# (4 warps a block, 48 KB), past it in a global scratch
+TRIM_SMEM_WORDS = 3072
+
+
+def _trim_stage(index, codes, nmask, lengths, res, config: AlignConfig,
+                quals=None):
+    """trim_stage_plain for CPU tensors; the K4 kernel for CUDA. K4 builds
+    each row's mismatch words in its own base space only (the strand's),
+    from the codes read forwards or, on the rc strand, complemented
+    backwards (only bases < len reach the scans, where both orientations
+    are the plain version's)."""
+    if codes.device.type == "cpu":
+        return trim_stage_plain(index, codes, nmask, lengths, res, config,
+                                quals)
+    B, L = codes.shape
+    dev = codes.device
+    W = pack.words_for(L)
+    codes, lengths = codes.contiguous(), lengths.contiguous()
+    nm = nmask.contiguous().view(torch.uint8)
+    strand = res["strand"].contiguous()
+    diag = res["diag"].contiguous()
+    galt = index.genomealt_packed if config.snp_tolerant else None
+    q = None if quals is None else quals.contiguous()
+    kernels.check_args(
+        "trim_stage", dev, (index.genome_packed, torch.int32, None),
+        (index.genome_nmask, torch.int32, None),
+        (codes, torch.uint8, (B, L)), (nm, torch.uint8, (B, L)),
+        (lengths, torch.int32, (B,)), (strand, torch.int32, (B,)),
+        (diag, torch.int64, (B,)),
+        *(() if galt is None else ((galt, torch.int32, None),)),
+        *(() if q is None else ((q, torch.uint8, (B, L)),)))
+    out = torch.empty((4 if q is None else 6, B), dtype=torch.int32,
+                      device=dev)
+    if B:
+        scratch = (torch.empty((B, W), dtype=torch.int32, device=dev)
+                   if W > TRIM_SMEM_WORDS else None)
+        space_fwd, space_rc = MODE_SPACES[config.mode]
+        kernels.launch(
+            "trim_stage", dev, index.genome_packed,
+            index.genome_packed.shape[0], index.genome_nmask,
+            index.genome_nmask.shape[0], galt,
+            0 if galt is None else galt.shape[0], codes, nm, lengths,
+            strand, diag, q, B, L, W, int(index.genome_has_n),
+            int(config.query_unk_mismatch), int(config.genome_unk_mismatch),
+            SPACE_CODES[space_fwd], SPACE_CODES[space_rc], SAFE_PAD_WORDS,
+            scratch, out)
+    keys = ("trim_qstart", "trim_qend", "trim_score", "trim_nmm",
+            "mm_qualsum", "qual_mean16")
+    return dict(zip(keys, out))
 
 
 def _merge_cand_lists(cd_a, cs_a, cn_a, cd_b, cs_b, cn_b):
