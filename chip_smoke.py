@@ -40,9 +40,9 @@ fusions, the transcriptome rung single and paired), and fails (exit code
    over the poly-A genome, K8 (the ends rung's lanes) at the DNA rung's
    32,768 reads in standard mode (max_occ 4) and at cmet's (max_occ 32),
    and K4 (end trimming) at B = 32,768, L = 128 with and without quals,
-   each with the device time of the torch ops it replaces, its plain
-   version, and K8's with its sorts alone and a bound over 32-byte
-   sectors);
+   then the same four at the gsnap CLI's 1,024 reads, each with the
+   device time of the torch ops it replaces, its plain version, and
+   K8's with its sorts alone and a bound over 32-byte sectors);
 4. DNA end to end: one warm-up call, then align_records over all 50,000
    100-bp reads at batch size 32,768 with launch counters reset just
    before; reads/s, aligned fraction and agreement with the generator's
@@ -85,15 +85,15 @@ fusions, the transcriptome rung single and paired), and fails (exit code
    reads/s, aligned fraction, within 10 bp (>= 0.99 each), and the sum
    of XV:i: over the primary lines against the alt alleles in the reads
    (>= 0.95); K1, K8 and K4 must have launched;
-11. the first 2,048 DNA reads, the first 512 RNA reads (novel, and with
+11. the first 2,048 DNA reads, the first 256 RNA reads (novel, and with
    known splicing), the first 2,048 PE pairs, the 512 repair pairs, the
-   first 2,048 cmet and SNP reads, the first 512 RNA reads as cmet with
-   novel splicing and 512 PE pairs as cmet (both mates C->T), and the
+   first 2,048 cmet and SNP reads, the first 256 RNA reads as cmet with
+   novel splicing and 256 PE pairs as cmet (both mates C->T), and the
    four staged subsets of 13 through the port on the CPU (plain
    versions) and on the GPU with the same batching: byte-identical SAM;
    the first 256 GMAP cDNAs of 12: byte-identical GFF3 (-f 3 and -f 2);
-   and gmap_cli.main on the first 128 (-f 3, -A, -S, -f 9, -f samse) and on the
-   first 64 chimeras of 14 (-x 30 -f 1), --device cpu and the card:
+   and gmap_cli.main on the first 32 (-f 3, -A, -S, -f 9, -f samse) and on
+   the first 16 chimeras of 14 (-x 30 -f 1), --device cpu and the card:
    byte-identical output;
 12. GMAP end to end on the k=14 index: 2,048 cDNAs made as
    tools/bench_gmap.make_queries makes them (gmap_bench.py, seed 7, 2-5
@@ -121,7 +121,7 @@ fusions, the transcriptome rung single and paired), and fails (exit code
    build_iit and build_transcriptome); each with its launches per batch,
    one staged batch's host layers and device time; floors TWOPASS_,
    FUSIONS_ and TR_FLOORS where tpumap's own grades are below the RNA
-   cells'; CPU == GPU SAM on 512 reads of each (256 pairs).
+   cells'; CPU == GPU SAM on 256 reads of each (128 pairs).
 14. GMAP as users run it (after 12): align_query_paths(npaths=5), one
    query at a time as gmap's main runs it by default, over the 2,048
    cDNAs of 12 (N_PATHS) after a warm-up on 64, launch counters reset
@@ -215,7 +215,11 @@ phase 15's runs a batch is the CLI's 1,024 reads or pairs). The
 line before the last is the kernel table as JSON; the last line is {"ok": true,
 "device": {...}}. JAX and tpumap are blocked: the port must run without
 either. Bench data and the index go under .bench_data/ in the checkout.
-Usage: python3 chip_smoke.py
+With --rows it stops after the build and runs K8's and K4's rows alone
+(no result line); --tree DIR imports DIR's tpumap_torch instead of this
+checkout's, so two trees' K8 and K4 can be compared in one call, one
+process a tree.
+Usage: python3 chip_smoke.py [--rows] [--tree DIR]
 """
 import collections
 import contextlib
@@ -243,8 +247,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 B = 32768
 N_CPU = 2048
 RB = 16384              # RNA batch (bench.py's RNA leg)
-N_CPU_RNA = 512
+N_CPU_RNA = 256         # RNA reads of the CPU == card SAM checks (512
+                        # until a run of 1,143 s, near the limit)
 PB = 8192               # pairs per PE batch (bench.py's PE leg)
+GROUP = 1024            # the gsnap CLI's reads a group (K8's, K4's rows)
 PAIRMAX = 1000
 N_CPU_PE = 2048
 N_REPAIR = 512          # paired RNA pairs through the mate repair
@@ -286,7 +292,7 @@ GMAP_FLOOR = 0.913828125
 # chimeras of the CPU == card check
 N_PATHS = 2048
 GMAP_PATHS_WARM = 64
-N_CHIM_CPU = 64
+N_CHIM_CPU = 16
 # its floors: tpumap's own grades on the same cDNAs and chimeras
 # (gmap_bench.py --paths --chimeras, JAX on the CPU of the H100
 # machine) less 0.01 where they lie below 0.99: found 1.0, the first
@@ -906,6 +912,25 @@ def mode_kernel_rows(mindex, rng, reads_at):
     return rows
 
 
+def reads_from(index, rng):
+    """reads_at(n, L=128): n reads cut from the genome at random
+    diagonals, 1% substitutions, bases past 100 zero: (diagonals,
+    codes)."""
+    from tpumap_torch.ops import verify
+    dev = index.device
+    glen = index.genome_length
+
+    def reads_at(n, L=128):
+        d = rng.integers(0, glen - 200, n).astype(np.int64)
+        codes = verify.extract_codes_window(
+            index.genome_packed, torch.from_numpy(d).to(dev), L).cpu().numpy()
+        mut = rng.random(codes.shape) < 0.01
+        codes[mut] = rng.integers(0, 4, int(mut.sum()))
+        codes[:, 100:] = 0
+        return d, codes
+    return reads_at
+
+
 def kernel_phase(index, gpu, known, mindex):
     """Each kernel at its main-path shapes vs its plain version."""
     from tpumap_torch.gsnap.engine import ENDS_VERIFY_K
@@ -914,18 +939,8 @@ def kernel_phase(index, gpu, known, mindex):
 
     rng = np.random.default_rng(2024)
     dev = index.device
-    glen = index.genome_length
     rows = []
-
-    def reads_at(n, L=128):
-        """n reads cut from the genome at random diagonals, 1% subs."""
-        d = rng.integers(0, glen - 200, n).astype(np.int64)
-        codes = verify.extract_codes_window(
-            index.genome_packed, torch.from_numpy(d).to(dev), L).cpu().numpy()
-        mut = rng.random(codes.shape) < 0.01
-        codes[mut] = rng.integers(0, 4, int(mut.sum()))
-        codes[:, 100:] = 0
-        return d, codes
+    reads_at = reads_from(index, rng)
 
     for n, C in ((2 * B, ENDS_VERIFY_K), (512, 4)):
         d, codes = reads_at(n)
@@ -1086,62 +1101,92 @@ def ends_trim_rows(index, mindex, rng, reads_at):
     """K8 at the DNA ends rung's shape (32,768 reads, standard mode,
     max_occ 4: 24 lanes a strand, the probe keeping 3) and at cmet's
     (max_occ 32: 192 lanes a strand in its space's table), K4 at B =
-    32,768, L = 128 with and without quals; each row also holds the
-    device time of the torch ops that the kernel replaces (its plain
-    version; for K8 also its _dedup_lanes sorts alone) and, for K8, the
-    bound over 32-byte sectors."""
+    32,768, L = 128 with and without quals; then the same four on the
+    first 1,024 of those rows (the gsnap CLI's group size, less than one
+    wave of warps). Each row also holds the device time of the torch ops
+    that the kernel replaces (its plain version; for K8 also its
+    _dedup_lanes sorts alone) and, for K8, the bound over 32-byte
+    sectors."""
     from tpumap_torch.gsnap import engine
     from tpumap_torch.ops import pack
     dev = index.device
     rows = []
+    ends_in = []
     for label, idx, cfg, conv in (
             ("DNA", index, engine.AlignConfig(top_k=4, max_occ=4), None),
             ("cmet", mindex, engine.AlignConfig(mode=CMET, top_k=4,
                                                 max_occ=32), 1)):
         _d, codes, _s = strand_reads(rng, reads_at, B, conv)
-        ct = torch.from_numpy(codes).to(dev)
-        lengths = torch.full((B,), 100, dtype=torch.int32, device=dev)
-        packed = pack.pack_reads(ct)
-        packed2 = (torch.cat([packed, pack.revcomp_packed(packed, lengths)])
-                   if conv is None else None)
-        args = (idx, ct, lengths, cfg, packed2)
-        nbytes, sectors, nops, popc = ends_work(idx, ct, lengths, cfg)
-        row = measure("end_lanes", f"[{B}] {label}, max_occ {cfg.max_occ}",
-                      partial(engine.end_lanes, *args),
-                      partial(engine.end_lanes_plain, *args), 50, 5, nbytes,
-                      nops, popc)
-        out_bytes = tensor_bytes(row["fn"]())
-        row["bound_sectors_ms"] = (sectors + out_bytes) / HBM_BPS * 1e3
-        k = idx.k
-        ok = (lengths >= k)[:, None, None]
-        raw = [engine._end_diags(*t, o, q, cfg.max_occ, ok)
-               for t, o, q in engine.end_kmers(idx, ct, lengths, cfg)]
-        row["replaced_fn"] = row["plain_fn"]
-        row["sorts_fn"] = partial(lambda r: [engine._dedup_lanes(
-            x, engine.ENDS_K) for x in r], raw)
-        rows.append(row)
+        ends_in.append((label, idx, cfg, conv, codes))
     d, codes, strand = strand_reads(rng, reads_at, B)
     diag = d.astype(np.int64)
     diag[rng.random(B) < 0.01] = INVALID
-    ct, st, dg = (torch.from_numpy(a).to(dev) for a in (codes, strand, diag))
-    nm = torch.zeros(ct.shape, dtype=torch.bool, device=dev)
-    lengths = torch.full((B,), 100, dtype=torch.int32, device=dev)
-    quals = torch.from_numpy(rng.integers(0, 41, codes.shape).astype(
-        np.uint8)).to(dev)
-    cfg = engine.AlignConfig(top_k=4, max_occ=4)
-    res = {"strand": st, "diag": dg}
-    for q in (None, quals):
-        args = (index, ct, nm, lengths, res, cfg)
-        fn = partial(engine._trim_stage, *args, quals=q)
-        plain = partial(engine.trim_stage_plain, *args, quals=q)
-        nbytes, nops, popc = trim_work(index, lengths, dg, fn(), q is not
-                                       None, False)
-        row = measure("trim_stage", f"B={B}, L=128, "
-                      + ("quals" if q is not None else "no quals"), fn,
-                      plain, 50, 5, nbytes, nops, popc)
-        row["replaced_fn"] = plain
-        rows.append(row)
+    quals = rng.integers(0, 41, codes.shape).astype(np.uint8)
+    for n in (B, GROUP):
+        for label, idx, cfg, conv, c in ends_in:
+            ct = torch.from_numpy(c[:n]).to(dev)
+            lengths = torch.full((n,), 100, dtype=torch.int32, device=dev)
+            packed = pack.pack_reads(ct)
+            packed2 = (torch.cat([packed, pack.revcomp_packed(packed,
+                                                              lengths)])
+                       if conv is None else None)
+            args = (idx, ct, lengths, cfg, packed2)
+            nbytes, sectors, nops, popc = ends_work(idx, ct, lengths, cfg)
+            row = measure("end_lanes", f"[{n}] {label}, max_occ "
+                          f"{cfg.max_occ}", partial(engine.end_lanes, *args),
+                          partial(engine.end_lanes_plain, *args), 50, 5,
+                          nbytes, nops, popc)
+            out_bytes = tensor_bytes(row["fn"]())
+            row["bound_sectors_ms"] = (sectors + out_bytes) / HBM_BPS * 1e3
+            ok = (lengths >= idx.k)[:, None, None]
+            raw = [engine._end_diags(*t, o, q, cfg.max_occ, ok)
+                   for t, o, q in engine.end_kmers(idx, ct, lengths, cfg)]
+            row["replaced_fn"] = row["plain_fn"]
+            row["sorts_fn"] = partial(lambda r: [engine._dedup_lanes(
+                x, engine.ENDS_K) for x in r], raw)
+            rows.append(row)
+        ct, st, dg = (torch.from_numpy(a[:n]).to(dev)
+                      for a in (codes, strand, diag))
+        nm = torch.zeros(ct.shape, dtype=torch.bool, device=dev)
+        lengths = torch.full((n,), 100, dtype=torch.int32, device=dev)
+        qt = torch.from_numpy(quals[:n]).to(dev)
+        cfg = engine.AlignConfig(top_k=4, max_occ=4)
+        res = {"strand": st, "diag": dg}
+        for q in (None, qt):
+            args = (index, ct, nm, lengths, res, cfg)
+            fn = partial(engine._trim_stage, *args, quals=q)
+            plain = partial(engine.trim_stage_plain, *args, quals=q)
+            nbytes, nops, popc = trim_work(index, lengths, dg, fn(),
+                                           q is not None, False)
+            row = measure("trim_stage", f"B={n}, L=128, "
+                          + ("quals" if q is not None else "no quals"), fn,
+                          plain, 50, 5, nbytes, nops, popc)
+            row["replaced_fn"] = plain
+            rows.append(row)
     return rows
+
+
+def rows_phase(smi):
+    """chip_smoke.py --rows [--tree DIR]: K8's and K4's rows alone
+    (ends_trim_rows with each one's device time, on the bench index and
+    the mode index), for A/B comparisons of two trees' kernels in one
+    call: with --tree, DIR's tpumap_torch is the one imported. Prints
+    the rows as JSON; no result line."""
+    from tpumap_torch.index.device import DeviceIndex
+    _bench_data, db, _rfa = load_index(smi)
+    index = DeviceIndex.from_host(db, "cuda")
+    mdb, _c, _a = load_mode_index(_bench_data, db, smi)
+    mindex = DeviceIndex.from_host(mdb, "cuda")
+    rng = np.random.default_rng(2024)
+    rows = ends_trim_rows(index, mindex, rng, reads_from(index, rng))
+    for r in rows:
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{r['name']} disagrees with its plain "
+                                 f"version at {r['shape']}")
+    profile_rows(rows, smi, (0.0, 0.0, 0.0))
+    log(json.dumps({"rows": [{k: v for k, v in r.items()
+                              if not callable(v)} for r in rows]}))
+    return 0
 
 
 def log_walk(ops, shape):
@@ -2126,10 +2171,11 @@ def db_patched(db, index):
 
 
 # main's argument lists held CPU == card: on the first N_GMAP_MAIN cDNAs,
-# and -x 30 -f 1 on the first N_CHIM_CPU chimeras. 128, not 256: at 256
-# the lists took 234 s (their CPU runs 166 s) of a 1,101.6-s run with
-# phase 16 on one H100 host, too near the run's 1,200-s limit
-N_GMAP_MAIN = 128
+# and -x 30 -f 1 on the first N_CHIM_CPU chimeras. 32 and 16, not 128
+# and 64: at those the lists took 149 s (their CPU runs 101 s) of a
+# 1,143-s run on one H100 host, too near the run's 1,200-s limit (at 256
+# cDNAs, 234 s of a 1,101.6-s run)
+N_GMAP_MAIN = 32
 GMAP_MAIN_RUNS = (["-f", "3"], ["-A"], ["-S"], ["-f", "9"], ["-f", "samse"],
                   ["-x", "30", "-f", "1"])
 
@@ -3238,6 +3284,11 @@ def two_process_phase(bench_data, reads, rna_reads, smi):
 
 
 def main():
+    t_all = time.perf_counter()
+    argv = sys.argv[1:]
+    if "--tree" in argv:                # tpumap_torch from another tree
+        sys.path.insert(0, str(pathlib.Path(
+            argv[argv.index("--tree") + 1]).resolve()))
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
         return 1
@@ -3247,6 +3298,11 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     gpu = torch.cuda.get_device_name(0)
     log(smi)
+
+    def mark(what):
+        """Where the run's time goes (its limit is 1,200 s)."""
+        log(f"{what}: {time.perf_counter() - t_all:.1f} s into the run "
+            f"[{smi}]")
 
     from tpumap_torch import kernels, native
     from tpumap_torch.gsnap.driver import align_records
@@ -3263,6 +3319,9 @@ def main():
     for name, (regs, stack, st, ld) in ptxas.items():
         log(f"  ptxas {name}: {regs} registers, {stack} bytes stack, "
             f"{st} + {ld} bytes spill stores + loads")
+    if "--rows" in argv:
+        chain_proc.communicate()
+        return rows_phase(smi)
     chain = {k: v for k, v in ptxas.items() if k.startswith("chain_kernel")}
     if not chain:
         raise AssertionError("no ptxas report of K5 in the build log")
@@ -3283,7 +3342,13 @@ def main():
           + [f"region_anchors_{f}_kernel<{w}>" for f in ("scan", "place")
              for w in (0, 1)]
           + [f"region_anchors_fill_kernel<{v}>" for v in (1, 4)])
-    k8k4 = [f"end_lanes_kernel<{p}>" for p in (0, 1, 8)] + ["trim_kernel"]
+    # K8's scratch path and register paths (lanes a thread, reads a
+    # warp, probe), K4's warp a row and segments of 1-32 lanes a row
+    k8k4 = ([f"end_lanes_kernel<{p}>" for p in ("0, 1, 0", "1, 1, 0",
+                                                "1, 1, 1", "1, 2, 0",
+                                                "1, 2, 1", "8, 1, 0",
+                                                "8, 1, 1")]
+            + [f"trim_kernel<{s}>" for s in (0, 1, 2, 4, 8, 16, 32)])
     for name in (k2, "traceback_kernel", "localscan_kernel<0, 4>",
                  "localscan_kernel<0, 8>", "exact_sites_kernel", *k7,
                  *k8k4):
@@ -3312,7 +3377,9 @@ def main():
     log(f"mode index upload {time.perf_counter() - t0:.2f} s, "
         f"{mindex.nbytes() / 1e9:.3f} GB on the device [{smi}]")
 
+    mark("bench data, indexes and probes ready")
     rows = kernel_phase(index, smi, known, mindex)
+    mark("kernel rows done")
 
     config = AlignConfig(top_k=4, max_occ=4)
     cmet_config = AlignConfig(mode=CMET, top_k=4, max_occ=32)
@@ -3418,6 +3485,7 @@ def main():
     snp_launches = run_e2e("SNP", s_reads, B, smi, mindex, snp_run,
                            lambda buf: check_snp(buf, bench_data, n_alt),
                            ("verify_diagonals",) + ENDS_KERNELS, jobs)
+    mark("GSNAP phases done")
     gmap_launches, k7, gmap_q, gmap_truth, gmap_enc = gmap_phase(
         db, index, smi, jobs)
     rows += gmap_kernel_rows(db, index, k7, reduce_ns)
@@ -3428,8 +3496,10 @@ def main():
     rows += gmap_paths_rows(picks, reduce_ns, N_PATHS)
     del picks
     rows += k7a_wide_rows(reduce_ns)
+    mark("GMAP phases done")
     cli_runs = gsnap_cli_phase(bench_data, db, rfa, rna_rfa, (f1, f2), truth,
                                smi)
+    mark("gsnap CLI phase done")
     # phase 16: several devices, large genomes, several processes
     t16 = time.perf_counter()
     mesh_launches = mesh_phase(db, index, config, reads, rna_reads,
@@ -3477,6 +3547,7 @@ def main():
     gpu_main = gmap_main_runs(db, index, gmap_q, cseqs)
     gmap_layers(db, index, gmap_q, gmap_enc, smi)
     gmap_paths_layers(db, index, gmap_q, gmap_enc[:2 * GMAP_WARM], smi)
+    mark("card runs of the CPU == card checks and GMAP layers done")
     profile_rows(rows, smi, chain_ns)
     gap_table_fill(gap_args, smi)
     del gap_args
@@ -3490,6 +3561,7 @@ def main():
             staged_layers(job[0], db, index, job[1], smi)
     frag_lengths("PE RNA repair", lambda: rep_run(
         index, rep_pairs, N_REPAIR, io.BytesIO().write), smi)
+    mark("profiles done")
     del index, mindex, jobs
     torch.cuda.empty_cache()
     cpu_index = DeviceIndex.from_host(db, "cpu")
@@ -3521,6 +3593,7 @@ def main():
         if c != g or g.count("\n") < nq:
             raise AssertionError(f"GMAP main {' '.join(extra)}: CPU and "
                                  f"card output differ")
+    mark("CPU runs of the CPU == card checks done")
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("JAX was imported")
     loaded = [m for m in sys.modules if m.split(".")[0] == "tpumap"

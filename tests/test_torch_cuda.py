@@ -1173,6 +1173,46 @@ def test_end_lanes_kernel_long_reads(dev, ends_worlds, max_occ):
         assert torch.equal(got, want), mode
 
 
+# (interval, max_occ): 2 x interval x max_occ lanes a strand at the
+# edges of K8's layouts: 2, 24, 32 (one a thread), 34 and 192, 256 (8 a
+# thread), 258 and 6,000 (the scratch path); lane counts are even
+@pytest.mark.parametrize("interval,max_occ", [(1, 1), (3, 4), (1, 16),
+                                              (1, 17), (3, 32), (1, 128),
+                                              (1, 129), (3, 1000)])
+@pytest.mark.parametrize("B", [1, 3, 57])
+@pytest.mark.parametrize("mode", ["standard", "cmet-stranded"])
+def test_end_lanes_kernel_layout_edges(dev, ends_worlds, mode, B, interval,
+                                       max_occ):
+    """K8 against its plain version at the lane counts where its layout
+    changes, with batches that are not whole warps of reads (B = 1, 3,
+    57: 4 and 2 reads a warp), reads of 107 bases (rows not 4-byte
+    aligned)."""
+    from tpumap_torch.gsnap.driver import make_batch
+    db, seq, coords, alts, idx = ends_worlds[interval]
+    recs = ends_reads(seq, 107, B + max_occ,
+                      None if mode == "standard" else mode, port=True)
+    recs = (recs[20:] + recs)[:B]       # a repeat read first
+    cfg = AlignConfig(mode=mode, top_k=4, max_occ=max_occ)
+    kernels.reset_launches()
+    got, want = end_lanes_both(idx, make_batch(recs, B, 107), cfg, dev)
+    assert kernels.LAUNCHES["end_lanes"] == 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("L", [16, 17, 100, 128, 129, 256, 512, 7680])
+@pytest.mark.parametrize("B", [1, 3, 41])
+def test_trim_kernel_layout_edges(dev, ends_worlds, B, L):
+    """K4 against its plain version at the widths where its layout
+    changes (a lane a row at L = 16, segments of 2 to 32 lanes, a warp a
+    row past 512) and batches that are not whole warps of rows (B = 1,
+    3, 41), standard and cmet with quals and the alternate genome."""
+    db, _seq, _c, _a, idx = ends_worlds[1]
+    rng = np.random.default_rng(L * 7 + B)
+    rows = trim_rows(rng, db.get_codes(0, db.genome_length), B, L)
+    for mode in ("standard", "cmet-stranded"):
+        check_trim_kernel(idx, rows, mode, True, True, False, True, dev)
+
+
 @pytest.mark.parametrize("genome", ["plain", "n_qunk", "n_gunk"])
 @pytest.mark.parametrize("quals", [False, True])
 @pytest.mark.parametrize("snp", [False, True])

@@ -290,12 +290,31 @@ def end_lanes_plain(index, codes, lengths, config: AlignConfig,
                             torch.cat(lanes, 0), ENDS_VERIFY_K)
 
 
+def end_lanes_per(NE: int, occ: int) -> int:
+    """K8's lanes a thread a row: 1 or 8 in registers, 0 past 256 lanes
+    or 32 end k-mers (the global scratch)."""
+    n = NE * occ
+    return 1 if NE <= 32 and n <= 32 else 8 if NE <= 32 and n <= 256 else 0
+
+
+def end_lanes_reads(per: int, B: int, n_sms: int) -> int:
+    """K8's reads a warp on its register paths: 2 with one lane a thread
+    a row once a read a warp would fill more than a wave (64 warps an
+    SM), else 1: a warp's rows share its chain of gathers, but each more
+    row lengthens the warp's selection."""
+    return 2 if per == 1 and B > 64 * n_sms else 1
+
+
 def end_lanes(index, codes, lengths, config: AlignConfig, packed2=None):
     """end_lanes_plain for CPU tensors; the K8 kernel for CUDA. K8 builds
-    each (read, strand)'s k-mers in registers from the codes (the rc
+    each (read, strand)'s k-mers from the read's end bases (the rc
     strand's from the complement read backwards: the same k-mers and
     positions as the plain version's when len >= k, and no lane when
-    len < k), so lanes and tie rules are the plain version's."""
+    len < k), so lanes and tie rules are the plain version's. Its time is
+    the latency of three dependent gathers (offsets, positions, probe
+    words); a warp serves end_lanes_reads reads, both strands, builds
+    their k-mers from one load of their end bases, and issues the probe's
+    gathers before the selection."""
     if codes.device.type == "cpu":
         return end_lanes_plain(index, codes, lengths, config, packed2)
     B, L = codes.shape
@@ -310,6 +329,8 @@ def end_lanes(index, codes, lengths, config: AlignConfig, packed2=None):
     if out.numel() == 0:
         return out
     codes, lengths = codes.contiguous(), lengths.contiguous()
+    if codes.data_ptr() % 4:
+        codes = codes.clone()           # K8 reads the codes as 4-byte words
     (off_f, pos_f), (off_r, pos_r) = _end_tables(index, config)
     W = packed2.shape[1] if standard else 0
     kernels.check_args(
@@ -318,10 +339,9 @@ def end_lanes(index, codes, lengths, config: AlignConfig, packed2=None):
         (pos_f, torch.int32, None), (off_r, torch.int32, None),
         (pos_r, torch.int32, None), (index.genome_packed, torch.int32, None),
         *(((packed2, torch.int32, (2 * B, W)),) if standard else ()))
-    # lanes a warp holds in registers: 1 or 8 a thread; past 256 (or past
-    # 32 end k-mers) a global scratch of NE * occ words a warp
     n = NE * occ
-    per = 1 if NE <= 32 and n <= 32 else 8 if NE <= 32 and n <= 256 else 0
+    per = end_lanes_per(NE, occ)
+    rp = end_lanes_reads(per, B, kernels.n_sms(dev))
     nslots = -(-min(2 * B, 16 * kernels.n_sms(dev)) // 4) * 4 \
         if per == 0 else 0                  # whole blocks of 4 warps
     scratch = (torch.empty((nslots, n), dtype=torch.int32, device=dev)
@@ -332,7 +352,7 @@ def end_lanes(index, codes, lengths, config: AlignConfig, packed2=None):
         pos_f.shape[0], off_r, off_r.shape[0], pos_r, pos_r.shape[0],
         index.genome_packed, index.genome_packed.shape[0],
         packed2 if standard else None, W, B, L, index.k, NE // 2, occ, K,
-        keep, _code_lut(space_fwd), _code_lut(space_rc), per, scratch,
+        keep, _code_lut(space_fwd), _code_lut(space_rc), per, rp, scratch,
         nslots, out)
     return out
 
@@ -475,8 +495,11 @@ def trim_stage_plain(index, codes, nmask, lengths, res, config: AlignConfig,
     return out
 
 
-# K4 keeps a row's mismatch words in shared memory up to this many words
-# (4 warps a block, 48 KB), past it in a global scratch
+# K4 serves a row with a segment of up to 32 lanes (one mismatch word a
+# lane) up to this many words, past it with a warp; a warp's row keeps
+# its words in shared memory up to TRIM_SMEM_WORDS words (4 warps a
+# block, 48 KB), past it in a global scratch
+TRIM_SEG_WORDS = 32
 TRIM_SMEM_WORDS = 3072
 
 
@@ -486,7 +509,11 @@ def _trim_stage(index, codes, nmask, lengths, res, config: AlignConfig,
     each row's mismatch words in its own base space only (the strand's),
     from the codes read forwards or, on the rc strand, complemented
     backwards (only bases < len reach the scans, where both orientations
-    are the plain version's)."""
+    are the plain version's). A row's work is short, so its time is the
+    latency of two rounds of loads and of its reductions: up to 32 words
+    a row has a segment of lanes (W rounded up to a power of two, one word
+    a lane in registers, 16-byte loads where L is a multiple of 16), and a
+    row with no mismatch ends after one ballot."""
     if codes.device.type == "cpu":
         return trim_stage_plain(index, codes, nmask, lengths, res, config,
                                 quals)
@@ -510,6 +537,9 @@ def _trim_stage(index, codes, nmask, lengths, res, config: AlignConfig,
     out = torch.empty((4 if q is None else 6, B), dtype=torch.int32,
                       device=dev)
     if B:
+        seg = 1 << (W - 1).bit_length() if 0 < W <= TRIM_SEG_WORDS else 0
+        vec = int(L % 16 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (codes, nm, q) if t is not None))
         scratch = (torch.empty((B, W), dtype=torch.int32, device=dev)
                    if W > TRIM_SMEM_WORDS else None)
         space_fwd, space_rc = MODE_SPACES[config.mode]
@@ -521,7 +551,7 @@ def _trim_stage(index, codes, nmask, lengths, res, config: AlignConfig,
             strand, diag, q, B, L, W, int(index.genome_has_n),
             int(config.query_unk_mismatch), int(config.genome_unk_mismatch),
             SPACE_CODES[space_fwd], SPACE_CODES[space_rc], SAFE_PAD_WORDS,
-            scratch, out)
+            seg, vec, scratch, out)
     keys = ("trim_qstart", "trim_qend", "trim_score", "trim_nmm",
             "mm_qualsum", "qual_mean16")
     return dict(zip(keys, out))

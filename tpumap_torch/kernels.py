@@ -54,10 +54,10 @@ _ENTRY = {
     "region_anchors": ("tt_region_anchors",
                        [_P] * 4 + [_I] * 9 + [_P] * 8),
     "end_lanes": ("tt_end_lanes",
-                  [_P, _P] + [_P, _L] * 5 + [_P] + [_I] * 11
+                  [_P, _P] + [_P, _L] * 5 + [_P] + [_I] * 12
                   + [_P, _I, _P]),
     "trim_stage": ("tt_trim_stage",
-                   [_P, _L] * 3 + [_P] * 6 + [_I] * 9 + [_P, _P]),
+                   [_P, _L] * 3 + [_P] * 6 + [_I] * 11 + [_P, _P]),
 }
 
 LAUNCHES = {name: 0 for name in _ENTRY}
