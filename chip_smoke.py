@@ -161,17 +161,23 @@ fusions, the transcriptome rung single and paired), and fails (exit code
    reads with CLI_CPU_LISTS, on 512 RNA reads with -N 1 -s and on 512
    pairs, each at least a line a read (m8: 0.99 of them).
 16. Several devices, large genomes, several processes (after 15; the
-   card's distinct devices where a grid asks for more than one and the
-   card has them, else cuda:0 repeated, whose shards run in turn):
-   a. a MeshContext of data axis 2 (parallel/pipeline.py: row-parallel
-      stages split over the devices, every compaction ranked once)
+   machine's distinct cards where a grid asks for more than one and the
+   machine has them, each card's work issued in turn from the one host
+   thread; else cuda:0 repeated, whose shards run on it in turn):
+   a. a MeshContext of data axis 2, and of 4 where the machine has four
+      cards (parallel/pipeline.py: row-parallel stages split over the
+      devices, every compaction ranked once)
       through align_records over the 50,000 DNA reads at batch 32,768
       and the 50,000 RNA reads with novel splicing at 16,384,
       align_paired_records over 2,048 pairs and align_queries_bulk over
       the 2,048 cDNAs of 12 (-f 3 GFF3): each byte-identical to the same
       call without device_ctx, its rate beside the single-device one's,
-      K1-K3, K8, K4 (RNA: all nine GSNAP kernels; GMAP: K7a and K7b)
-      launched;
+      its launches a card beside the single device's, K1-K3, K8, K4
+      (RNA: all nine GSNAP kernels; GMAP: K7a and K7b) launched; with
+      two cards or more one DNA batch through each grid traced
+      (torch.profiler): each card's busy ms and idle share, their sum,
+      the union of the cards' busy intervals, each card's ms busy while
+      no other card was, and peer access between the cards;
    b. the index-sharded aligners (parallel/sharded.py) at 1 x 4
       (make_sharded_aligner) and 2 x 2 (make_sharded_full_aligner with
       splicing and salvage) over the 50,000 DNA reads in calls of 8,192:
@@ -185,15 +191,22 @@ fusions, the transcriptome rung single and paired), and fails (exit code
       windows overlapping by 1,024 bases (parallel/large.py, a window
       index each): the 50,000 DNA reads rebased to uint64 univcoords
       within 10 bp of truth >= 0.99, CPU == card on 2,048;
-   d. two processes in a gloo group sharing the card
-      (torch.distributed on the host): gsnap_cli.main -O over the first
+   d. two processes in a gloo group (torch.distributed on the host),
+      each on its own card where the machine has two (gsnap's --device
+      cuda: card rank modulo the cards, and for --two-pass LOCAL_RANK
+      as torchrun sets it; each process logs its card and its peak
+      bytes a card, which must be its own card's alone), else sharing
+      the card: gsnap_cli.main -O over the first
       8,192 DNA reads with no --part, process 0's file byte-identical
       to the one-process run's and process 1's empty; --two-pass over
       the first 16,384 RNA reads (--pass1-min-support 1), the two
       processes' --splices-dump and --indels-dump (the gathered tables)
       equal and junctions learned. A failing worker fails the run.
    K1's rows at the sharded cascade's and a window's shape (phase 3's
-   columns) join the kernel table.
+   columns) join the kernel table. With cards besides cuda:0, each
+   kernel wrapper's call of the most rows on each such card in 16a-c is
+   run again there against its plain version (exact), and every kernel
+   launched on such a card must have had such a call.
 
 Phase 3 also holds K1 against its plain version on the mode index: in
 each base space at the mode rung's [32,768, 8] x 8, ref-OR-alt at the
@@ -218,14 +231,18 @@ either. Bench data and the index go under .bench_data/ in the checkout.
 With --rows it stops after the build and runs K8's and K4's rows alone
 (no result line); --tree DIR imports DIR's tpumap_torch instead of this
 checkout's, so two trees' K8 and K4 can be compared in one call, one
-process a tree.
-Usage: python3 chip_smoke.py [--rows] [--tree DIR]
+process a tree. With --phase16 it stops after the build and runs the
+bench data, the index and phase 16 alone (--tree DIR: DIR's phase-16
+functions on DIR's tpumap_torch), ending with the result line; run on a
+machine with four cards, it takes them all.
+Usage: python3 chip_smoke.py [--rows | --phase16] [--tree DIR]
 """
 import collections
 import contextlib
 import ctypes
 import io
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -2836,12 +2853,17 @@ WINDOW_OVERLAP = 1024
 N_MP_DNA = 8192         # DNA reads of the two-process -O run
 N_MP_RNA = 16384        # RNA reads of the two-process --two-pass run
 
-# one process of a two-process gloo group sharing the card: rank and the
-# gsnap argument list ("{rank}" replaced) from the command line
+# one process of a two-process gloo group: rank and the gsnap argument
+# list ("{rank}" replaced) from the command line. gsnap's --device cuda
+# puts the process on card LOCAL_RANK, or rank modulo the cards; the
+# process then prints the card it ran on and the bytes it allocated on
+# each card
 MP_WORKER = r"""
+import json
 import sys
 sys.modules["jax"] = None
 sys.modules["tpumap"] = None
+import torch
 import torch.distributed as tdist
 addr, rank = sys.argv[1], int(sys.argv[2])
 tdist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=2,
@@ -2849,25 +2871,153 @@ tdist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=2,
 from tpumap_torch.cli import gsnap_cli
 rc = gsnap_cli.main([a.replace("{rank}", str(rank)) for a in sys.argv[3:]])
 tdist.destroy_process_group()
+print(json.dumps({"rank": rank, "card": torch.cuda.current_device(),
+                  "peak_bytes": [torch.cuda.max_memory_allocated(i) for i
+                                 in range(torch.cuda.device_count())]}))
 sys.exit(rc or 0)
 """
 
 
 def grid_devices(n):
-    """n devices for a grid: the card's distinct devices where it has n,
+    """n devices for a grid: the machine's distinct cards where it has n,
     else cuda:0 n times (shards that share the card run on it in turn)."""
     if torch.cuda.device_count() >= n:
         return [torch.device("cuda", i) for i in range(n)]
     return [torch.device("cuda", 0)] * n
 
 
+def mesh_axes():
+    """16a's data axes: 2, and 4 where the machine has four cards."""
+    return (2, 4) if torch.cuda.device_count() >= 4 else (2,)
+
+
+def card_launches():
+    """{card: {kernel: launches}} of the kernels launched since the last
+    reset, zeros left out."""
+    from tpumap_torch import kernels
+    return {f"cuda:{c}": {k: n for k, n in v.items() if n}
+            for c, v in sorted(kernels.CARD_LAUNCHES.items())}
+
+
+# (kernel, card) of every launch on a card but cuda:0 in phase 16's
+# timed runs (note_cards after each)
+CARDS_SEEN = set()
+
+
+def note_cards():
+    from tpumap_torch import kernels
+    CARDS_SEEN.update((k, c) for c, v in kernels.CARD_LAUNCHES.items()
+                      for k, n in v.items() if n and c)
+
+
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def timed_call(fn):
-    """(fn(), seconds), the card synchronised before either clock read."""
-    torch.cuda.synchronize()
+    """(fn(), seconds), every card synchronised before either clock
+    read."""
+    sync_all()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync_all()
     return out, time.perf_counter() - t0
+
+
+def _merged(iv):
+    """The union of (start, end) intervals as sorted disjoint ones."""
+    out = []
+    for s_, e in sorted(iv):
+        if out and s_ <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s_, e])
+    return out
+
+
+def _covered(merged, starts, s_, e):
+    """The length of [s_, e] that the merged intervals (with their starts)
+    cover."""
+    import bisect
+    i = max(bisect.bisect_right(starts, s_) - 1, 0)
+    tot = 0.0
+    while i < len(merged) and merged[i][0] < e:
+        tot += max(0.0, min(e, merged[i][1]) - max(s_, merged[i][0]))
+        i += 1
+    return tot
+
+
+def card_busy(label, fn, smi):
+    """One call of fn (after one untraced) traced with torch.profiler: each
+    card's busy ms (the union of its kernels', copies' and memsets'
+    intervals) and idle share of the call's wall time, their sum, the
+    union of all cards' busy intervals, and per card the ms it was busy
+    while no other card was (with the kernels that took most of it):
+    the work that still runs in turn. Copies between cards carry no
+    card in the trace: they stay out of the cards' sums and union and
+    are logged on their own. Also which cards reach each other by peer
+    access."""
+    fn()
+    sync_all()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        wall = (time.perf_counter() - t0) * 1e3
+    path = ROOT / ".bench_data" / "card_busy_trace.json"
+    prof.export_chrome_trace(str(path))
+    per, between = collections.defaultdict(list), []
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            ts = float(e["ts"])
+            iv = (ts, ts + float(e["dur"]), e.get("name", "?"))
+            card = e.get("args", {}).get("device")
+            if card is None:
+                between.append(iv)
+            else:
+                per[int(card)].append(iv)
+    path.unlink()
+    if not per:
+        log(f"{label}, traced: no device events in the trace (device time "
+            f"not measured) [{smi}]")
+        return
+    merged = {d: _merged([(a, b) for a, b, _n in v]) for d, v in per.items()}
+    busy = {d: sum(b - a for a, b in m) / 1e3
+            for d, m in sorted(merged.items())}
+    total = sum(busy.values())
+    union = sum(b - a for a, b in _merged(
+        [(a, b) for v in per.values() for a, b, _n in v])) / 1e3
+    alone, names = {}, {}
+    for d, v in sorted(per.items()):
+        others = _merged([(a, b) for o, w in per.items() if o != d
+                          for a, b, _n in w])
+        starts = [m[0] for m in others]
+        by = collections.Counter()
+        for a, b, n in v:
+            by[n[:60]] += (b - a - _covered(others, starts, a, b)) / 1e3
+        alone[d] = sum(by.values())
+        names[d] = [(n, round(t, 3)) for n, t in by.most_common(3)]
+    between_ms = sum(b - a for a, b in _merged(
+        [(a, b) for a, b, _n in between])) / 1e3
+    n = torch.cuda.device_count()
+    peers = [f"{i}->{j}" for i in range(n) for j in range(n)
+             if i != j and torch.cuda.can_device_access_peer(i, j)]
+    log(f"{label}, traced (profiler on): wall {wall:.2f} ms; busy ms a card "
+        + ", ".join(f"cuda:{d} {t:.3f} (idle {1 - t / wall:.3f})"
+                    for d, t in busy.items())
+        + f"; sum {total:.3f} ms, union of the cards' busy intervals "
+        f"{union:.3f} ms (union / sum {union / total:.3f}); busy while no "
+        f"other card was, ms: "
+        + ", ".join(f"cuda:{d} {alone[d]:.3f} (most: {names[d]})"
+                    for d in busy)
+        + f"; copies between cards (no card in the trace, left out above): "
+        f"{len(between)}, {between_ms:.3f} ms "
+        f"{sorted({n for _a, _b, n in between})[:3]}; peer access: "
+        f"{peers or 'none'} [{smi}]")
 
 
 def gff3_text(db, hits, enc):
@@ -2911,18 +3061,17 @@ def mesh_phase(db, index, config, reads, rna_reads, pe_pairs, enc, smi):
     """16a: align_records (DNA at batch 32,768; RNA with novel splicing
     at 16,384), align_paired_records (2,048 pairs) and
     align_queries_bulk (2,048 cDNAs, GFF3) with a MeshContext of data
-    axis 2, each byte-identical to the same call without device_ctx;
-    rates beside the single-device call's. Returns each run's launches."""
+    axis 2, and of data axis 4 where the machine has four cards, each
+    byte-identical to the same call without device_ctx; rates beside the
+    single-device call's, launches a card beside the single device's.
+    With two cards or more, one DNA batch through each grid is traced
+    (card_busy). Returns each run's launches (at data axis 4 under the
+    case's name and " x4")."""
     from tpumap_torch import kernels
     from tpumap_torch.cli import gmap_cli
     from tpumap_torch.gsnap.driver import align_records
     from tpumap_torch.gsnap.paired import align_paired_records
     from tpumap_torch.parallel import mesh, pipeline
-    devs = grid_devices(2)
-    ctx, dt = timed_call(lambda: pipeline.MeshContext(
-        mesh.make_mesh(devices=devs), db))
-    log(f"16a: MeshContext over {[str(d) for d in devs]}: "
-        f"{len(ctx.indexes)} index copies placed in {dt:.2f} s [{smi}]")
 
     def gsnap(fn, batch, **kw):
         def run(idx, c, items):
@@ -2942,37 +3091,62 @@ def mesh_phase(db, index, config, reads, rna_reads, pe_pairs, enc, smi):
               gsnap(align_paired_records, PB, pairmax=PAIRMAX), 2,
               DNA_KERNELS, N_MESH_PE),
              ("GMAP", enc, gmap, 1, GMAP_KERNELS, GMAP_WARM))
-    out = {}
-    for name, items, run, per, must, warm in cases:
-        run(ctx.index, ctx, items[:warm])       # warm-up through the grid
-        want, t1 = timed_call(lambda: run(index, None, items))
-        kernels.reset_launches()
-        ctx.rows.split = ctx.rows.whole = 0
-        got, t2 = timed_call(lambda: run(ctx.index, ctx, items))
-        launches = dict(kernels.LAUNCHES)
-        n = per * len(items)
-        unit = "queries" if name == "GMAP" else "reads"
-        log(f"16a {name} through the MeshContext: {n} {unit} in {t2:.3f} s "
-            f"= {n / t2:.1f} {unit}/s (single device {t1:.3f} s = "
-            f"{n / t1:.1f}); byte-identical to the single-device call: "
-            f"{got == want} ({len(want)} bytes); stage calls split "
-            f"{ctx.rows.split}, whole {ctx.rows.whole}; launches="
-            f"{launches} [{smi}]")
-        if got != want:
-            raise AssertionError(f"16a {name}: the MeshContext's output "
-                                 f"differs from the single-device call's")
-        missing = [k for k in must if launches[k] <= 0]
-        if missing or not ctx.rows.split:
-            raise AssertionError(f"16a {name}: never launched {missing}, "
-                                 f"or no stage split ({ctx.rows.split})")
-        out[name] = launches
-    from tpumap_torch.gsnap.driver import align_records as ar
-    for label, idx, c in (("single device", index, None),
-                          ("MeshContext", ctx.index, ctx)):
-        split_layers(f"16a DNA batch of {B}, {label}", lambda: ar(
-            db, idx, reads[:B], config, batch_size=B,
-            sink=io.BytesIO().write, device_ctx=c), smi)
-    del ctx
+    out, single = {}, {}
+    for axis in mesh_axes():
+        devs = grid_devices(axis)
+        ctx, dt = timed_call(lambda: pipeline.MeshContext(
+            mesh.make_mesh(devices=devs), db))
+        log(f"16a: MeshContext over {[str(d) for d in devs]}: "
+            f"{len(ctx.indexes)} index copies placed in {dt:.2f} s [{smi}]")
+        for name, items, run, per, must, warm in cases:
+            run(ctx.index, ctx, items[:warm])   # warm-up through the grid
+            if name not in single:
+                kernels.reset_launches()
+                want, t1 = timed_call(lambda: run(index, None, items))
+                single[name] = (want, t1, sum(kernels.LAUNCHES.values()))
+            want, t1, one = single[name]
+            kernels.reset_launches()
+            ctx.rows.split = ctx.rows.whole = 0
+            got, t2 = timed_call(lambda: run(ctx.index, ctx, items))
+            launches = dict(kernels.LAUNCHES)
+            note_cards()
+            cards = {f"cuda:{c}": sum(v.values())
+                     for c, v in sorted(kernels.CARD_LAUNCHES.items())}
+            n = per * len(items)
+            unit = "queries" if name == "GMAP" else "reads"
+            log(f"16a {name} through the MeshContext of data axis {axis}: "
+                f"{n} {unit} in {t2:.3f} s = {n / t2:.1f} {unit}/s (single "
+                f"device {t1:.3f} s = {n / t1:.1f}); byte-identical to the "
+                f"single-device call: {got == want} ({len(want)} bytes); "
+                f"stage calls split {ctx.rows.split}, whole "
+                f"{ctx.rows.whole}; launches={launches}; launches a card "
+                f"{cards} (single device {one}) [{smi}]")
+            if got != want:
+                raise AssertionError(f"16a {name}: the MeshContext's output "
+                                     f"differs from the single-device "
+                                     f"call's")
+            missing = [k for k in must if launches[k] <= 0]
+            if missing or not ctx.rows.split:
+                raise AssertionError(f"16a {name}: never launched "
+                                     f"{missing}, or no stage split "
+                                     f"({ctx.rows.split})")
+            out[name if axis == 2 else f"{name} x{axis}"] = launches
+
+        def dna_batch(idx, c):
+            return lambda: align_records(db, idx, reads[:B], config,
+                                         batch_size=B,
+                                         sink=io.BytesIO().write,
+                                         device_ctx=c)
+        if axis == 2:
+            split_layers(f"16a DNA batch of {B}, single device",
+                         dna_batch(index, None), smi)
+        split_layers(f"16a DNA batch of {B}, MeshContext"
+                     + (f" of data axis {axis}" if axis != 2 else ""),
+                     dna_batch(ctx.index, ctx), smi)
+        if len(set(devs)) > 1:
+            card_busy(f"16a DNA batch of {B}, MeshContext of data axis "
+                      f"{axis}", dna_batch(ctx.index, ctx), smi)
+        del ctx
     return out
 
 
@@ -3081,13 +3255,16 @@ def sharded_phase(bench_data, db, config, reads, rna_reads, truth, smi):
                      r["strand"][:len(ch)].cpu().numpy().astype(np.int64),
                      r["mapped"][:len(ch)].cpu().numpy()))))
         launches[f"sharded {label} DNA"] = dict(kernels.LAUNCHES)
+        per_card = card_launches()
+        note_cards()
         if label == "1 x 4":
             rows.append(k1_row(f"sharded cascade (1 x 4): [{SHARD_B}, "
                                f"{config.top_k}]", calls[0]))
         del calls
         dna_grade(f"16b {label} over {len(reads)} DNA reads", got,
                   bench_data, smi, f", {len(reads) / dt:.1f} reads/s, "
-                  f"launches={launches[f'sharded {label} DNA']}")
+                  f"launches={launches[f'sharded {label} DNA']}, a card "
+                  f"{per_card}")
         # the full aligner trims (K4); neither has the ends rung
         need = ("verify_diagonals",) + (("trim_stage",) if kw else ())
         missing = [k for k in need if kernels.LAUNCHES[k] <= 0]
@@ -3096,6 +3273,9 @@ def sharded_phase(bench_data, db, config, reads, rna_reads, truth, smi):
         batch = encode(reads[:SHARD_B], SHARD_B)
         split_layers(f"16b {label} ({shards} index shards), {SHARD_B} "
                      f"reads", lambda: align(arrays, batch), smi)
+        if torch.cuda.device_count() >= 4:
+            card_busy(f"16b {label}, {SHARD_B} reads",
+                      lambda: align(arrays, batch), smi)
         cpu_arrays, cpu_align = make(mesh.make_mesh(
             4, index_shards=shards, devices=cpu4), db, config, **kw)
         sub = encode(reads[:N_SHARD_CPU], N_SHARD_CPU)
@@ -3130,6 +3310,7 @@ def sharded_phase(bench_data, db, config, reads, rna_reads, truth, smi):
             _r, dt = timed_call(lambda: batched(
                 align, arrays, rna_reads[:N_SHARD_RNA], score))
             launches[f"sharded {label} RNA"] = dict(kernels.LAUNCHES)
+            note_cards()
             log(f"16b {label} over {N_SHARD_RNA} RNA reads: "
                 f"{N_SHARD_RNA / dt:.1f} reads/s, junction precision "
                 f"{tp / max(tp + fp, 1):.5f}, recall "
@@ -3189,16 +3370,22 @@ def large_phase(bench_data, config, reads, smi):
                  r["strand"][:len(ch)].cpu().numpy().astype(np.int64),
                  r["mapped"][:len(ch)].cpu().numpy()))))
     launches = dict(kernels.LAUNCHES)
+    per_card = card_launches()
+    note_cards()
     row = k1_row(f"genome window (1 x {N_WINDOWS}): [{SHARD_B}, "
                  f"{config.top_k}]", calls[0])
     del calls
     if got[0][0].dtype != np.uint64:
         raise AssertionError("16c: rebase_results is not uint64")
     dna_grade(f"16c windows over {len(reads)} DNA reads", got, bench_data,
-              smi, f", {len(reads) / dt:.1f} reads/s, launches={launches}")
+              smi, f", {len(reads) / dt:.1f} reads/s, launches={launches}, "
+              f"a card {per_card}")
     batch = encode(reads[:SHARD_B], SHARD_B)
     split_layers(f"16c {N_WINDOWS} windows, {SHARD_B} reads",
                  lambda: align(arrays, batch), smi)
+    if torch.cuda.device_count() >= N_WINDOWS:
+        card_busy(f"16c {N_WINDOWS} windows, {SHARD_B} reads",
+                  lambda: align(arrays, batch), smi)
     cpu_arrays, cpu_align, _b = large.make_genome_sharded_aligner(
         mesh.make_mesh(N_WINDOWS, index_shards=N_WINDOWS,
                        devices=[torch.device("cpu")] * N_WINDOWS), dbl,
@@ -3209,38 +3396,63 @@ def large_phase(bench_data, config, reads, smi):
     return launches, [row]
 
 
-def run_pair(argv, timeout=600):
+def run_pair(argv, timeout=600, local_rank=False):
     """gsnap_cli.main(argv) in two processes of a gloo group on this
-    host, both on the card; fails the run where either fails."""
+    host, each on its own card where the machine has two (card rank
+    modulo the cards; with local_rank, LOCAL_RANK set to the rank as
+    torchrun sets it), else both on the one card; fails the run where
+    either fails, or where two cards are there and the processes did not
+    each run on, and allocate only on, card rank. Returns each process's
+    report (MP_WORKER)."""
     import socket
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
     procs = [subprocess.Popen(
         [sys.executable, "-c", MP_WORKER, f"127.0.0.1:{port}", str(r)]
-        + argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        + argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(os.environ, **({"LOCAL_RANK": str(r)} if local_rank
+                                else {})))
         for r in range(2)]
+    reports = []
     try:
         for r, p in enumerate(procs):
-            _o, err = p.communicate(timeout=timeout)
+            out, err = p.communicate(timeout=timeout)
             if p.returncode:
                 raise AssertionError(f"16d: process {r} of {argv} returned "
                                      f"{p.returncode}: "
                                      f"{err.decode()[-2000:]}")
+            reports.append(json.loads(out.decode().splitlines()[-1]))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    if torch.cuda.device_count() >= 2:
+        for r, rep in enumerate(reports):
+            if rep["card"] != r or [i for i, b in enumerate(
+                    rep["peak_bytes"]) if b] != [r]:
+                raise AssertionError(f"16d: process {r} did not run on "
+                                     f"card {r} alone: {rep}")
+    return reports
 
 
 def two_process_phase(bench_data, reads, rna_reads, smi):
-    """16d: two processes in a gloo group sharing the card: gsnap -O over
+    """16d: two processes in a gloo group, each on its own card where the
+    machine has two (run_pair), else sharing the one: gsnap -O over
     the first 8,192 DNA reads with no --part (each takes its rank's
     shard), process 0's file byte-identical to the one-process run's and
-    process 1's empty; --two-pass over the first 16,384 RNA reads, both
-    processes' --splices-dump and --indels-dump equal (pass 1 learns
-    a junction from one read, so each process's half teaches some)."""
+    process 1's empty; --two-pass over the first 16,384 RNA reads (with
+    LOCAL_RANK set where there are two cards), both processes'
+    --splices-dump and --indels-dump equal (pass 1 learns a junction
+    from one read, so each process's half teaches some)."""
+    where = ("each on its own card" if torch.cuda.device_count() >= 2
+             else "sharing the card")
+
+    def cards(reports):
+        return "; ".join(f"process {r['rank']} ran on cuda:{r['card']}, "
+                         f"peak bytes a card {r['peak_bytes']}"
+                         for r in reports)
     d = bench_data.ROOT / "multi"
     d.mkdir(exist_ok=True)
     dbdir = str(bench_data.ROOT / "db_k14")
@@ -3253,22 +3465,23 @@ def two_process_phase(bench_data, reads, rna_reads, smi):
     if rc:
         raise AssertionError(f"16d: the one-process run returned {rc}: "
                              f"{err}")
-    _r, t2 = timed_call(lambda: run_pair(base + ["-o",
-                                                 str(d / "p{rank}.sam")]))
+    reps, t2 = timed_call(lambda: run_pair(base + ["-o",
+                                                   str(d / "p{rank}.sam")]))
     one = (d / "one.sam").read_bytes()
     p0, p1 = ((d / f"p{r}.sam").read_bytes() for r in range(2))
     log(f"16d gsnap -O, {N_MP_DNA} DNA reads: one process {t1:.2f} s, two "
-        f"processes sharing the card {t2:.2f} s (whole runs, start-up "
+        f"processes {where} {t2:.2f} s (whole runs, start-up "
         f"included); process 0's file byte-identical to the one-process "
         f"run's: {p0 == one} ({len(one)} bytes), process 1's empty: "
-        f"{p1 == b''} [{smi}]")
+        f"{p1 == b''}; {cards(reps)} [{smi}]")
     if p0 != one or p1 != b"" or one.count(b"\n") < N_MP_DNA:
         raise AssertionError("16d: the merged -O output differs")
-    _r, t3 = timed_call(lambda: run_pair(
+    reps, t3 = timed_call(lambda: run_pair(
         ["-D", dbdir, "-N", "1", "--two-pass", "--pass1-min-support", "1",
          "--splices-dump",
          str(d / "s{rank}"), "--indels-dump", str(d / "i{rank}"), "-o",
-         str(d / "tp{rank}.sam"), str(d / "rna.fa")]))
+         str(d / "tp{rank}.sam"), str(d / "rna.fa")],
+        local_rank=torch.cuda.device_count() >= 2))
     sizes = []
     for kind in ("s", "i"):
         a, b = (np.load(d / f"{kind}{r}.npz") for r in range(2))
@@ -3278,9 +3491,178 @@ def two_process_phase(bench_data, reads, rna_reads, smi):
         if not same or (kind == "s" and not len(a["junctions"])):
             raise AssertionError(f"16d: the two processes' {kind} dumps "
                                  f"differ, or no junction was learned")
-    log(f"16d gsnap --two-pass, {N_MP_RNA} RNA reads in two processes: "
-        f"{t3:.2f} s; the gathered tables each process dumped: "
-        f"{'; '.join(sizes)} [{smi}]")
+    log(f"16d gsnap --two-pass, {N_MP_RNA} RNA reads in two processes "
+        f"{where}: {t3:.2f} s; the gathered tables each process dumped: "
+        f"{'; '.join(sizes)}; {cards(reps)} [{smi}]")
+
+
+# each hand kernel's wrapper and plain version: (kernel, module, wrapper,
+# plain version); sharded.py calls K4's wrapper by its own name
+CARD_WRAPPERS = (
+    ("verify_diagonals", "tpumap_torch.ops.verify", "verify_diagonals",
+     "verify_diagonals_plain"),
+    ("banded_align", "tpumap_torch.ops.dp", "banded_align",
+     "banded_align_plain"),
+    ("traceback", "tpumap_torch.ops.dp", "traceback", "traceback_plain"),
+    ("chain_dp", "tpumap_torch.ops.pathdp", "chain_dp", "chain_dp_plain"),
+    ("scan_fragment", "tpumap_torch.ops.localscan", "scan_fragment",
+     "scan_fragment_plain"),
+    ("scan_exact_sites", "tpumap_torch.ops.localscan", "scan_exact_sites",
+     "scan_exact_sites_plain"),
+    ("scan_fragment_runs", "tpumap_torch.ops.localscan",
+     "scan_fragment_runs", "scan_fragment_runs_plain"),
+    ("chain_segments", "tpumap_torch.ops.chain", "chain_compact",
+     "chain_compact_plain"),
+    ("region_anchors", "tpumap_torch.ops.chain", "region_anchors",
+     "region_anchors_plain"),
+    ("end_lanes", "tpumap_torch.gsnap.engine", "end_lanes",
+     "end_lanes_plain"),
+    ("trim_stage", "tpumap_torch.gsnap.engine", "_trim_stage",
+     "trim_stage_plain"),
+    ("trim_stage", "tpumap_torch.parallel.sharded", "_trim_stage", None))
+
+
+def _first_tensor(x):
+    """The first tensor among x's arguments, dicts and tuples, or None."""
+    if isinstance(x, torch.Tensor):
+        return x
+    vals = (x.values() if isinstance(x, dict)
+            else x if isinstance(x, (tuple, list)) else ())
+    for v in vals:
+        t = _first_tensor(v)
+        if t is not None:
+            return t
+    return None
+
+
+@contextlib.contextmanager
+def other_card_calls():
+    """While the block runs, keep the arguments (tensors by reference) of
+    each kernel wrapper's call with the most rows on each card but
+    cuda:0: {(kernel, card): (rows, args, kwargs)}."""
+    import importlib
+    calls, saved = {}, []
+    for name, modname, attr, _plain in CARD_WRAPPERS:
+        mod = importlib.import_module(modname)
+        inner = getattr(mod, attr)
+
+        def rec(*a, _n=name, _f=inner, **kw):
+            t = _first_tensor((a, kw))
+            if t is not None and t.is_cuda and t.device.index:
+                rows = t.shape[0] if t.ndim else 1
+                key = (_n, t.device.index)
+                if key not in calls or calls[key][0] < rows:
+                    calls[key] = (rows, a, kw)
+            return _f(*a, **kw)
+        saved.append((mod, attr, inner))
+        setattr(mod, attr, rec)
+    try:
+        yield calls
+    finally:
+        for mod, attr, inner in saved:
+            setattr(mod, attr, inner)
+
+
+def other_card_check(calls, smi):
+    """Each recorded call again on its card, the wrapper (its kernel)
+    against its plain version on the same inputs: exact equality. Every
+    kernel launched on a card but cuda:0 in phase 16's timed runs
+    (CARDS_SEEN) must have a recorded call there, and where the machine
+    has more cards than cuda:0, each card but cuda:0 of 16a's widest
+    grid must have launched."""
+    import importlib
+    plain = {n: (m, a, p) for n, m, a, p in CARD_WRAPPERS if p}
+    for (name, card), (rows, a, kw) in sorted(calls.items()):
+        modname, attr, pname = plain[name]
+        mod = importlib.import_module(modname)
+        with torch.cuda.device(card):
+            got = getattr(mod, attr)(*a, **kw)
+            want = getattr(mod, pname)(*a, **kw)
+        if name == "region_anchors":
+            got, want = got[0::2], want[0::2]
+        err = max_abs_err(got, want)
+        log(f"16: {name} on cuda:{card}, its call of the most rows there "
+            f"({rows}): max_abs_err {err} against its plain version on "
+            f"cuda:{card} [{smi}]")
+        if err:
+            raise AssertionError(f"16: {name} on cuda:{card} disagrees with "
+                                 f"its plain version")
+    cards = range(1, max(len(set(grid_devices(a))) for a in mesh_axes()))
+    missing = sorted(CARDS_SEEN - set(calls)) + [
+        c for c in cards if not any(sc == c for _k, sc in CARDS_SEEN)]
+    if missing:
+        raise AssertionError(f"16: launches on these cards with no recorded "
+                             f"call, or cards with no launch: {missing}")
+    log(f"16: {len(calls)} kernel calls on cards but cuda:0 equal their "
+        f"plain versions there; launched there: {sorted(CARDS_SEEN)} "
+        f"[{smi}]")
+
+
+def phase16(bench_data, db, index, config, reads, rna_reads, pe_pairs,
+            gmap_enc, truth, smi):
+    """Phase 16 (16a-d), every kernel call on a card but cuda:0 held
+    against its plain version there; (launches of 16a, 16b, 16c; K1's
+    rows of 16b and 16c)."""
+    t16 = time.perf_counter()
+    with other_card_calls() as calls:
+        mesh_launches = mesh_phase(db, index, config, reads, rna_reads,
+                                   pe_pairs, gmap_enc, smi)
+        shard_launches, shard_rows = sharded_phase(
+            bench_data, db, config, reads, rna_reads, truth, smi)
+        win_launches, win_rows = large_phase(bench_data, config, reads, smi)
+    other_card_check(calls, smi)
+    del calls
+    two_process_phase(bench_data, reads, rna_reads, smi)
+    log(f"phase 16 in {time.perf_counter() - t16:.1f} s [{smi}]")
+    return mesh_launches, shard_launches, win_launches, shard_rows + win_rows
+
+
+def phase16_alone(smi, tree):
+    """chip_smoke.py --phase16 [--tree DIR]: the bench data, the index
+    and GMAP's cDNAs, then phase 16 alone (this file's phase16; with
+    --tree, DIR's chip_smoke.py's phase-16 functions as its main calls
+    them, each tree in a process of its own, for A/B comparisons).
+    Logs K1's rows; the last line is the result line."""
+    from gmap_bench import N_GMAP, SEED, gmap_queries
+    from tpumap_torch.gsnap.engine import AlignConfig
+    from tpumap_torch.index.device import DeviceIndex
+    from tpumap_torch.io.fasta import read_fasta
+    from tpumap_torch.utils import dna
+    bench_data, db, rfa = load_index(smi)
+    index = DeviceIndex.from_host(db, "cuda")
+    reads = list(read_fasta(rfa))
+    _gfa, rna_rfa = bench_data.ensure_rna_files()
+    rna_reads = list(read_fasta(rna_rfa))
+    truth = bench_data.rna_truth()
+    f1, f2 = bench_data.ensure_pe_files()
+    pe_pairs = list(zip(read_fasta(f1), read_fasta(f2)))
+    enc = [dna.encode(q) for q in gmap_queries(db, N_GMAP, SEED)[0]]
+    config = AlignConfig(top_k=4, max_occ=4)
+    log(f"phase 16's inputs ready [{smi}]")
+    if tree is None:
+        *_l, rows = phase16(bench_data, db, index, config, reads, rna_reads,
+                            pe_pairs, enc, truth, smi)
+    else:
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "tree_chip_smoke", pathlib.Path(tree) / "chip_smoke.py")
+        cs = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cs)
+        t16 = time.perf_counter()
+        cs.mesh_phase(db, index, config, reads, rna_reads, pe_pairs, enc,
+                      smi)
+        _s, rows = cs.sharded_phase(bench_data, db, config, reads,
+                                    rna_reads, truth, smi)
+        _w, wrows = cs.large_phase(bench_data, config, reads, smi)
+        rows += wrows
+        cs.two_process_phase(bench_data, reads, rna_reads, smi)
+        log(f"phase 16 in {time.perf_counter() - t16:.1f} s [{smi}]")
+    log(json.dumps({"phase16_k1_rows": [
+        {k: v for k, v in r.items() if not callable(v)} for r in rows]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def main():
@@ -3322,6 +3704,10 @@ def main():
     if "--rows" in argv:
         chain_proc.communicate()
         return rows_phase(smi)
+    if "--phase16" in argv:
+        chain_proc.communicate()
+        return phase16_alone(smi, argv[argv.index("--tree") + 1]
+                             if "--tree" in argv else None)
     chain = {k: v for k, v in ptxas.items() if k.startswith("chain_kernel")}
     if not chain:
         raise AssertionError("no ptxas report of K5 in the build log")
@@ -3501,15 +3887,10 @@ def main():
                                smi)
     mark("gsnap CLI phase done")
     # phase 16: several devices, large genomes, several processes
-    t16 = time.perf_counter()
-    mesh_launches = mesh_phase(db, index, config, reads, rna_reads,
-                               pe_pairs, gmap_enc, smi)
-    shard_launches, shard_rows = sharded_phase(bench_data, db, config,
-                                               reads, rna_reads, truth, smi)
-    win_launches, win_rows = large_phase(bench_data, config, reads, smi)
-    rows += shard_rows + win_rows
-    two_process_phase(bench_data, reads, rna_reads, smi)
-    log(f"phase 16 in {time.perf_counter() - t16:.1f} s [{smi}]")
+    mesh_launches, shard_launches, win_launches, p16_rows = phase16(
+        bench_data, db, index, config, reads, rna_reads, pe_pairs, gmap_enc,
+        truth, smi)
+    rows += p16_rows
 
     # GPU vs CPU (plain versions) on the first reads, same batching; the
     # last four on the mode index

@@ -1086,6 +1086,108 @@ def test_genome_windows_on_gpu_match_cpu(dev, tmp_path):
                                   large.rebase_results(out[0], bases))
 
 
+def distinct_cards(n):
+    """n distinct cards; skips where fewer are visible."""
+    have = torch.cuda.device_count()
+    if have < n:
+        pytest.skip(f"needs {n} distinct CUDA devices ({have} visible)")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def launched_on_every_card(devices, name="verify_diagonals"):
+    return all(kernels.CARD_LAUNCHES.get(d.index, {}).get(name, 0) > 0
+               for d in devices)
+
+
+def test_mesh_context_data_axis_4_on_distinct_cards(dev, tmp_path):
+    """align_records (DNA, RNA) and align_paired_records through a
+    MeshContext of data axis 4 on four distinct cards give the plain CPU
+    run's output, every card launching the DNA kernels."""
+    from tpumap_torch.parallel import mesh, pipeline
+    cards = distinct_cards(4)
+    db, reads, _gfa = mixed_workload(tmp_path, port=True)
+    cfg = AlignConfig(top_k=4, max_occ=8)
+    cpu_index = DeviceIndex.from_host(db, "cpu")
+    ctx = pipeline.MeshContext(mesh.make_mesh(devices=cards), db)
+    assert list(ctx.indexes) == cards
+    for novel in (False, True):
+        want = sam_text(align_records(db, cpu_index, reads, cfg,
+                                      batch_size=32, novelsplicing=novel))
+        kernels.reset_launches()
+        got = sam_text(align_records(db, ctx.index, reads, cfg,
+                                     batch_size=32, novelsplicing=novel,
+                                     device_ctx=ctx))
+        assert got == want
+        assert all(launched_on_every_card(cards, k)
+                   for k in ("verify_diagonals", "banded_align")), \
+            kernels.CARD_LAUNCHES
+    pairs = stream_pairs(db, port=True)
+    want = [(a.lines(), b.lines()) for a, b in align_paired_records(
+        db, cpu_index, pairs, cfg, batch_size=16, pairmax=1000)]
+    got = [(a.lines(), b.lines()) for a, b in align_paired_records(
+        db, ctx.index, pairs, cfg, batch_size=16, pairmax=1000,
+        device_ctx=ctx)]
+    assert got == want
+    assert ctx.rows.split > 0
+
+
+def test_sharded_2x2_full_on_distinct_cards(dev, tmp_path):
+    """The oligo-sharded full aligner (the whole ladder, with pairs) at
+    2 x 2 on four distinct cards against the same grid of `cpu` devices;
+    every card seeds and the data rows' first cards verify."""
+    from tpumap_torch.gsnap.driver import make_batch
+    from tpumap_torch.parallel import mesh, sharded
+    cards = distinct_cards(4)
+    db, reads, _gfa = mixed_workload(tmp_path, port=True)
+    cfg = AlignConfig(top_k=4, max_occ=8)
+    kw = dict(scoring=pathdp.PathScoring(max_intron=5000), salvage=True,
+              paired=True, pairmax=1000)
+    b = make_batch(reads[:64], 64, 128)
+    batch = {k: b[k] for k in ("codes", "nmask", "lengths")}
+    out = []
+    for devices in ([torch.device("cpu")] * 4, cards):
+        arrays, align = sharded.make_sharded_full_aligner(
+            mesh.make_mesh(4, index_shards=2, devices=devices), db, cfg,
+            **kw)
+        kernels.reset_launches()
+        out.append({k: v.cpu() for k, v in align(arrays, batch).items()})
+    assert launched_on_every_card(cards[0::2]), kernels.CARD_LAUNCHES
+    assert launched_on_every_card(cards[0::2], "trim_stage")
+    assert sorted(out[0]) == sorted(out[1])
+    for k in out[0]:
+        assert torch.equal(out[0][k], out[1][k]), k
+
+
+def test_four_genome_windows_on_distinct_cards(dev, tmp_path):
+    """Four genome windows of a uint64 build, one a card, against the same
+    grid of `cpu` devices, rebased to the same uint64 univcoords; every
+    card verifies (K1) its window."""
+    from tpumap_torch.gsnap.driver import make_batch
+    from tpumap_torch.index.build import build_db
+    from tpumap_torch.parallel import large, mesh
+    cards = distinct_cards(4)
+    db, reads, gfa = mixed_workload(tmp_path, port=True)
+    dbl = build_db(gfa, name="g64", k=db.k, interval=db.interval, large=True)
+    cfg = AlignConfig(top_k=4, max_occ=8)
+    b = make_batch(reads[:64], 64, 128)
+    batch = {k: b[k] for k in ("codes", "nmask", "lengths")}
+    parts = large.shard_genome_host(dbl, 4, 256)
+    out = []
+    for devices in ([torch.device("cpu")] * 4, cards):
+        arrays, align, bases = large.make_genome_sharded_aligner(
+            mesh.make_mesh(4, index_shards=4, devices=devices), dbl, cfg,
+            256, parts=parts)
+        kernels.reset_launches()
+        out.append({k: v.cpu() for k, v in align(arrays, batch).items()})
+    assert launched_on_every_card(cards), kernels.CARD_LAUNCHES
+    for k in out[0]:
+        assert torch.equal(out[0][k], out[1][k]), k
+    coords = large.rebase_results(out[1], bases)
+    assert coords.dtype == np.uint64
+    np.testing.assert_array_equal(coords,
+                                  large.rebase_results(out[0], bases))
+
+
 # ------------------------------------- K8 (the ends rung) and K4 (trim)
 
 ENDS_MODES = {"standard": ("standard", False),

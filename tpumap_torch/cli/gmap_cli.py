@@ -49,6 +49,7 @@ from tpumap_torch.io.alignfmt import (continuous_by_exon_body,
                                       print_alignment)
 from tpumap_torch.io.fasta import Record, read_fasta
 from tpumap_torch.io.iit import IIT
+from tpumap_torch.parallel import distributed
 from tpumap_torch.utils import dna
 
 
@@ -558,7 +559,9 @@ def main(argv=None):
                     help="check runtime assumptions and exit")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the index and the chain stage "
-                         "(default cuda; cpu runs the plain versions)")
+                         "(default cuda: in a torch.distributed group, "
+                         "card LOCAL_RANK or the rank modulo the cards; "
+                         "cpu runs the plain versions)")
     ap.add_argument("queries", nargs="?", help="query FASTA/FASTQ")
     args = ap.parse_args(argv)
 
@@ -568,6 +571,7 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("tpumap_torch-gmap: no CUDA device (pass "
                          "--device cpu to run the plain versions)")
+    device = distributed.process_device(device)
     if args.no_chimeras:
         args.chimera_margin = 0
     if args.truncate:

@@ -33,6 +33,7 @@ from tpumap_torch.io import sam
 from tpumap_torch.io.fasta import (ReadOptions, check_pair_names,
                                    preprocess_pairs, preprocess_reads,
                                    read_seqs)
+from tpumap_torch.parallel import distributed
 
 
 def run_check() -> int:
@@ -498,8 +499,10 @@ def main(argv=None):
                     help="check runtime assumptions and exit")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the index, the transcriptome "
-                         "index and every call (default cuda; cpu runs "
-                         "the plain versions)")
+                         "index and every call (default cuda: in a "
+                         "torch.distributed group, card LOCAL_RANK or "
+                         "the rank modulo the cards; cpu runs the plain "
+                         "versions)")
     ap.add_argument("reads", nargs="?", help="FASTA/FASTQ file (read 1)")
     ap.add_argument("reads2", nargs="?", help="read-2 file for paired-end")
     args = ap.parse_args(argv)
@@ -510,6 +513,7 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("tpumap_torch-gsnap: no CUDA device (pass "
                          "--device cpu to run the plain versions)")
+    device = distributed.process_device(device)
     if args.use_transcriptome_alias and not args.use_transcriptome:
         args.use_transcriptome = args.use_transcriptome_alias
     if args.reads is None:
@@ -698,7 +702,6 @@ def main(argv=None):
     if part is None:
         # multi-process data parallelism: in a torch.distributed group
         # each process takes its rank's shard of the input
-        from tpumap_torch.parallel import distributed
         if distributed.nprocs() > 1:
             part = (distributed.rank(), distributed.nprocs())
 

@@ -10,7 +10,8 @@ point launches on the stream it is given and returns cudaGetLastError();
 or a failed build raises.
 
 LAUNCHES counts, per kernel, the launches made through `launch` — the
-proof that a run went through the kernels.
+proof that a run went through the kernels — and CARD_LAUNCHES the same
+per card.
 """
 from __future__ import annotations
 
@@ -61,6 +62,8 @@ _ENTRY = {
 }
 
 LAUNCHES = {name: 0 for name in _ENTRY}
+# {card index: {kernel: launches}} of the cards launched on
+CARD_LAUNCHES: dict = {}
 _lib = None
 build_log = ""
 
@@ -68,6 +71,7 @@ build_log = ""
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    CARD_LAUNCHES.clear()
 
 
 def n_sms(device) -> int:
@@ -166,6 +170,8 @@ def launch(name: str, device: torch.device, *args) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = fn(*cargs, stream)
+        card = torch.cuda.current_device()
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[name] += 1
+    CARD_LAUNCHES.setdefault(card, dict.fromkeys(LAUNCHES, 0))[name] += 1

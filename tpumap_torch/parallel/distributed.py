@@ -7,14 +7,19 @@ across machines it runs independent processes with --part i/n. tpumap
 runs one jax process per host and all-gathers the pass-1 tables before
 pass 2, so every process realigns with the union. The port does the same
 over torch.distributed: the tables are host arrays, so the group is a
-gloo group of CPU tensors, also on a GPU machine, where several
-processes may share one card. The caller initialises the group
-(torch.distributed.init_process_group("gloo", ...) or torchrun's
-environment), as tpumap's caller runs jax.distributed.initialize; the
-process count and rank come from it. Where no group of more than one
-process is initialised every function is the identity, as tpumap's are.
+gloo group of CPU tensors, also on a GPU machine. The caller initialises
+the group (torch.distributed.init_process_group("gloo", ...) or
+torchrun's environment), as tpumap's caller runs jax.distributed.
+initialize; the process count and rank come from it. Where no group of
+more than one process is initialised every function is the identity, as
+tpumap's are.
+
+Each jax process drives its own local devices; process_device gives each
+process of a group its own card in the same way.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -43,6 +48,30 @@ def rank() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
     return 0
+
+
+def process_device(device="cuda") -> torch.device:
+    """The torch.device this process runs on. In a group of more than one
+    process the bare "cuda" becomes card LOCAL_RANK (torchrun's
+    variable) or, without it, card rank() modulo the visible cards, and
+    that card is made current, so that every tensor and launch of the
+    process lands there. An explicit card ("cuda:N") or another device
+    type is kept. A card that does not exist raises: nothing falls back
+    to card 0 or to the CPU. Without such a group the device is
+    returned as given."""
+    device = torch.device(device)
+    if device.type != "cuda" or nprocs() == 1:
+        return device
+    n = torch.cuda.device_count()
+    if device.index is None:
+        local = os.environ.get("LOCAL_RANK")
+        device = torch.device("cuda", int(local) if local is not None
+                              else rank() % max(n, 1))
+    if not 0 <= device.index < n:
+        raise RuntimeError(f"process {rank()} of {nprocs()}: {device} "
+                           f"does not exist ({n} CUDA devices visible)")
+    torch.cuda.set_device(device)
+    return device
 
 
 def _gather_fixed(arr: np.ndarray) -> np.ndarray:

@@ -16,6 +16,11 @@ those one device chooses, at any overflow. Rows that do not divide the
 data axis run whole on the lead device, as tpumap's _put_rows
 replicates them.
 
+One host thread issues the chunks in turn. Where a chunk's function
+reads a device value on the host (a size taken from data, a compaction
+count), the next device's launches wait for that read. A host thread a
+device was slower on four H100s: each torch op hands the GIL round.
+
 For indexes too big for one device, parallel/sharded.py (oligo-range
 sharding) and parallel/large.py (genome windows) remain the paths.
 """
