@@ -19,6 +19,7 @@ torch_workloads.gsnap_cli_world, with the return code, the files a case
 writes (.npz by value) and, where named, stderr compared too.
 """
 import dataclasses
+import functools
 import io
 import sys
 from contextlib import redirect_stderr, redirect_stdout
@@ -390,7 +391,8 @@ def assert_main_parity(world, argv, tmp_path, stderr=False):
     """tpumap's main and the port's (--device cpu) on argv with the
     world's paths: the same return code and stdout but for the echoed
     command line, the same files under each package's {OUT} directory,
-    and with stderr=True the same stderr."""
+    and with stderr=True the same stderr (a function: stderr(tpumap's,
+    the port's) checks the two)."""
     def args_for(pkg):
         (tmp_path / pkg).mkdir()
         keys = dict(world, OUT=str(tmp_path / pkg))
@@ -401,7 +403,9 @@ def assert_main_parity(world, argv, tmp_path, stderr=False):
     trc, got, terr = run_main(gsnap_cli.main, targv)
     assert trc == jrc, terr
     assert got.replace(techo, jecho) == want
-    if stderr:
+    if callable(stderr):
+        stderr(jerr, terr)
+    elif stderr:
         assert terr == jerr
     jfiles, tfiles = read_files(tmp_path / "j"), read_files(tmp_path / "t")
     assert sorted(tfiles) == sorted(jfiles)
@@ -541,17 +545,50 @@ CASES = {
     "bad_mode": D + ["--mode", "cmet"] + SE,
     "missing_reads": D + ["{ROOT}/none.fq"],
 }
-STDERR = {"stats", "stats_stream", "show_method", "tenx", "tenx_single",
-          "snp_missing", "pe_name_mismatch", "kmer_mismatch", "bad_part",
-          "missing_reads"}
+STDERR = {"show_method", "tenx", "tenx_single", "snp_missing",
+          "pe_name_mismatch", "kmer_mismatch", "bad_part", "missing_reads"}
+STATS = {"stats", "stats_stream"}
+
+
+def stats_lines(err: str):
+    """--stats' stderr: ({method: (reads, share)}, {counter: value},
+    {span: calls})."""
+    methods, counters, spans = {}, {}, {}
+    for ln in err.splitlines():
+        kind, _, rest = ln.partition(" ")
+        name, _, val = rest.partition(": ")
+        if kind == "method":
+            c, pct = val.split(" (")
+            methods[name] = (int(c), float(pct.rstrip("%)")))
+        elif kind == "counter":
+            counters[name] = int(val)
+        elif kind == "span":
+            spans[name] = int(val.split(" calls")[0])
+    return methods, counters, spans
+
+
+def assert_stats_match(jerr: str, terr: str) -> None:
+    """The port's --stats against tpumap's: the same reads a method;
+    tpumap prints its overflow counter as a method line, the port as a
+    counter beside the others, and shares over the methods alone."""
+    jm, _, _ = stats_lines(jerr)
+    tm, tc, ts = stats_lines(terr)
+    assert jm.pop("stage2_overflow")[0] == tc["stage2_overflow"]
+    assert {k: c for k, (c, _p) in tm.items()} == \
+        {k: c for k, (c, _p) in jm.items()}
+    assert sum(p for _c, p in tm.values()) == pytest.approx(
+        100.0, abs=0.05 * len(tm))
+    assert tc["reads"] == sum(c for c, _p in tm.values())
+    assert ts["enqueue"] == tc["batches"]
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_main_parity(world, tmp_path, case):
     keys = dict(world, ROOT=str(__import__("pathlib").Path(world["R"])
                                 .parent))
-    rc, out, _err = assert_main_parity(keys, CASES[case], tmp_path,
-                                       stderr=case in STDERR)
+    rc, out, _err = assert_main_parity(
+        keys, CASES[case], tmp_path,
+        stderr=assert_stats_match if case in STATS else case in STDERR)
     if rc == 0 and case not in ("failsonly", "chrsubset", "only_concordant",
                                 "omit_concordant", "no_sam_headers",
                                 "part_ordered_split", "output_file",
@@ -559,6 +596,29 @@ def test_main_parity(world, tmp_path, case):
                                 "split_paired"):
         body = [ln for ln in out.splitlines() if ln and ln[0] != "@"]
         assert body, case
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_stats_shares_over_the_methods(world, monkeypatch, stream):
+    """--stats where a counter is not zero (stage 2 cut to 2 rows a batch
+    overflows): the method shares sum to 100%, the counters print on
+    lines of their own, and each span its calls."""
+    from tpumap_torch.gsnap import engine, ladder
+    monkeypatch.setattr(ladder, "align_batch_cascaded_packed",
+                        functools.partial(engine.align_batch_cascaded_packed,
+                                          stage2_rows=2))
+    rc, _out, err = run_main(
+        gsnap_cli.main, ["-D", world["D"], "--stats"]
+        + (["--sam-use-0M", "0"] if stream else [])
+        + [world["R"], "--device", "cpu"])
+    assert rc == 0
+    methods, counters, spans = stats_lines(err)
+    assert counters["stage2_overflow"] > 0
+    assert methods and not set(methods) & set(counters)
+    assert sum(p for _c, p in methods.values()) == pytest.approx(
+        100.0, abs=0.05 * len(methods))
+    assert sum(c for c, _p in methods.values()) == counters["reads"]
+    assert spans["enqueue"] == spans["refine"] == counters["batches"]
 
 
 def test_sam_use_0m_0_writes_fewer_secondaries(world, tmp_path):

@@ -152,7 +152,9 @@ def test_stream_workload_sam_identical(mixed, sink):
             db, ti, reads, engine.AlignConfig(**CFG), batch_size=32,
             stats=stats))
     assert got == want
-    assert sum(stats.values()) == len(reads)
+    assert sum(stats.get(m, 0) for m in driver.METHODS) == len(reads)
+    assert stats["reads"] == stats["rows_native"] + stats["rows_python"] \
+        == len(reads)
     cigars = [ln.split("\t")[5] for ln in got.decode().splitlines()]
     assert any("D" in c for c in cigars) and any("I" in c for c in cigars)
     assert any("S" in c for c in cigars) and "*" in cigars

@@ -313,8 +313,8 @@ def test_stream_workload_novelsplicing_sam(mixed, sink):
     got = port_sam(db, ti, reads, sink, novelsplicing=True, batch_size=32,
                    stats=stats)
     assert got == want
-    assert sum(v for k, v in stats.items() if k != "stage2_overflow") \
-        == len(reads) and stats["splice"] > 0
+    assert sum(stats.get(m, 0) for m in driver.METHODS) == len(reads) \
+        and stats["splice"] > 0 and stats["reads"] == len(reads)
 
 
 def test_rna_path_runs_without_jax(mixed, tmp_path):

@@ -17,6 +17,7 @@ from the option alone (a process group's default shard is ROADMAP item
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -24,7 +25,8 @@ import torch
 
 from tpumap_torch import __version__
 from tpumap_torch.cli._errors import clean_errors
-from tpumap_torch.gsnap.driver import align_records, align_records_isolated
+from tpumap_torch.gsnap.driver import (METHODS, align_records,
+                                       align_records_isolated)
 from tpumap_torch.gsnap.engine import AlignConfig
 from tpumap_torch.gsnap.paired import align_paired_records
 from tpumap_torch.index.build import GenomeDB
@@ -34,6 +36,31 @@ from tpumap_torch.io.fasta import (ReadOptions, check_pair_names,
                                    preprocess_pairs, preprocess_reads,
                                    read_seqs)
 from tpumap_torch.parallel import distributed
+from tpumap_torch.utils.trace import Recorder, recording
+
+
+def stats_recording(on: bool):
+    """--stats: a Recorder installed for the alignment, or nothing."""
+    return recording(Recorder()) if on else contextlib.nullcontext()
+
+
+def write_stats(rec: Recorder | None) -> None:
+    """--stats: each method's reads with its share of the reads that have
+    a method, then every other counter, then each span's calls, self and
+    total time (utils/trace.py)."""
+    if rec is None:
+        return
+    out = sys.stderr
+    methods = {k: v for k, v in rec.counters.items() if k in METHODS}
+    total = sum(methods.values()) or 1
+    for m, c in sorted(methods.items(), key=lambda kv: -kv[1]):
+        out.write(f"method {m}: {c} ({100.0 * c / total:.1f}%)\n")
+    for k in sorted(set(rec.counters) - set(methods)):
+        out.write(f"counter {k}: {rec.counters[k]}\n")
+    for name in sorted(rec.calls, key=lambda n: -rec.self_ns[n]):
+        out.write(f"span {name}: {rec.calls[name]} calls, self "
+                  f"{rec.self_ns[name] / 1e6:.3f} ms, total "
+                  f"{rec.total_ns[name] / 1e6:.3f} ms\n")
 
 
 def run_check() -> int:
@@ -789,15 +816,17 @@ def main(argv=None):
                         f"{r2.accession!r} do not match (use "
                         f"--allow-pe-name-mismatch to override)")
         nreads = 2 * len(pairs)
-        results = list(align_paired_records(
-            db, index, pairs, config, pairmax=args.pairmax,
-            batch_size=args.batch_size,
-            novelsplicing=bool(args.novelsplicing),
-            max_intron=args.max_intron, known=known,
-            orientation=args.orientation, pairexpect=args.pairexpect,
-            pairdev=args.pairdev, tr=tr,
-            resolve_inner=args.resolve_inner != 0,
-            **knob_kw))
+        with stats_recording(args.stats) as rec:
+            results = list(align_paired_records(
+                db, index, pairs, config, pairmax=args.pairmax,
+                batch_size=args.batch_size,
+                novelsplicing=bool(args.novelsplicing),
+                max_intron=args.max_intron, known=known,
+                orientation=args.orientation, pairexpect=args.pairexpect,
+                pairdev=args.pairdev, tr=tr,
+                resolve_inner=args.resolve_inner != 0,
+                **knob_kw))
+        write_stats(rec)
         for s1, s2 in results:
             if args.paired_flag_means_concordant and not (s1.flag & 2):
                 s1.flag &= ~1
@@ -879,22 +908,17 @@ def main(argv=None):
                 bsink = out.buffer.write
             else:
                 bsink = lambda b: out.write(bytes(b).decode())  # noqa
-            method_stats = {} if args.stats else None
-            align_records_isolated(
-                db, index, records, config,
-                novelsplicing=bool(args.novelsplicing),
-                max_intron=args.max_intron,
-                batch_size=args.batch_size, known=known,
-                tr=tr, find_fusions=args.find_fusions,
-                npaths=args.npaths, stats=method_stats,
-                merge_distant_samechr=args.merge_distant_samechr,
-                sink=bsink, **knob_kw)
-            if method_stats is not None:
-                total = sum(method_stats.values()) or 1
-                for m, c in sorted(method_stats.items(),
-                                   key=lambda kv: -kv[1]):
-                    sys.stderr.write(
-                        f"method {m}: {c} ({100.0 * c / total:.1f}%)\n")
+            with stats_recording(args.stats) as rec:
+                align_records_isolated(
+                    db, index, records, config,
+                    novelsplicing=bool(args.novelsplicing),
+                    max_intron=args.max_intron,
+                    batch_size=args.batch_size, known=known,
+                    tr=tr, find_fusions=args.find_fusions,
+                    npaths=args.npaths,
+                    merge_distant_samechr=args.merge_distant_samechr,
+                    sink=bsink, **knob_kw)
+            write_stats(rec)
             if args.timing:
                 dt = time.perf_counter() - t0
                 sys.stderr.write(
@@ -912,24 +936,18 @@ def main(argv=None):
                                           min_support=args.pass1_min_support,
                                           tr=tr)
         else:
-            method_stats = {} if args.stats else None
-            results = align_records_isolated(
-                db, index, records, config,
-                novelsplicing=bool(args.novelsplicing),
-                max_intron=args.max_intron,
-                batch_size=args.batch_size, known=known,
-                tr=tr, find_fusions=args.find_fusions,
-                npaths=args.npaths,
-                show_method=args.show_method,
-                stats=method_stats,
-                merge_distant_samechr=args.merge_distant_samechr,
-                **knob_kw)
-            if method_stats is not None:
-                total = sum(method_stats.values()) or 1
-                for m, c in sorted(method_stats.items(),
-                                   key=lambda kv: -kv[1]):
-                    sys.stderr.write(
-                        f"method {m}: {c} ({100.0 * c / total:.1f}%)\n")
+            with stats_recording(args.stats) as rec:
+                results = align_records_isolated(
+                    db, index, records, config,
+                    novelsplicing=bool(args.novelsplicing),
+                    max_intron=args.max_intron,
+                    batch_size=args.batch_size, known=known,
+                    tr=tr, find_fusions=args.find_fusions,
+                    npaths=args.npaths,
+                    show_method=args.show_method,
+                    merge_distant_samechr=args.merge_distant_samechr,
+                    **knob_kw)
+            write_stats(rec)
         if args.format in ("default", "standard", "gsnap"):
             from tpumap_torch.io.gsnapfmt import native_alignment
             for rec, s in _mi(zip(records, results)):

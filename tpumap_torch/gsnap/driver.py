@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import sys
+from collections import Counter
 
 import numpy as np
 import torch
@@ -61,10 +62,16 @@ from tpumap_torch.ops import localscan, pathdp, verify
 from tpumap_torch.ops.mode import MODE_SPACES
 from tpumap_torch.ops.pack import words_for
 from tpumap_torch.utils import dna
+from tpumap_torch.utils.trace import count, counting, counting_on, span, traced
 
 
 MIN_FUSION_PIECE = 20     # src/path-fusion.c requires substantial ends
 KNOWN_INDEL_BONUS = 12    # score credit for an indel at a learned site
+
+
+# the methods a row is emitted by (--show-method's YM:Z tag); every other
+# count of utils/trace.py is a counter of its own
+METHODS = ("sub", "splice", "indel", "fusion", "tr", "unmapped")
 
 
 def pad_to_bucket(n: int, buckets=(32, 64, 96, 128, 160, 192, 256, 384, 512)) -> int:
@@ -74,6 +81,7 @@ def pad_to_bucket(n: int, buckets=(32, 64, 96, 128, 160, 192, 256, 384, 512)) ->
     return ((n + 511) // 512) * 512
 
 
+@traced("encode")
 def make_batch(records: list[Record], batch_size: int, L: int):
     """Encode a batch: codes/nmask/lengths, plus (with the native library)
     the 2-bit packed words, packed N flags, has_n and quals in one C
@@ -153,6 +161,7 @@ def _pack_host(codes: np.ndarray) -> np.ndarray:
     return (lanes.astype(np.uint32) << shifts).sum(axis=2, dtype=np.uint32)
 
 
+@traced("upload")
 def _to_device(batch, device) -> dict:
     """A make_batch dict as the ladder's device inputs; N-free batches
     send a (1, 1) pnmask stub."""
@@ -207,6 +216,7 @@ def _indel_limits_ok(ops, max_insertions: int, max_deletions: int,
     return True
 
 
+@traced("refine")
 def refine_unsolved(db, index, batch, res, config, novelsplicing=False,
                     max_intron=200_000, known=None, find_fusions=False,
                     tr_records=None, L=None, max_insertions=6,
@@ -244,6 +254,7 @@ def refine_unsolved(db, index, batch, res, config, novelsplicing=False,
                 db, index, batch, res, dp_result, tr_records, L, chunk_len,
                 len_v, novelsplicing, max_intron, known, use_localdb, quals,
                 device_ctx)
+    count("indel_accepted", len(dp_result))
     return _late_stages(db, index, batch, res, config, dp_result,
                         splice_result, novelsplicing, max_intron, known,
                         find_fusions, tr_records, L, amb_out, chunk_len,
@@ -301,6 +312,7 @@ def _fused_acceptance(batch, res, known, dict_all, chunk_len, len_v,
             }
         res["sp_sel"] = sel & ~need_dict
     irows = np.nonzero(res["in_sel"])[0]
+    count("indel_rows", len(irows))
     if len(irows):
         nmm_v = res["nmismatch"]
         trim_score_v = res.get("trim_score")
@@ -366,6 +378,7 @@ def _staged_indels(index, batch, res, tr_records, L, chunk_len, len_v,
         if i < chunk_len:
             need_m[i] = False
     need = np.nonzero(need_m)[0]
+    count("indel_rows", len(need))
     dp_result = {}
     if not len(need):
         return dp_result
@@ -1138,6 +1151,7 @@ def _path_ok(s, li, config, S) -> bool:
             and not any(b[1] < a[1] for a, b in zip(segs, segs[1:])))
 
 
+@traced("emit")
 def _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
                      known):
     """Native C calls emit the final SAM text of every plain or
@@ -1248,6 +1262,7 @@ def _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
     return lines, flags, methods
 
 
+@traced("emit")
 def _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
                       known):
     """Row-order blob emission: every unmapped, ungapped and chain-DP
@@ -1343,7 +1358,9 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
     as one spliced line. device_ctx (parallel/pipeline.MeshContext)
     runs the batches' device work over its device grid; a context
     without a fused ladder (SingleChipContext) takes the staged path, as
-    in tpumap."""
+    in tpumap. stats, if given, receives the counts of utils/trace.py:
+    each METHODS row count, batches, reads, the overflow scalars, the
+    indel rows and the rows each emitter wrote."""
     out = []
     remapper = None
     if tr is not None:
@@ -1376,24 +1393,26 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
              else pad_to_bucket(len(chunk)))
         batch = make_batch(chunk, B, run_L)
         pbatch = _to_device(batch, index.device)
-        if use_fused:
-            # compactions scale with the batch: an RNA batch can be ~50%
-            # spliced
-            r_chain = min(max(8192, B // 2), B)
-            args = (config, run_L, scoring, splicing_on,
-                    novelsplicing and use_localdb, r_chain,
-                    min(max(2048, B // 8), r_chain), min(2048, B))
-            if device_ctx is not None:
-                dev = device_ctx.ladder_full(pbatch, *args, known=known_dev)
+        with span("enqueue"):
+            if use_fused:
+                # compactions scale with the batch: an RNA batch can be
+                # ~50% spliced
+                r_chain = min(max(8192, B // 2), B)
+                args = (config, run_L, scoring, splicing_on,
+                        novelsplicing and use_localdb, r_chain,
+                        min(max(2048, B // 8), r_chain), min(2048, B))
+                if device_ctx is not None:
+                    dev = device_ctx.ladder_full(pbatch, *args,
+                                                 known=known_dev)
+                else:
+                    dev = ladder.align_batch_full(index, pbatch, *args,
+                                                  known=known_dev)
+            elif device_ctx is not None:
+                dev = ladder.narrow_result(device_ctx.cascade(
+                    index, pbatch, config, run_L))
             else:
-                dev = ladder.align_batch_full(index, pbatch, *args,
-                                              known=known_dev)
-        elif device_ctx is not None:
-            dev = ladder.narrow_result(device_ctx.cascade(
-                index, pbatch, config, run_L))
-        else:
-            dev = ladder.narrow_result(align_batch_cascaded_packed(
-                index, pbatch, config, run_L))
+                dev = ladder.narrow_result(align_batch_cascaded_packed(
+                    index, pbatch, config, run_L))
         return chunk, batch, ladder.start_fetch(dev)
 
     starts = list(range(0, len(records), batch_size))
@@ -1403,205 +1422,227 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
     early_dispatch = (tr is None and not find_fusions
                       and (use_fused or not splicing_on))
     pending = _dispatch(starts[0]) if starts else None
-    for si, start in enumerate(starts):
-        chunk, batch, wait = pending
-        if si + 1 < len(starts) and early_dispatch:
-            # the next batch's device work runs under this batch's host
-            # work (refine, emission, the next encode)
-            pending = _dispatch(starts[si + 1])
-        tr_records = (_tr_rung(db, tr, chunk, batch, config)
-                      if tr is not None else {})
-        res = wait()
-        if stats is not None:
-            stats["stage2_overflow"] = (stats.get("stage2_overflow", 0)
-                                        + int(res["stage2_overflow"]))
-        mapq = mapq_from_scores(res["nmismatch"], res["second_nmismatch"],
-                                res["n_best"], batch["lengths"],
-                                mm_qualsum=res.get("mm_qualsum"),
-                                qual_mean16=res.get("qual_mean16"))
-        amb_result = {}
-        dp_result, splice_result, fusion_result = refine_unsolved(
-            db, index, batch, res, config, novelsplicing, max_intron, known,
-            find_fusions, tr_records, run_L, max_insertions, max_deletions,
-            indel_endlength, use_localdb, known_indels, batch.get("quals"),
-            amb_result, device_ctx=device_ctx)
-        # secondaries (-n > 1): the fused path's sec_* compaction, or the
-        # staged path's full candidate lists of multimapping rows
-        sec_map = {}
-        if npaths > 1:
-            if "sec_idx" in res:
-                for r in np.nonzero(res["sec_sel"])[0].tolist():
-                    i2 = int(res["sec_idx"][r])
-                    if i2 < len(chunk):
-                        sec_map[i2] = (res["sec_diags"][r],
-                                       res["sec_strands"][r],
-                                       res["sec_nmm"][r])
-            else:
-                nb_v = np.asarray(res["n_best"])[:len(chunk)]
-                for i2 in np.nonzero(nb_v > 1)[0].tolist():
-                    sec_map[i2] = (res["cand_diags"][i2],
-                                   res["cand_strands"][i2],
-                                   res["cand_nmm"][i2])
-        if si + 1 < len(starts) and not early_dispatch:
-            # this batch's own launches are enqueued: now the next batch
-            pending = _dispatch(starts[si + 1])
+    with counting(stats):
+        for si, start in enumerate(starts):
+            chunk, batch, wait = pending
+            if si + 1 < len(starts) and early_dispatch:
+                # the next batch's device work runs under this batch's
+                # host work (refine, emission, the next encode)
+                pending = _dispatch(starts[si + 1])
+            tr_records = (_tr_rung(db, tr, chunk, batch, config)
+                          if tr is not None else {})
+            res = wait()
+            if counting_on():
+                ladder.count_batch(res, len(chunk))
+            mapq = mapq_from_scores(res["nmismatch"],
+                                    res["second_nmismatch"], res["n_best"],
+                                    batch["lengths"],
+                                    mm_qualsum=res.get("mm_qualsum"),
+                                    qual_mean16=res.get("qual_mean16"))
+            amb_result = {}
+            dp_result, splice_result, fusion_result = refine_unsolved(
+                db, index, batch, res, config, novelsplicing, max_intron,
+                known, find_fusions, tr_records, run_L, max_insertions,
+                max_deletions, indel_endlength, use_localdb, known_indels,
+                batch.get("quals"), amb_result, device_ctx=device_ctx)
+            # secondaries (-n > 1): the fused path's sec_* compaction, or
+            # the staged path's full candidate lists of multimapping rows
+            sec_map = {}
+            if npaths > 1:
+                if "sec_idx" in res:
+                    for r in np.nonzero(res["sec_sel"])[0].tolist():
+                        i2 = int(res["sec_idx"][r])
+                        if i2 < len(chunk):
+                            sec_map[i2] = (res["sec_diags"][r],
+                                           res["sec_strands"][r],
+                                           res["sec_nmm"][r])
+                else:
+                    nb_v = np.asarray(res["n_best"])[:len(chunk)]
+                    for i2 in np.nonzero(nb_v > 1)[0].tolist():
+                        sec_map[i2] = (res["cand_diags"][i2],
+                                       res["cand_strands"][i2],
+                                       res["cand_nmm"][i2])
+            if si + 1 < len(starts) and not early_dispatch:
+                # this batch's own launches are enqueued: now the next
+                # batch
+                pending = _dispatch(starts[si + 1])
 
-        overrides = (tr_records, splice_result, fusion_result, dp_result,
-                     amb_result, sec_map)
-        bulk = None
-        mix = None
-        if sink is not None and can_bulk:
-            mix = _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides,
-                                    config, known)
-        if mix is None and can_bulk:
-            bulk = _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides,
-                                    config, known)
-        if bulk is not None:
-            bulk_lines, bulk_flags, bulk_methods = bulk
-
-        rows_iter = range(len(chunk))
-        row_marks = []
-        rows_py = ()
-        if mix is not None:
-            blob, methods_m = mix
-            rows_py = np.nonzero(blob.kind == 0)[0].tolist()
-            if stats is not None:
-                native = blob.kind != 0
-                vals, cnts = np.unique(methods_m[native],
-                                       return_counts=True)
-                for v, c in zip(vals.tolist(), cnts.tolist()):
-                    stats[v] = stats.get(v, 0) + int(c)
-            if not rows_py:
-                sink(blob.buf)
-                continue
-            rows_iter = rows_py
-
-        # every row bulk-emitted: skip the per-row loop
-        if (bulk is not None and not tr_records and not splice_result
-                and not fusion_result and not dp_result and not amb_result
-                and all(ln is not None for ln in bulk_lines)):
-            unm = bulk_methods == "unmapped"
-            mq_l = np.where(unm, 0, mapq[:len(bulk_lines)]).tolist()
-            if stats is not None:
-                vals, counts = np.unique(np.asarray(bulk_methods, object),
-                                         return_counts=True)
-                for v, c in zip(vals.tolist(), counts.tolist()):
-                    stats[v] = stats.get(v, 0) + int(c)
-            out.extend(map(sam_bulk.RawSamRecord, bulk_lines,
-                           bulk_flags.tolist(), mq_l))
-            continue
-
-        def _emit(record, method, nh=1):
-            if not record.flag & 4 and i in amb_result:
-                # tied splice-end placements: the residue stays soft
-                # clipped, the alternatives go in XA:Z:
-                record.tags.append(xa_tag(amb_result[i]))
-            if not record.flag & 4:
-                record.tags.append(f"NH:i:{max(1, nh)}")
-                record.tags.append("HI:i:1")
-                if remapper is not None:
-                    # transcript remap and velocity tags (XX/XY)
-                    remap_mod.tag_record(remapper, db, record)
-            if show_method:
-                record.tags.append(f"YM:Z:{method}")
-            if stats is not None:
-                stats[method] = stats.get(method, 0) + 1
-            out.append(record)
-
-        mark0 = len(out)
-        for i in rows_iter:
-            rec = chunk[i]
-            row_marks.append(len(out))
-            if bulk is not None and bulk_lines[i] is not None:
-                m = bulk_methods[i]
-                if stats is not None:
-                    stats[m] = stats.get(m, 0) + 1
-                out.append(sam_bulk.RawSamRecord(
-                    bulk_lines[i], int(bulk_flags[i]),
-                    0 if m == "unmapped" else int(mapq[i])))
-                continue
-            li = int(batch["lengths"][i])
-            max_equiv = int(li * config.max_mismatch_frac)
-            if i in tr_records:
-                _emit(tr_records[i], "tr")
-                continue
-            if i in splice_result:
-                s = splice_result[i]
-                alen = s["q_end"] - s["q_start"]
-                if (s["nmm"] <= max(1, int(alen * config.max_mismatch_frac))
-                        and alen >= max(20, int(li * config.min_coverage))):
-                    _emit(sam.path_record(
-                        db, rec.accession, rec.sequence, rec.quality,
-                        s["segs"], s["q_start"], s["q_end"], s["strand"],
-                        int(mapq[i]), min_intron=MIN_INTRON, known=known),
-                        "splice" if len(s["segs"]) > 1 else "sub")
-                    continue
-            if i in fusion_result and _emit_fusion(
-                    db, rec, fusion_result[i], li, max_equiv, int(mapq[i]),
-                    merge_distant_samechr, _emit, out):
-                continue
-            if i in dp_result:
-                pos0, ops, score = dp_result[i]
-                if (3 * li - score) // 6 <= max_equiv:
-                    _emit(sam.gapped_record(
-                        db, rec.accession, rec.sequence, rec.quality,
-                        pos0, int(res["strand"][i]), int(mapq[i]), ops),
-                        "indel")
-                    continue
-            tqs, tqe = 0, li
-            if config.soft_clips:
-                tqs = int(res["trim_qstart"][i])
-                tqe = min(int(res["trim_qend"][i]), li)
-            trimmed = tqs > 0 or tqe < li
-            alen = tqe - tqs
-            trim_ok = (res["diag"][i] != 0xFFFFFFFF and trimmed
-                       and alen >= max(20, int(li * config.min_coverage))
-                       and int(res["trim_nmm"][i])
-                       <= max(1, int(alen * config.max_mismatch_frac)))
-            space = spaces[int(res["strand"][i])]
-            if res["mapped"][i] and not trimmed:
-                _emit(sam.ungapped_record(
-                    db, rec.accession, rec.sequence, rec.quality,
-                    int(res["diag"][i]), int(res["strand"][i]),
-                    int(mapq[i]), int(res["nmismatch"][i]), space=space,
-                    snp=config.snp_tolerant), "sub",
-                    nh=int(res["n_best"][i]))
-                if npaths > 1 and i in sec_map:
-                    out[-1].secondaries = _secondaries(
-                        db, rec, res, i, sec_map[i], int(mapq[i]), npaths,
-                        spaces)
-            elif trim_ok:
-                _emit(sam.ungapped_record(
-                    db, rec.accession, rec.sequence, rec.quality,
-                    int(res["diag"][i]), int(res["strand"][i]),
-                    int(mapq[i]), int(res["trim_nmm"][i]), space=space,
-                    snp=config.snp_tolerant, q_start=tqs, q_end=tqe), "sub",
-                    nh=int(res["n_best"][i]))
-            else:
-                _emit(sam.unmapped_record(rec.accession, rec.sequence,
-                                          rec.quality), "unmapped")
-
-        if sink is not None:
+            overrides = (tr_records, splice_result, fusion_result,
+                         dp_result, amb_result, sec_map)
+            bulk = None
+            mix = None
+            if sink is not None and can_bulk:
+                mix = _mixed_emit_chunk(db, chunk, batch, res, mapq,
+                                        overrides, config, known)
+            if mix is None and can_bulk:
+                bulk = _bulk_emit_chunk(db, chunk, batch, res, mapq,
+                                        overrides, config, known)
             if mix is not None:
-                # splice the Python rows' lines into the native blob at
-                # their row offsets (input order preserved)
-                row_marks.append(len(out))
-                buf, off = blob.buf, blob.off
-                pos = 0
-                for k, i in enumerate(rows_py):
-                    a = int(off[i])
-                    if a > pos:
-                        sink(buf[pos:a])
-                    for r in out[row_marks[k]:row_marks[k + 1]]:
-                        sink(r.lines().encode())
-                    pos = int(off[i + 1])
-                if pos < len(buf):
-                    sink(buf[pos:])
-            else:
-                for r in out[mark0:]:
-                    sink(r.lines().encode())
-            del out[mark0:]
+                blob, methods_m = mix
+                native = blob.kind != 0
+                if counting_on():
+                    count("rows_native", int(np.count_nonzero(native)))
+                    _count_methods(methods_m[native])
+                if native.all():
+                    sink(blob.buf)
+                    continue
+            _emit_rows(db, chunk, batch, res, mapq, config, overrides, bulk,
+                       mix, out, sink, npaths, spaces, known, show_method,
+                       remapper, merge_distant_samechr)
     return out
+
+
+def _count_methods(methods) -> None:
+    """Count each method of a list or array of rows' methods."""
+    for m, c in Counter(list(methods)).items():
+        count(m, c)
+
+
+@traced("emit_rows")
+def _emit_rows(db, chunk, batch, res, mapq, config, overrides, bulk, mix,
+               out, sink, npaths, spaces, known, show_method, remapper,
+               merge_distant_samechr) -> None:
+    """The rows of one batch that the native emitters left (every row
+    where neither ran: bulk and mix None), each through io/sam's Python
+    records; appended to out, or with sink streamed in input order, into
+    the native blob of mix at their row offsets. bulk: _bulk_emit_chunk's
+    (lines, flags, methods); mix: _mixed_emit_chunk's (blob, methods)."""
+    tr_records, splice_result, fusion_result, dp_result, amb_result, \
+        sec_map = overrides
+    if bulk is not None:
+        bulk_lines, bulk_flags, bulk_methods = bulk
+    rows_iter = range(len(chunk))
+    row_marks = []
+    if mix is not None:
+        blob = mix[0]
+        rows_iter = rows_py = np.nonzero(blob.kind == 0)[0].tolist()
+
+    # every row bulk-emitted: skip the per-row loop
+    if (bulk is not None and not tr_records and not splice_result
+            and not fusion_result and not dp_result and not amb_result
+            and all(ln is not None for ln in bulk_lines)):
+        unm = bulk_methods == "unmapped"
+        mq_l = np.where(unm, 0, mapq[:len(bulk_lines)]).tolist()
+        if counting_on():
+            count("rows_native", len(bulk_lines))
+            _count_methods(bulk_methods)
+        out.extend(map(sam_bulk.RawSamRecord, bulk_lines,
+                       bulk_flags.tolist(), mq_l))
+        return
+
+    def _emit(record, method, nh=1):
+        if not record.flag & 4 and i in amb_result:
+            # tied splice-end placements: the residue stays soft
+            # clipped, the alternatives go in XA:Z:
+            record.tags.append(xa_tag(amb_result[i]))
+        if not record.flag & 4:
+            record.tags.append(f"NH:i:{max(1, nh)}")
+            record.tags.append("HI:i:1")
+            if remapper is not None:
+                # transcript remap and velocity tags (XX/XY)
+                remap_mod.tag_record(remapper, db, record)
+        if show_method:
+            record.tags.append(f"YM:Z:{method}")
+        count(method)
+        out.append(record)
+
+    mark0 = len(out)
+    native = []                 # the bulk-emitted rows' methods
+    for i in rows_iter:
+        rec = chunk[i]
+        row_marks.append(len(out))
+        if bulk is not None and bulk_lines[i] is not None:
+            m = bulk_methods[i]
+            native.append(m)
+            out.append(sam_bulk.RawSamRecord(
+                bulk_lines[i], int(bulk_flags[i]),
+                0 if m == "unmapped" else int(mapq[i])))
+            continue
+        li = int(batch["lengths"][i])
+        max_equiv = int(li * config.max_mismatch_frac)
+        if i in tr_records:
+            _emit(tr_records[i], "tr")
+            continue
+        if i in splice_result:
+            s = splice_result[i]
+            alen = s["q_end"] - s["q_start"]
+            if (s["nmm"] <= max(1, int(alen * config.max_mismatch_frac))
+                    and alen >= max(20, int(li * config.min_coverage))):
+                _emit(sam.path_record(
+                    db, rec.accession, rec.sequence, rec.quality,
+                    s["segs"], s["q_start"], s["q_end"], s["strand"],
+                    int(mapq[i]), min_intron=MIN_INTRON, known=known),
+                    "splice" if len(s["segs"]) > 1 else "sub")
+                continue
+        if i in fusion_result and _emit_fusion(
+                db, rec, fusion_result[i], li, max_equiv, int(mapq[i]),
+                merge_distant_samechr, _emit, out):
+            continue
+        if i in dp_result:
+            pos0, ops, score = dp_result[i]
+            if (3 * li - score) // 6 <= max_equiv:
+                _emit(sam.gapped_record(
+                    db, rec.accession, rec.sequence, rec.quality,
+                    pos0, int(res["strand"][i]), int(mapq[i]), ops),
+                    "indel")
+                continue
+        tqs, tqe = 0, li
+        if config.soft_clips:
+            tqs = int(res["trim_qstart"][i])
+            tqe = min(int(res["trim_qend"][i]), li)
+        trimmed = tqs > 0 or tqe < li
+        alen = tqe - tqs
+        trim_ok = (res["diag"][i] != 0xFFFFFFFF and trimmed
+                   and alen >= max(20, int(li * config.min_coverage))
+                   and int(res["trim_nmm"][i])
+                   <= max(1, int(alen * config.max_mismatch_frac)))
+        space = spaces[int(res["strand"][i])]
+        if res["mapped"][i] and not trimmed:
+            _emit(sam.ungapped_record(
+                db, rec.accession, rec.sequence, rec.quality,
+                int(res["diag"][i]), int(res["strand"][i]),
+                int(mapq[i]), int(res["nmismatch"][i]), space=space,
+                snp=config.snp_tolerant), "sub",
+                nh=int(res["n_best"][i]))
+            if npaths > 1 and i in sec_map:
+                out[-1].secondaries = _secondaries(
+                    db, rec, res, i, sec_map[i], int(mapq[i]), npaths,
+                    spaces)
+        elif trim_ok:
+            _emit(sam.ungapped_record(
+                db, rec.accession, rec.sequence, rec.quality,
+                int(res["diag"][i]), int(res["strand"][i]),
+                int(mapq[i]), int(res["trim_nmm"][i]), space=space,
+                snp=config.snp_tolerant, q_start=tqs, q_end=tqe), "sub",
+                nh=int(res["n_best"][i]))
+        else:
+            _emit(sam.unmapped_record(rec.accession, rec.sequence,
+                                      rec.quality), "unmapped")
+    if counting_on():
+        count("rows_native", len(native))
+        count("rows_python", len(rows_iter) - len(native))
+        _count_methods(native)
+
+    if sink is not None:
+        if mix is not None:
+            # splice the Python rows' lines into the native blob at
+            # their row offsets (input order preserved)
+            row_marks.append(len(out))
+            buf, off = blob.buf, blob.off
+            pos = 0
+            for k, i in enumerate(rows_py):
+                a = int(off[i])
+                if a > pos:
+                    sink(buf[pos:a])
+                for r in out[row_marks[k]:row_marks[k + 1]]:
+                    sink(r.lines().encode())
+                pos = int(off[i + 1])
+            if pos < len(buf):
+                sink(buf[pos:])
+        else:
+            for r in out[mark0:]:
+                sink(r.lines().encode())
+        del out[mark0:]
 
 
 def _emit_fusion(db, rec, f, li, max_equiv, mapq, merge_distant_samechr,

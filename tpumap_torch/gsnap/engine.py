@@ -30,6 +30,7 @@ from tpumap_torch.ops import dp, pack, pathdp, seed, verify
 from tpumap_torch.ops.mode import (CODE_MAPS, MODE_SPACES, SPACE_CODES,
                                    map_codes)
 from tpumap_torch.ops.u32 import INVALID, MASK32, popcount32, stable_topk, u32
+from tpumap_torch.utils.trace import span, traced
 
 ENDS_K = 8          # unique candidate lanes kept per strand in the ends rung
 ENDS_VERIFY_K = 3   # lanes fully verified after the probe prefilter
@@ -414,43 +415,48 @@ def align_batch_cascaded(index, batch, config: AlignConfig,
     codes, nmask, lengths = batch["codes"], batch["nmask"], batch["lengths"]
     B, L = codes.shape
     S = min(stage2_rows, B)
-    res = row_map(rows, lambda ix, b: align_batch_ends(ix, b, config),
-                  index, {"codes": codes, "nmask": nmask,
-                          "lengths": lengths})
+    with span("ends"):
+        res = row_map(rows, lambda ix, b: align_batch_ends(ix, b, config),
+                      index, {"codes": codes, "nmask": nmask,
+                              "lengths": lengths})
 
-    unsolved = res["nmismatch"] > solved_nmm
-    prio = torch.where(unsolved, res["nmismatch"], -1)
-    _, idx = stable_topk(prio, S)
-    selected = unsolved[idx]
-    sub = {"codes": codes[idx], "nmask": nmask[idx], "lengths": lengths[idx]}
-    res2 = row_map(rows, lambda ix, b: align_batch(ix, b, config), index,
-                   sub)
+    with span("prevalent"):
+        unsolved = res["nmismatch"] > solved_nmm
+        prio = torch.where(unsolved, res["nmismatch"], -1)
+        _, idx = stable_topk(prio, S)
+        selected = unsolved[idx]
+        sub = {"codes": codes[idx], "nmask": nmask[idx],
+               "lengths": lengths[idx]}
+        res2 = row_map(rows, lambda ix, b: align_batch(ix, b, config),
+                       index, sub)
 
-    better = selected & (res2["nmismatch"] < res["nmismatch"][idx])
-    out = {}
-    for key in res:
-        o = res[key].clone()
-        o[idx] = torch.where(_bcast(better, res2[key]), res2[key],
-                             res[key][idx])
-        out[key] = o
-    # stage-2 rows get the union of both rungs' ranked candidates
-    mcd, mcs, mcn = _merge_cand_lists(
-        res["cand_diags"][idx], res["cand_strands"][idx],
-        res["cand_nmm"][idx],
-        res2["cand_diags"], res2["cand_strands"], res2["cand_nmm"])
-    sel_b = _bcast(selected, mcd)
-    for key, merged in (("cand_diags", mcd), ("cand_strands", mcs),
-                        ("cand_nmm", mcn)):
-        out[key][idx] = torch.where(sel_b, merged, out[key][idx])
-    n_uns = _i32(unsolved.sum())
-    out["stage2_overflow"] = torch.clamp(n_uns - _i32(selected.sum()), min=0)
+        better = selected & (res2["nmismatch"] < res["nmismatch"][idx])
+        out = {}
+        for key in res:
+            o = res[key].clone()
+            o[idx] = torch.where(_bcast(better, res2[key]), res2[key],
+                                 res[key][idx])
+            out[key] = o
+        # stage-2 rows get the union of both rungs' ranked candidates
+        mcd, mcs, mcn = _merge_cand_lists(
+            res["cand_diags"][idx], res["cand_strands"][idx],
+            res["cand_nmm"][idx],
+            res2["cand_diags"], res2["cand_strands"], res2["cand_nmm"])
+        sel_b = _bcast(selected, mcd)
+        for key, merged in (("cand_diags", mcd), ("cand_strands", mcs),
+                            ("cand_nmm", mcn)):
+            out[key][idx] = torch.where(sel_b, merged, out[key][idx])
+        n_uns = _i32(unsolved.sum())
+        out["stage2_overflow"] = torch.clamp(n_uns - _i32(selected.sum()),
+                                             min=0)
     if config.soft_clips:
-        out.update(row_map(
-            rows, lambda ix, c, m, ln, r, q: _trim_stage(ix, c, m, ln, r,
-                                                         config, quals=q),
-            index, codes, nmask, lengths,
-            {"strand": out["strand"], "diag": out["diag"]},
-            batch.get("quals")))
+        with span("trim"):
+            out.update(row_map(
+                rows, lambda ix, c, m, ln, r, q: _trim_stage(
+                    ix, c, m, ln, r, config, quals=q),
+                index, codes, nmask, lengths,
+                {"strand": out["strand"], "diag": out["diag"]},
+                batch.get("quals")))
     return out
 
 
@@ -684,6 +690,7 @@ def refine_splices(index, codes, nmask, lengths, diagsA, diagsB,
             "sense": _i32(take(sense)), "valid": validp}
 
 
+@traced("mapq")
 def mapq_from_scores(nmm: np.ndarray, second: np.ndarray, n_best: np.ndarray,
                      lengths: np.ndarray, base_qual: float = 30.0,
                      mm_qualsum: np.ndarray | None = None,
@@ -707,6 +714,7 @@ def mapq_from_scores(nmm: np.ndarray, second: np.ndarray, n_best: np.ndarray,
     return np.clip(mapq, 0, 40).astype(np.int32)
 
 
+@traced("cascade")
 def align_batch_cascaded_packed(index, pbatch, config: AlignConfig, L: int,
                                 solved_nmm: int = 3,
                                 stage2_rows: int = 512, rows=None):

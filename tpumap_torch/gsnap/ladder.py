@@ -42,6 +42,7 @@ from tpumap_torch.ops.dp import MAXRUNS
 from tpumap_torch.ops.u32 import (INT32_MIN, INVALID, MASK32, stable_topk,
                                   take_along)
 from tpumap_torch.utils.fetch import _WIRE_DTYPES, widen_ints
+from tpumap_torch.utils.trace import count, span, traced
 
 SALVAGE_W = 65536         # localdb region scale (src/localdb-write.c)
 SALVAGE_F = 16
@@ -116,6 +117,12 @@ def _on(known, device):
     return {k: v.to(device) for k, v in known.items()}
 
 
+# the result dict's overflow scalars: rows a fixed-size compaction left out
+OVERFLOWS = ("stage2_overflow", "indel_tb_overflow", "amb_row_overflow",
+             "amb_task_overflow", "sec_overflow")
+
+
+@traced("narrow")
 def narrow_result(d: dict) -> dict:
     """Cast result fields to their wire dtypes (device side)."""
     return {k: (v.to(_TORCH_WIRE[_WIRE_DTYPES[k]]) if k in _WIRE_DTYPES
@@ -168,6 +175,7 @@ def _partners(known, adiag, li, max_intron: int):
                      dim=1)
 
 
+@traced("chain")
 def _chain_stage(index, pbatch, res, L, sc, r_chain, r_salv, salvage,
                  trim_nmm, clip, known, rows=None):
     """Chain compaction, pass 1, optional salvage and pass 2. Returns
@@ -209,6 +217,7 @@ def _chain_stage(index, pbatch, res, L, sc, r_chain, r_salv, salvage,
     return idx, sel, c1
 
 
+@traced("salvage")
 def _salvage(index, codes, nmask, li, quals, cands, adiag, sel, c1, sc,
              rs: int, L: int, known, rows=None):
     """Pass 2 on rows whose pass-1 path leaves a residual clip: window
@@ -387,39 +396,42 @@ def refine_full(index, pbatch, res, config: AlignConfig, L: int,
     # indel stage after splices: only rows splices did not solve; clipped
     # ends trigger too (an end indel's tail mismatches can stay under the
     # nmm trigger while the trim clips them)
-    ri = min(r_indel, B)
-    need_i = valid & ((nmm >= INDEL_NMM_TRIGGER)
-                      | (clip >= CLIP_INDEL_TRIGGER)) & ~splice_accept_b
-    iidx = _ranked(need_i, ri)
-    isel = need_i[iidx]
-    icodes, _inm, ili = _oriented_rows_dev(pbatch["packed"], pbatch["pnmask"],
-                                           lengths, iidx, strand[iidx], L)
-    idg = torch.where(valid[iidx], diag[iidx], 0)
-    fwd = row_map(rows, lambda ix, c, ln, d: indel_forward(
-        ix, c, ln, d, INDEL_BAND, INDEL_MARGIN), index, icodes, ili, idg)
-    # second compaction before the traceback: only rows whose DP score
-    # beats their substitution score can be accepted by the host
-    r_tb = min(max(r_indel // 8, 32), ri)
-    sub_score = 3 * ili - 6 * nmm[iidx]
-    improves = isel & (fwd["score"] > sub_score)
-    gain = torch.clamp(fwd["score"] - sub_score, 0, 2 ** 20)
-    ar_i = torch.arange(ri, dtype=i32, device=dev)
-    _, tbx = stable_topk(
-        torch.where(improves, gain * (2 * ri) + (ri - ar_i), 0), r_tb)
-    out["indel_tb_overflow"] = torch.clamp(
-        improves.sum(dtype=i32) - r_tb, min=0)
-    isel = improves[tbx]
-    iidx = iidx[tbx]
-    fwd = {"score": fwd["score"][tbx], "end_k": fwd["end_k"][tbx],
-           "dirs": fwd["dirs"][tbx], "gstart_off": fwd["gstart_off"][tbx]}
-    ref = row_map(rows, lambda _ix, f, ln: indel_traceback(f, ln, INDEL_BAND),
-                  index, fwd, ili[tbx])
-    out["in_idx"] = iidx.to(i32)
-    out["in_sel"] = isel & (ref["nruns"] <= MAXRUNS)
-    out["in_score"] = ref["score"].to(torch.int16)
-    out["in_runop"] = ref["run_op"]
-    out["in_runlen"] = ref["run_len"]
-    out["in_startoff"] = ref["start_off"]
+    with span("indel"):
+        ri = min(r_indel, B)
+        need_i = valid & ((nmm >= INDEL_NMM_TRIGGER)
+                          | (clip >= CLIP_INDEL_TRIGGER)) & ~splice_accept_b
+        iidx = _ranked(need_i, ri)
+        isel = need_i[iidx]
+        icodes, _inm, ili = _oriented_rows_dev(
+            pbatch["packed"], pbatch["pnmask"], lengths, iidx, strand[iidx],
+            L)
+        idg = torch.where(valid[iidx], diag[iidx], 0)
+        fwd = row_map(rows, lambda ix, c, ln, d: indel_forward(
+            ix, c, ln, d, INDEL_BAND, INDEL_MARGIN), index, icodes, ili, idg)
+        # second compaction before the traceback: only rows whose DP
+        # score beats their substitution score can be accepted by the host
+        r_tb = min(max(r_indel // 8, 32), ri)
+        sub_score = 3 * ili - 6 * nmm[iidx]
+        improves = isel & (fwd["score"] > sub_score)
+        gain = torch.clamp(fwd["score"] - sub_score, 0, 2 ** 20)
+        ar_i = torch.arange(ri, dtype=i32, device=dev)
+        _, tbx = stable_topk(
+            torch.where(improves, gain * (2 * ri) + (ri - ar_i), 0), r_tb)
+        out["indel_tb_overflow"] = torch.clamp(
+            improves.sum(dtype=i32) - r_tb, min=0)
+        isel = improves[tbx]
+        iidx = iidx[tbx]
+        fwd = {"score": fwd["score"][tbx], "end_k": fwd["end_k"][tbx],
+               "dirs": fwd["dirs"][tbx],
+               "gstart_off": fwd["gstart_off"][tbx]}
+        ref = row_map(rows, lambda _ix, f, ln: indel_traceback(
+            f, ln, INDEL_BAND), index, fwd, ili[tbx])
+        out["in_idx"] = iidx.to(i32)
+        out["in_sel"] = isel & (ref["nruns"] <= MAXRUNS)
+        out["in_score"] = ref["score"].to(torch.int16)
+        out["in_runop"] = ref["run_op"]
+        out["in_runlen"] = ref["run_len"]
+        out["in_startoff"] = ref["start_off"]
 
     if splicing and "trim_qstart" in res:
         indel_b = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -432,21 +444,23 @@ def refine_full(index, pbatch, res, config: AlignConfig, L: int,
         return out
     # multimapping rows keep their ranked lists through a small
     # compaction (-n/--npaths > 1); the full [B, K] lists stay on device
-    r_sec = min(max(256, B // 64), B)
-    sec_need = valid & (res["n_best"] > 1)
-    sidx = _ranked(sec_need, r_sec)
-    out["sec_idx"] = sidx.to(i32)
-    out["sec_sel"] = sec_need[sidx]
-    out["sec_overflow"] = torch.clamp(sec_need.sum(dtype=i32) - r_sec,
-                                      min=0)
-    out["sec_diags"] = res["cand_diags"][sidx]
-    out["sec_strands"] = res["cand_strands"][sidx].to(torch.uint8)
-    out["sec_nmm"] = res["cand_nmm"][sidx].to(torch.int16)
+    with span("secondary"):
+        r_sec = min(max(256, B // 64), B)
+        sec_need = valid & (res["n_best"] > 1)
+        sidx = _ranked(sec_need, r_sec)
+        out["sec_idx"] = sidx.to(i32)
+        out["sec_sel"] = sec_need[sidx]
+        out["sec_overflow"] = torch.clamp(sec_need.sum(dtype=i32) - r_sec,
+                                          min=0)
+        out["sec_diags"] = res["cand_diags"][sidx]
+        out["sec_strands"] = res["cand_strands"][sidx].to(torch.uint8)
+        out["sec_nmm"] = res["cand_nmm"][sidx].to(torch.int16)
     for key in ("cand_diags", "cand_strands", "cand_nmm"):
         out.pop(key)
     return out
 
 
+@traced("amb")
 def _amb_review(index, pbatch, res, config, L, sc, tqs, tqe, trim_nmm,
                 splice_accept_b, indel_b, idx, multi_ok, c1, rows=None):
     """The in-program ambiguous splice-end review (ladder.py:539-738):
@@ -623,23 +637,24 @@ def align_pair_full(index, pbatch, config: AlignConfig, L: int,
     out = refine_full(index, pbatch, res, config, L, scoring, splicing,
                       salvage, r_chain, r_salv, r_indel, keep_cands=True,
                       known=known, rows=rows)
-    lengths = pbatch["lengths"]
-    cd, cs, cn = (out.pop("cand_diags"), out.pop("cand_strands"),
-                  out.pop("cand_nmm"))
-    d1, d2 = cd[0::2], cd[1::2]
-    s1, s2 = cs[0::2], cs[1::2]
-    n1, n2 = cn[0::2], cn[1::2]
-    ci, cj, valid, insert = concordance_device(
-        d1, s1, n1, lengths[0::2], d2, s2, n2, lengths[1::2], pairmax,
-        orientation, pairexpect, pairdev)
-    out["pe_ci"] = ci
-    out["pe_cj"] = cj
-    out["pe_valid"] = valid
-    out["pe_insert"] = insert
-    for key, arr, i in (("pe_cd1", d1, ci), ("pe_cs1", s1, ci),
-                        ("pe_cn1", n1, ci), ("pe_cd2", d2, cj),
-                        ("pe_cs2", s2, cj), ("pe_cn2", n2, cj)):
-        out[key] = torch.gather(arr, 1, i[:, None])[:, 0]
+    with span("concordance"):
+        lengths = pbatch["lengths"]
+        cd, cs, cn = (out.pop("cand_diags"), out.pop("cand_strands"),
+                      out.pop("cand_nmm"))
+        d1, d2 = cd[0::2], cd[1::2]
+        s1, s2 = cs[0::2], cs[1::2]
+        n1, n2 = cn[0::2], cn[1::2]
+        ci, cj, valid, insert = concordance_device(
+            d1, s1, n1, lengths[0::2], d2, s2, n2, lengths[1::2], pairmax,
+            orientation, pairexpect, pairdev)
+        out["pe_ci"] = ci
+        out["pe_cj"] = cj
+        out["pe_valid"] = valid
+        out["pe_insert"] = insert
+        for key, arr, i in (("pe_cd1", d1, ci), ("pe_cs1", s1, ci),
+                            ("pe_cn1", n1, ci), ("pe_cd2", d2, cj),
+                            ("pe_cs2", s2, cj), ("pe_cn2", n2, cj)):
+            out[key] = torch.gather(arr, 1, i[:, None])[:, 0]
     return narrow_result(out)
 
 
@@ -655,17 +670,34 @@ def start_fetch(dev: dict):
     the current stream) and return a function that waits for them and
     returns the dict widened as tpumap's host half sees it: bool stays
     bool, int64 coordinates become uint32, narrower integers int32."""
-    event = None
-    host = dev
-    if any(v.device.type == "cuda" for v in dev.values()):
-        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                .copy_(v, non_blocking=True) for k, v in dev.items()}
-        event = torch.cuda.Event()
-        event.record()
+    with span("fetch"):
+        event = None
+        host = dev
+        if any(v.device.type == "cuda" for v in dev.values()):
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    .copy_(v, non_blocking=True) for k, v in dev.items()}
+            event = torch.cuda.Event()
+            event.record()
 
     def wait() -> dict:
         if event is not None:
-            event.synchronize()
+            _wait_event(event)
+        return _host_view(host)
+
+    return wait
+
+
+def _wait_event(event) -> None:
+    """Block the host until the card has run up to event: the batch's
+    device work and its result copies."""
+    with span("wait"):
+        event.synchronize()
+
+
+def _host_view(host: dict) -> dict:
+    """The copied result dict as numpy, widened as tpumap's host half
+    sees it."""
+    with span("widen"):
         out = {}
         for k, v in host.items():
             a = v.numpy()
@@ -676,7 +708,15 @@ def start_fetch(dev: dict):
             out[k] = a
         return widen_ints(out)
 
-    return wait
+
+def count_batch(res: dict, reads: int) -> None:
+    """Count one batch (host values of its fetched result dict): the
+    batch, its reads and each overflow scalar the dict holds."""
+    count("batches")
+    count("reads", reads)
+    for k in OVERFLOWS:
+        if k in res:
+            count(k, int(res[k]))
 
 
 def fetch_result(dev: dict) -> dict:

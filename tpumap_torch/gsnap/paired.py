@@ -45,6 +45,7 @@ from tpumap_torch.io.fasta import Record
 from tpumap_torch.ops import localscan, pack, pathdp, verify
 from tpumap_torch.ops.u32 import INVALID, MASK32
 from tpumap_torch.utils import dna
+from tpumap_torch.utils.trace import count, counting, counting_on, span, traced
 
 NO_PAIR = 2 ** 28           # concordance key of a non-concordant combination
 
@@ -168,8 +169,10 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
     candidates, then refine_unsolved's stages). Returns (mate 1, mate 2)
     SAM record pairs in input order, or, with sink (a callable taking
     bytes), streams the SAM text to it and returns []. known: a
-    KnownSplicing (-s). stats, if given, counts the rescue rows, the
-    mates rescued, the repair rows and the mates repaired. device_ctx
+    KnownSplicing (-s). stats, if given, receives the counts of
+    utils/trace.py: batches, reads (mates), the overflow scalars, the
+    indel rows, the rows each emitter wrote, the rescue rows, the mates
+    rescued, the repair rows and the mates repaired. device_ctx
     (parallel/pipeline.MeshContext) runs the paired program, the cascade
     and the chain solver over its device grid."""
     dev = index.device
@@ -197,44 +200,50 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
              else pad_to_bucket(2 * len(chunk)))
         batch = make_batch(flat, B, run_L)
         pbatch = _to_device(batch, dev)
-        if use_fused:
-            args = (config, run_L, sc, novelsplicing or known is not None,
-                    novelsplicing and use_localdb, min(max(8192, B // 2), B),
-                    min(max(2048, B // 8), B), min(2048, B), pairmax,
-                    orientation, pairexpect or 1000, pairdev)
-            if device_ctx is not None:
-                res = device_ctx.pair_full(pbatch, *args, known=known_dev)
+        with span("enqueue"):
+            if use_fused:
+                args = (config, run_L, sc,
+                        novelsplicing or known is not None,
+                        novelsplicing and use_localdb,
+                        min(max(8192, B // 2), B), min(max(2048, B // 8), B),
+                        min(2048, B), pairmax, orientation,
+                        pairexpect or 1000, pairdev)
+                if device_ctx is not None:
+                    res = device_ctx.pair_full(pbatch, *args,
+                                               known=known_dev)
+                else:
+                    res = ladder.align_pair_full(index, pbatch, *args,
+                                                 known=known_dev)
+            elif device_ctx is not None:
+                res = ladder.narrow_result(device_ctx.cascade(
+                    index, pbatch, config, run_L))
             else:
-                res = ladder.align_pair_full(index, pbatch, *args,
-                                             known=known_dev)
-        elif device_ctx is not None:
-            res = ladder.narrow_result(device_ctx.cascade(
-                index, pbatch, config, run_L))
-        else:
-            res = ladder.narrow_result(align_batch_cascaded_packed(
-                index, pbatch, config, run_L))
+                res = ladder.narrow_result(align_batch_cascaded_packed(
+                    index, pbatch, config, run_L))
         return chunk, batch, ladder.start_fetch(res)
 
     bulk_ok = remapper is None and sam_bulk._get_lib() is not None
     out = []
     starts = list(range(0, len(pairs), batch_size))
     pending = _dispatch(starts[0]) if starts else None
-    for si, start in enumerate(starts):
-        chunk, batch, wait = pending
-        if si + 1 < len(starts):
-            # the next batch's device work runs under this batch's host
-            # work
-            pending = _dispatch(starts[si + 1])
-        res = wait()
-        out_chunk = _pair_chunk(db, index, chunk, batch, res, config, run_L,
-                                pairmax, novelsplicing, max_intron, known,
-                                orientation, pairexpect, pairdev,
-                                max_insertions, max_deletions,
-                                indel_endlength, use_localdb, known_indels,
-                                remapper, resolve_inner, bulk_ok, sink,
-                                stats, device_ctx)
-        if sink is None:
-            out.extend(out_chunk)
+    with counting(stats):
+        for si, start in enumerate(starts):
+            chunk, batch, wait = pending
+            if si + 1 < len(starts):
+                # the next batch's device work runs under this batch's
+                # host work
+                pending = _dispatch(starts[si + 1])
+            res = wait()
+            if counting_on():
+                ladder.count_batch(res, 2 * len(chunk))
+            out_chunk = _pair_chunk(
+                db, index, chunk, batch, res, config, run_L, pairmax,
+                novelsplicing, max_intron, known, orientation, pairexpect,
+                pairdev, max_insertions, max_deletions, indel_endlength,
+                use_localdb, known_indels, remapper, resolve_inner, bulk_ok,
+                sink, device_ctx)
+            if sink is None:
+                out.extend(out_chunk)
     return out
 
 
@@ -429,11 +438,12 @@ def _resolve_amb_with_mate(res, amb_res, splice_result, len2, end_info, B2,
             amb_res.pop(i, None)
 
 
+@traced("pair")
 def _pair_chunk(db, index, chunk, batch, res, config, L, pairmax,
                 novelsplicing, max_intron, known, orientation, pairexpect,
                 pairdev, max_insertions, max_deletions, indel_endlength,
                 use_localdb, known_indels, remapper, resolve_inner, bulk_ok,
-                sink, stats, device_ctx=None):
+                sink, device_ctx=None):
     """The host half of one batch (paired.py:286-691). Returns the
     chunk's record pairs, or streams them to sink and returns []."""
     n = len(chunk)
@@ -491,12 +501,10 @@ def _pair_chunk(db, index, chunk, batch, res, config, L, pairmax,
         repair_result = _mate_repair(db, index, batch, res, repair_rows,
                                      bases, L, pairmax, max_intron, config,
                                      device_ctx)
-    if stats is not None:
-        for key, v in (("rescue_rows", len(rescue_rows)),
-                       ("rescued", len(rescued)),
-                       ("repair_rows", len(repair_rows)),
-                       ("repaired", len(repair_result))):
-            stats[key] = stats.get(key, 0) + v
+    count("rescue_rows", len(rescue_rows))
+    count("rescued", len(rescued))
+    count("repair_rows", len(repair_rows))
+    count("repaired", len(repair_result))
 
     amb_res = {}
     dp_result, splice_result, _fus = refine_unsolved(
@@ -548,6 +556,36 @@ def _pair_chunk(db, index, chunk, batch, res, config, L, pairmax,
         _resolve_amb_with_mate(res, amb_res, splice_result, len2, end_info,
                                B2, pairexpect, pairdev)
 
+    out_chunk, plain = _emit_pair_rows(
+        db, chunk, res, config, known, mapq, len2, dp_result, splice_result,
+        amb_res, evalid, end_info, pairmax, resolve_inner, remapper,
+        bulk_ok)
+    ip = np.nonzero(plain)[0]
+    count("rows_native", 2 * len(ip))
+    count("rows_python", 2 * (n - len(ip)))
+    blob = None
+    if len(ip):
+        blob = _emit_plain_pairs_bulk(db, batch, chunk, ip, ediag, estrand,
+                                      enmm, len2, mapq, pairmax,
+                                      resolve_inner, out_chunk,
+                                      raw=sink is not None)
+    if sink is None:
+        return out_chunk
+    _stream_pairs(out_chunk, blob, sink)
+    return []
+
+
+@traced("emit_rows")
+def _emit_pair_rows(db, chunk, res, config, known, mapq, len2, dp_result,
+                    splice_result, amb_res, evalid, end_info, pairmax,
+                    resolve_inner, remapper, bulk_ok):
+    """The Python records of one batch of pairs: the special rows (solved
+    beyond a plain ungapped record) and every pair that is not plain
+    (both ends mapped, no special, no ambiguous end), which the native
+    bulk emission takes where bulk_ok. Returns (out_chunk with the
+    non-plain pairs' records, the plain mask)."""
+    n = len(chunk)
+    B2 = 2 * n
     # specials: rows the ladder solved beyond a plain ungapped record
     specials = {}
     for i in sorted(set(splice_result) | set(dp_result)):
@@ -587,18 +625,14 @@ def _pair_chunk(db, index, chunk, batch, res, config, L, pairmax,
             # transcript remap and the pair's joint velocity (XX/XY)
             remap_mod.tag_pair(remapper, db, pair_rec[0], pair_rec[1])
         out_chunk[p] = pair_rec
+    return out_chunk, plain
 
-    ip = np.nonzero(plain)[0]
-    blob = None
-    if len(ip):
-        blob = _emit_plain_pairs_bulk(db, batch, chunk, ip, ediag, estrand,
-                                      enmm, len2, mapq, pairmax,
-                                      resolve_inner, out_chunk,
-                                      raw=sink is not None)
-    if sink is None:
-        return out_chunk
-    # streaming: plain pairs as blob byte spans (consecutive spans
-    # coalesced), the other pairs as record lines
+
+@traced("emit_rows")
+def _stream_pairs(out_chunk, blob, sink) -> None:
+    """Stream one batch's pairs in input order: plain pairs as byte spans
+    of the native blob (consecutive spans coalesced), the other pairs as
+    record lines."""
     buf = blob.buf if blob is not None else b""
     run_a = run_b = None
     for item in out_chunk:
@@ -619,9 +653,9 @@ def _pair_chunk(db, index, chunk, batch, res, config, L, pairmax,
         sink(rb.lines().encode())
     if run_a is not None:
         sink(buf[run_a:run_b])
-    return []
 
 
+@traced("emit")
 def _emit_plain_pairs_bulk(db, batch, chunk, ip, ediag, estrand, enmm,
                            len2, mapq, pairmax, resolve_inner, out_chunk,
                            raw=False):
