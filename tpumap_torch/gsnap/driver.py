@@ -1421,8 +1421,8 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
     # so it does not run ahead of their small launches
     early_dispatch = (tr is None and not find_fusions
                       and (use_fused or not splicing_on))
-    pending = _dispatch(starts[0]) if starts else None
     with counting(stats):
+        pending = _dispatch(starts[0]) if starts else None
         for si, start in enumerate(starts):
             chunk, batch, wait = pending
             if si + 1 < len(starts) and early_dispatch:

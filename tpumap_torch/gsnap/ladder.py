@@ -23,6 +23,8 @@ tpumap's uint32 wrap arithmetic is `(a - b) & MASK32` here.
 """
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -42,6 +44,7 @@ from tpumap_torch.ops.dp import MAXRUNS
 from tpumap_torch.ops.u32 import (INT32_MIN, INVALID, MASK32, stable_topk,
                                   take_along)
 from tpumap_torch.utils.fetch import _WIRE_DTYPES, widen_ints
+from tpumap_torch.utils.graphs import SegmentedGraph
 from tpumap_torch.utils.trace import count, span, traced
 
 SALVAGE_W = 65536         # localdb region scale (src/localdb-write.c)
@@ -117,6 +120,19 @@ def _on(known, device):
     return {k: v.to(device) for k, v in known.items()}
 
 
+# BOUNDARY_SHIFTS int32[1, NS5] a device, built once: a CUDA graph
+# cannot hold a copy from host memory
+_SHIFTS: dict = {}
+
+
+def _boundary_shifts(dev) -> torch.Tensor:
+    t = _SHIFTS.get(dev)
+    if t is None:
+        t = _SHIFTS[dev] = torch.tensor(BOUNDARY_SHIFTS, dtype=torch.int32,
+                                        device=dev)[None, :]
+    return t
+
+
 # the result dict's overflow scalars: rows a fixed-size compaction left out
 OVERFLOWS = ("stage2_overflow", "indel_tb_overflow", "amb_row_overflow",
              "amb_task_overflow", "sec_overflow")
@@ -139,11 +155,82 @@ def align_batch_full(index, pbatch, config: AlignConfig, L: int,
     review hits (splicing), sec_* secondary candidates and the overflow
     counters. Compaction sizes as tpumap's driver passes them. With
     known (a dict of knownsplicing.known_to_device) this is tpumap's
-    align_batch_full_known."""
+    align_batch_full_known.
+
+    Where graph_engages, the batch is a replay of the CUDA graph
+    segments captured for its graph_key on the index (the first batch of
+    a key captures them): the same kernels in the same order, and a
+    result dict that the next batch of the key overwrites once its
+    copies (start_fetch, on the same stream) are done."""
+    args = (config, L, scoring, splicing, salvage, r_chain, r_salv, r_indel)
+    if graph_engages(index, pbatch, config, known, rows):
+        graph = _ladder_graph(index, pbatch, args)
+        if graph is not None:
+            count("ladder_graph_replays")
+            return dict(graph(pbatch))
+    count("ladder_eager")
+    return _ladder_full(index, pbatch, *args, known=known, rows=rows)
+
+
+def _ladder_full(index, pbatch, config, L, scoring, splicing, salvage,
+                 r_chain, r_salv, r_indel, known=None, rows=None):
+    """The ladder's launches, eagerly or under capture."""
     res = align_batch_cascaded_packed(index, pbatch, config, L, rows=rows)
     return narrow_result(refine_full(index, pbatch, res, config, L, scoring,
                                      splicing, salvage, r_chain, r_salv,
                                      r_indel, known=known, rows=rows))
+
+
+# captured ladders kept a device index; a batch of a key past them runs
+# eagerly
+GRAPH_KEYS = 8
+
+
+def graph_engages(index, pbatch, config: AlignConfig, known, rows) -> bool:
+    """Whether a batch of align_batch_full replays CUDA graphs: one card
+    (no rows), no known tables, standard mode without SNP tolerance, and
+    the index and every input on the card. The others run eagerly: the
+    modes copy host constants inside the ladder (ops/mode.py), and none
+    of them has a cell that would show a gain."""
+    return (rows is None and known is None and config.mode == "standard"
+            and not config.snp_tolerant and index.device.type == "cuda"
+            and all(t.device == index.device for t in pbatch.values()))
+
+
+def graph_key(pbatch, args) -> tuple:
+    """A captured ladder's key, by value: each input's name, dtype and
+    shape (B, W, the pnmask stub or full mask, quals), and the run's
+    config, L, scoring, splicing, salvage and compaction sizes, so that
+    configs built anew by each align_records call share the key."""
+    return (tuple((k, v.dtype, tuple(v.shape))
+                  for k, v in sorted(pbatch.items())),) + tuple(args)
+
+
+def _ladder_graph(index, pbatch, args):
+    """The index's captured ladder of this batch's key, captured now if
+    new; None where the key's capture failed (a warning, then eager for
+    the rest of the run) or the index holds GRAPH_KEYS others. The
+    graphs hold the index's pointers, so they live on the index."""
+    cache = vars(index).setdefault("_ladder_graphs", {})
+    key = graph_key(pbatch, args)
+    if key in cache:
+        return cache[key]
+    if len(cache) >= GRAPH_KEYS:
+        return None
+    _config, _L, _scoring, splicing, *_ = args
+    if splicing:
+        _boundary_shifts(index.device)      # built outside the capture
+    try:
+        graph = SegmentedGraph(
+            lambda pb: _ladder_full(index, pb, *args), pbatch)
+        count("ladder_graph_captures")
+    except RuntimeError as exc:
+        warnings.warn(f"align_batch_full: CUDA graph capture failed, the "
+                      f"ladder runs eagerly for this key ({exc})")
+        count("ladder_graph_fallbacks")
+        graph = None
+    cache[key] = graph
+    return graph
 
 
 def _partners(known, adiag, li, max_intron: int):
@@ -530,7 +617,7 @@ def _amb_review(index, pbatch, res, config, L, sc, tqs, tqe, trim_nmm,
     codes_a, _nm, li_a = _oriented_rows_dev(pbatch["packed"],
                                             pbatch["pnmask"], lengths, ridx,
                                             res["strand"][ridx], L)
-    shifts = torch.tensor(BOUNDARY_SHIFTS, dtype=i32, device=dev)[None, :]
+    shifts = _boundary_shifts(dev)
     glen = int(index.genome_length) & MASK32
     ar_f = torch.arange(F, dtype=i32, device=dev)[None, None, :]
     u8 = torch.uint8
