@@ -40,7 +40,7 @@ from tpumap_torch.gsnap import driver, engine, ladder, paired
 from tpumap_torch.gsnap.knownsplicing import known_to_device
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops import pathdp
-from torch_workloads import NO_TPUMAP, mixed_workload, stream_pairs
+from torch_workloads import NO_TPUMAP, mend_tlen, mixed_workload, stream_pairs
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -257,9 +257,13 @@ def by_world(blob, owner):
 @pytest.mark.parametrize("sink", [False, True])
 @pytest.mark.parametrize("run", list(RUNS))
 def test_worlds_pair_sam(world, run, sink):
+    """tpumap's SAM but for TLEN where a mate is gapped, spliced or
+    repaired: the port measures it to that mate's aligned end, tpumap to
+    its start plus the read's length (mend_tlen)."""
     db, pairs, owner, ks, want, _dicts = world
     got = port_pairs(db, pairs, ks, run, sink)
-    w, g = by_world(want[run], owner), by_world(got, owner)
+    mended, changed = mend_tlen(want[run], RUNS[run]["pairmax"])
+    w, g = by_world(mended, owner), by_world(got, owner)
     for name in WORLDS:
         assert g[name] == w[name], name
     f = [ln.split("\t") for ln in w["case"]]
@@ -272,6 +276,18 @@ def test_worlds_pair_sam(world, run, sink):
         assert rep[1][5] == "60M200N40M" and rep[1][3] == "75201"  # repair
         assert int(rep[3][1]) & 4                        # not invented
         assert "3970N" in w["spliced"][0]
+        # the repaired mate ends its 200-base intron past tpumap's end,
+        # the one TLEN that differs; the spliced end's pair spans 4,420
+        # bases by either measure, past pairmax
+        jrep = by_world(want[run], owner)["repair"]
+        assert [ln.split("\t")[8] for ln in jrep[:2]] == ["300", "-300"]
+        assert [f[8] for f in rep[:2]] == ["500", "-500"]
+        spl = [ln.split("\t") for ln in w["spliced"]]
+        assert [f[8] for f in spl] == ["0", "0"]
+        assert not int(spl[0][1]) & 2
+        assert changed == 1
+    else:
+        assert changed == 0
 
 
 def test_resolve_inner_off_sam(world):
@@ -352,7 +368,10 @@ def stream(tmp_path_factory):
 
 @pytest.mark.parametrize("sink", [False, True])
 def test_stream_paired_workload_sam(stream, sink):
+    """tpumap's bytes exactly: no proper pair of the workload has a
+    gapped mate, so the port's TLEN measure changes none."""
     db, pairs, want = stream
+    assert mend_tlen(want, 1000) == (want, 0)
     ti = DeviceIndex.from_host(db, "cpu")
     cfg = engine.AlignConfig(top_k=4, max_occ=8)
     if sink:

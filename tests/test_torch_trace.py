@@ -186,6 +186,32 @@ def test_paired_counters_reach_both(world):
     assert rec.calls["pair"] == stats["batches"]
 
 
+@pytest.mark.parametrize("splicing", [False, True])
+def test_pair_layer_counters_and_spans(world, splicing):
+    """The pair layer's counters (pairs, concordant by the device
+    reduction, EXHAUSTIVE, proper as emitted: the lines with 0x2 over
+    two) in the Recorder and stats alike, and its rescue and repair
+    spans inside pair, once a batch that has such rows."""
+    kw = dict(novelsplicing=True, max_intron=10_000) if splicing else {}
+    stats = {}
+    rec, text = _run(_paired, world, stats=stats, **kw)
+    assert rec.counters == stats
+    n = len(world[3])
+    flags = [int(ln.split(b"\t")[1]) for ln in text.splitlines()]
+    assert stats["pairs"] == n
+    assert stats["pairs_proper"] == sum(f & 0x2 > 0 for f in flags) // 2 > 0
+    assert stats["pairs_exhaustive"] <= n - stats["pairs_concordant"] < n
+    # no gapped mate in this workload's proper pairs
+    assert "tlen_from_alignment" not in stats
+    assert 1 <= rec.calls["rescue"] <= stats["batches"]
+    assert rec.calls.get("repair", 0) == (1 if splicing else 0)
+    assert stats["repair_rows"] == (1 if splicing else 0)
+    pair = [(s, e) for s, e, name in rec.intervals if name == "pair"]
+    for s, e, name in rec.intervals:
+        if name in ("rescue", "repair"):
+            assert any(a <= s and e <= b for a, b in pair), name
+
+
 def test_no_recorder_records_nothing(world):
     assert trace.span("encode") is trace.NO_SPAN
     assert trace.span("other") is trace.NO_SPAN

@@ -5,6 +5,7 @@ Each workload builds its GenomeDB and Records with tpumap's host modules
 (for the JAX side of a parity test), or with port=True with the port's
 own copies, from the same generator (for runs where tpumap cannot be
 imported)."""
+import re
 import types
 
 import numpy as np
@@ -109,6 +110,56 @@ def stream_pairs(db, port=False):
 
 def sam_text(recs) -> bytes:
     return "".join(r.lines() for r in recs).encode()
+
+
+_CIGAR = re.compile(r"(\d+)([MIDNSHP=X])")
+
+
+def aligned_span(fields) -> tuple:
+    """(start, end) of a SAM line's aligned bases (fields: the line's
+    str fields): POS to POS plus the reference length of its CIGAR (M,
+    D, N, = and X), the measure of TLEN in SAM v1.6, 1.4."""
+    pos = int(fields[3])
+    return pos, pos + sum(int(n) for n, op in _CIGAR.findall(fields[5])
+                          if op in "MDN=X")
+
+
+def mend_tlen(text: bytes, pairmax: int) -> tuple:
+    """tpumap's pair SAM with each proper pair's TLEN as the port gives
+    it: the span from the leftmost to the rightmost aligned base of the
+    two mates' own lines (tpumap ends a gapped, spliced or repaired mate
+    at its start plus the read's length), plus on the mate that starts
+    first (mate 1 on a tie); a pair whose span then passes pairmax loses
+    its proper-pair bit and its TLEN. Every other byte stays. Returns
+    (the text, the pairs whose TLEN changed). Mates are found by QNAME
+    less a /1 or /2 suffix."""
+    lines = text.split(b"\n")
+    mates = {}
+    for k, ln in enumerate(lines):
+        if not ln or ln[:1] == b"@":
+            continue
+        f = ln.split(b"\t")
+        flag = int(f[1])
+        if flag & 0x3 == 0x3 and not flag & 0x900:
+            name = f[0][:-2] if f[0][-2:] in (b"/1", b"/2") else f[0]
+            mates.setdefault(name, {})[bool(flag & 0x80)] = k
+    changed = 0
+    for ks in mates.values():
+        if len(ks) != 2:
+            continue
+        f1, f2 = (lines[ks[m]].decode().split("\t") for m in (False, True))
+        (s1, e1), (s2, e2) = aligned_span(f1), aligned_span(f2)
+        span = max(e1, e2) - min(s1, s2)
+        t1 = (1 if s1 <= s2 else -1) * span if span <= pairmax else 0
+        if t1 == int(f1[8]):
+            continue
+        changed += 1
+        for m, f, t in ((False, f1, t1), (True, f2, -t1)):
+            f[8] = str(t)
+            if not t:
+                f[1] = str(int(f[1]) & ~0x2)
+            lines[ks[m]] = "\t".join(f).encode()
+    return b"\n".join(lines), changed
 
 
 def mode_world(root, port=False):

@@ -172,9 +172,12 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
     KnownSplicing (-s). stats, if given, receives the counts of
     utils/trace.py: batches, reads (mates), the overflow scalars, the
     indel rows, the rows each emitter wrote, the rescue rows, the mates
-    rescued, the repair rows and the mates repaired. device_ctx
-    (parallel/pipeline.MeshContext) runs the paired program, the cascade
-    and the chain solver over its device grid."""
+    rescued, the repair rows and the mates repaired; pairs, those the
+    concordance reduction found concordant, those that took the
+    EXHAUSTIVE fallback, those emitted as proper pairs, and those whose
+    TLEN ends at a special mate's aligned end (tlen_from_alignment).
+    device_ctx (parallel/pipeline.MeshContext) runs the paired program,
+    the cascade and the chain solver over its device grid."""
     dev = index.device
     remapper = None
     if tr is not None:
@@ -247,6 +250,7 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
     return out
 
 
+@traced("rescue")
 def _rescue(index, batch, res, rescue_rows, L, pairmax, config):
     """Rescue each (pair, bad, good) row's mate `bad` inside the insert
     window of `good` (the LOCAL_MATE method). Returns (rescued, bases):
@@ -287,6 +291,7 @@ def _rescue(index, batch, res, rescue_rows, L, pairmax, config):
     return rescued, bases
 
 
+@traced("repair")
 def _mate_repair(db, index, batch, res, repair_rows, bases, L, pairmax,
                  max_intron, config, device_ctx=None):
     """GMAP-style mate repair (paired.py:394-496): an unplaced mate's
@@ -501,6 +506,9 @@ def _pair_chunk(db, index, chunk, batch, res, config, L, pairmax,
         repair_result = _mate_repair(db, index, batch, res, repair_rows,
                                      bases, L, pairmax, max_intron, config,
                                      device_ctx)
+    count("pairs", n)
+    count("pairs_concordant", int(np.count_nonzero(cval)))
+    count("pairs_exhaustive", len(exh_pairs))
     count("rescue_rows", len(rescue_rows))
     count("rescued", len(rescued))
     count("repair_rows", len(repair_rows))
@@ -617,6 +625,8 @@ def _emit_pair_rows(db, chunk, res, config, known, mapq, len2, dp_result,
                               int(mapq[i1]), int(mapq[i2]), pairmax,
                               resolve_inner=resolve_inner, special=special,
                               keys=(i1, i2))
+        if pair_rec[0].flag & 0x2:
+            count("pairs_proper")
         if amb_res:
             for idx, r_out in ((i1, pair_rec[0]), (i2, pair_rec[1])):
                 if idx in amb_res and not r_out.flag & 4:
@@ -705,6 +715,7 @@ def _emit_plain_pairs_bulk(db, batch, chunk, ip, ediag, estrand, enmm,
     tlen2 = -tlen1
     f1 |= np.where(proper, 2, 0)
     f2 |= np.where(proper, 2, 0)
+    count("pairs_proper", int(np.count_nonzero(proper)))
 
     # interleave the ends back into emission rows
     M = 2 * m
@@ -807,7 +818,10 @@ def _pair_plan(r1, r2, e1, e2, pairmax, sp1=None, sp2=None,
                resolve_inner=True):
     """Mate-field arithmetic shared by the Python and bulk emitters: per
     mate (clip qs/qe, flag bits, mate univcoord or None, tlen) after the
-    superseding specials and --resolve-inner dovetail clipping."""
+    superseding specials and --resolve-inner dovetail clipping. TLEN and
+    the proper-pair test against pairmax span the mates' aligned bases
+    (SAM v1.6, 1.4): a special mate's from its own POS and CIGAR, a
+    substitution placement's from its clips."""
     if sp1 is not None:
         e1 = (sp1[1], sp1[2], 0)
     if sp2 is not None:
@@ -844,15 +858,22 @@ def _pair_plan(r1, r2, e1, e2, pairmax, sp1=None, sp2=None,
                       "tlen": 0})
     # proper pair and TLEN when both map on opposite strands in range
     if e1 is not None and e2 is not None and e1[1] != e2[1]:
-        lo = min(e1[0] + clips[0][0], e2[0] + clips[1][0])
-        hi = max(e1[0] + clips[0][1], e2[0] + clips[1][1])
+        # each mate's aligned genome span [start, end)
+        spans = [(e[0], e[0] + sam.ref_consumed(sp[0].cigar))
+                 if sp is not None else (e[0] + clip[0], e[0] + clip[1])
+                 for e, sp, clip in ((e1, sp1, clips[0]),
+                                     (e2, sp2, clips[1]))]
+        lo = min(spans[0][0], spans[1][0])
+        hi = max(spans[0][1], spans[1][1])
         tlen = hi - lo
         if tlen <= pairmax:
-            sign1 = (1 if e1[0] + clips[0][0] <= e2[0] + clips[1][0]
-                     else -1)
+            sign1 = 1 if spans[0][0] <= spans[1][0] else -1
             for pl, sg in ((plans[0], sign1), (plans[1], -sign1)):
                 pl["flag_extra"] |= 0x2
                 pl["tlen"] = sg * tlen
+            if any(sp is not None and sn[1] == hi
+                   for sp, sn in zip((sp1, sp2), spans)):
+                count("tlen_from_alignment")
     return plans
 
 
