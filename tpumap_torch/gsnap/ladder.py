@@ -163,13 +163,20 @@ def align_batch_full(index, pbatch, config: AlignConfig, L: int,
     result dict that the next batch of the key overwrites once its
     copies (start_fetch, on the same stream) are done."""
     args = (config, L, scoring, splicing, salvage, r_chain, r_salv, r_indel)
-    if graph_engages(index, pbatch, config, known, rows):
-        graph = _ladder_graph(index, pbatch, args)
+    return _replay_or_run(index, pbatch, _ladder_full, args, (), known, rows)
+
+
+def _replay_or_run(index, pbatch, program, args, tag, known, rows):
+    """program(index, pbatch, *args) as a replay of the index's graph of
+    the key graph_key(pbatch, tag + args) where graph_engages, else
+    eagerly; either way counted."""
+    if graph_engages(index, pbatch, args[0], known, rows):
+        graph = _ladder_graph(index, pbatch, program, args, tag)
         if graph is not None:
             count("ladder_graph_replays")
             return dict(graph(pbatch))
     count("ladder_eager")
-    return _ladder_full(index, pbatch, *args, known=known, rows=rows)
+    return program(index, pbatch, *args, known=known, rows=rows)
 
 
 def _ladder_full(index, pbatch, config, L, scoring, splicing, salvage,
@@ -187,11 +194,13 @@ GRAPH_KEYS = 8
 
 
 def graph_engages(index, pbatch, config: AlignConfig, known, rows) -> bool:
-    """Whether a batch of align_batch_full replays CUDA graphs: one card
-    (no rows), no known tables, standard mode without SNP tolerance, and
-    the index and every input on the card. The others run eagerly: the
-    modes copy host constants inside the ladder (ops/mode.py), and none
-    of them has a cell that would show a gain."""
+    """Whether a batch of align_batch_full or align_pair_full replays
+    CUDA graphs: one card (no rows), no known tables, standard mode
+    without SNP tolerance, and the index and every input on the card.
+    The others run eagerly: the modes copy host constants inside the
+    ladder (ops/mode.py), and neither the single-end nor the paired
+    program has a cell with rows, known tables, a mode or SNP that would
+    show a gain."""
     return (rows is None and known is None and config.mode == "standard"
             and not config.snp_tolerant and index.device.type == "cuda"
             and all(t.device == index.device for t in pbatch.values()))
@@ -201,18 +210,21 @@ def graph_key(pbatch, args) -> tuple:
     """A captured ladder's key, by value: each input's name, dtype and
     shape (B, W, the pnmask stub or full mask, quals), and the run's
     config, L, scoring, splicing, salvage and compaction sizes, so that
-    configs built anew by each align_records call share the key."""
+    configs built anew by each align_records call share the key. The
+    paired program's args start with "pair" and end with pairmax,
+    orientation, pairexpect and pairdev."""
     return (tuple((k, v.dtype, tuple(v.shape))
                   for k, v in sorted(pbatch.items())),) + tuple(args)
 
 
-def _ladder_graph(index, pbatch, args):
-    """The index's captured ladder of this batch's key, captured now if
-    new; None where the key's capture failed (a warning, then eager for
-    the rest of the run) or the index holds GRAPH_KEYS others. The
-    graphs hold the index's pointers, so they live on the index."""
+def _ladder_graph(index, pbatch, program, args, tag):
+    """The index's captured program(index, pbatch, *args) of this
+    batch's key, graph_key(pbatch, tag + args), captured now if new;
+    None where the key's capture failed (a warning, then eager for the
+    rest of the run) or the index holds GRAPH_KEYS others. The graphs
+    hold the index's pointers, so they live on the index."""
     cache = vars(index).setdefault("_ladder_graphs", {})
-    key = graph_key(pbatch, args)
+    key = graph_key(pbatch, tag + args)
     if key in cache:
         return cache[key]
     if len(cache) >= GRAPH_KEYS:
@@ -221,12 +233,11 @@ def _ladder_graph(index, pbatch, args):
     if splicing:
         _boundary_shifts(index.device)      # built outside the capture
     try:
-        graph = SegmentedGraph(
-            lambda pb: _ladder_full(index, pb, *args), pbatch)
+        graph = SegmentedGraph(lambda pb: program(index, pb, *args), pbatch)
         count("ladder_graph_captures")
     except RuntimeError as exc:
-        warnings.warn(f"align_batch_full: CUDA graph capture failed, the "
-                      f"ladder runs eagerly for this key ({exc})")
+        warnings.warn(f"{program.__name__}: CUDA graph capture failed, the "
+                      f"program runs eagerly for this key ({exc})")
         count("ladder_graph_fallbacks")
         graph = None
     cache[key] = graph
@@ -718,7 +729,20 @@ def align_pair_full(index, pbatch, config: AlignConfig, L: int,
     then the concordance reduction over the mates' candidate lists.
     Extra keys: pe_ci, pe_cj (chosen candidate per end), pe_valid,
     pe_insert and the chosen candidates' pe_cd*, pe_cs*, pe_cn*; no
-    cand_* or sec_* keys."""
+    cand_* or sec_* keys.
+
+    Where graph_engages, the batch is a replay of the program's CUDA
+    graph segments, as in align_batch_full, under a key of its own."""
+    args = (config, L, scoring, splicing, salvage, r_chain, r_salv, r_indel,
+            pairmax, orientation, pairexpect, pairdev)
+    return _replay_or_run(index, pbatch, _pair_full, args, ("pair",), known,
+                          rows)
+
+
+def _pair_full(index, pbatch, config, L, scoring, splicing, salvage, r_chain,
+               r_salv, r_indel, pairmax, orientation, pairexpect, pairdev,
+               known=None, rows=None):
+    """The paired program's launches, eagerly or under capture."""
     from tpumap_torch.gsnap.paired import concordance_device
     res = align_batch_cascaded_packed(index, pbatch, config, L, rows=rows)
     out = refine_full(index, pbatch, res, config, L, scoring, splicing,

@@ -228,8 +228,8 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
     bulk_ok = remapper is None and sam_bulk._get_lib() is not None
     out = []
     starts = list(range(0, len(pairs), batch_size))
-    pending = _dispatch(starts[0]) if starts else None
     with counting(stats):
+        pending = _dispatch(starts[0]) if starts else None
         for si, start in enumerate(starts):
             chunk, batch, wait = pending
             if si + 1 < len(starts):

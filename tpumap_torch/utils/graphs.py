@@ -1,6 +1,8 @@
 """Segmented CUDA-graph replay of a function whose device work is a fixed
 chain of launches (no host synchronisation, no shape that depends on a
-value): the fused GSNAP ladder (gsnap/ladder.align_batch_full).
+value): the fused GSNAP ladder (gsnap/ladder.align_batch_full) and the
+fused paired program (gsnap/ladder.align_pair_full), each under keys of
+its own.
 
     g = SegmentedGraph(fn, inputs)      # capture: fn(static inputs)
     out = g(inputs)                     # copy inputs in, replay, out
