@@ -101,7 +101,7 @@ def test_concordance_device_matches(orientation, pairmax, pairexpect,
         jnp.asarray(d1), jnp.asarray(s1), jnp.asarray(n1), jnp.asarray(L1),
         jnp.asarray(d2), jnp.asarray(s2), jnp.asarray(n2), jnp.asarray(L2),
         pairmax, orientation, pairexpect, pairdev)
-    got = paired.concordance_device(
+    got = ladder.concordance_device(
         t(d1.astype(np.int64)), t(s1), t(n1), t(L1), t(d2.astype(np.int64)),
         t(s2), t(n2), t(L2), pairmax, orientation, pairexpect, pairdev)
     for a, b in zip(want, got):

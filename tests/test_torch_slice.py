@@ -29,7 +29,7 @@ from tpumap.utils.fetch import device_fetch, widen_ints
 from tpumap_torch.gsnap import driver, engine, ladder
 from tpumap_torch.ops import pathdp
 from tpumap_torch.index.device import DeviceIndex
-from torch_workloads import NO_TPUMAP, mixed_workload, sam_text
+from torch_workloads import NO_TPUMAP, emit_modes, mixed_workload, sam_text
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -178,6 +178,26 @@ def test_e2e_fixture_sam_identical(synthetic, sink, batch_size, reads):
                                             engine.AlignConfig(),
                                             batch_size=batch_size))
     assert got == want
+
+
+@pytest.mark.parametrize("workload,want", [
+    ("mixed", {"unmapped", "ungapped", "soft-clipped"}),
+    ("dirty_ends", {"ungapped"})])
+def test_list_and_stream_mode_emit_alike(mixed, synthetic, workload, want):
+    """List mode's records are the stream mode's bytes, row for row:
+    both take their native rows from the one C call. The mixed
+    workload holds unmapped, ungapped and soft-clipped native rows (its
+    indel rows go through the Python records), the dirty-ends reads
+    ungapped rows alone."""
+    if workload == "mixed":
+        db, _ji, ti, reads, _ = mixed
+        kinds = emit_modes(db, ti, reads, engine.AlignConfig(**CFG),
+                           batch_size=32)
+    else:
+        db, _ji, ti, workloads = synthetic
+        kinds = emit_modes(db, ti, workloads["dirty_ends"],
+                           engine.AlignConfig(), batch_size=1024)
+    assert set(kinds) == want
 
 
 @pytest.fixture(scope="module")

@@ -38,8 +38,8 @@ from tpumap_torch.cli import gsnap_cli
 from tpumap_torch.gsnap import driver, engine, ladder
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.ops import localscan, pathdp, verify
-from torch_workloads import (NO_TPUMAP, mixed_workload, sam_text, tie_rows,
-                             write_fasta)
+from torch_workloads import (NO_TPUMAP, emit_modes, mixed_workload, sam_text,
+                             tie_rows, write_fasta)
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -315,6 +315,16 @@ def test_stream_workload_novelsplicing_sam(mixed, sink):
     assert got == want
     assert sum(stats.get(m, 0) for m in driver.METHODS) == len(reads) \
         and stats["splice"] > 0 and stats["reads"] == len(reads)
+
+
+def test_list_and_stream_mode_emit_alike_with_paths(mixed):
+    """With novel splicing the one C call also writes the chain's path
+    rows (spliced and deletion CIGARs): list mode's records are the
+    stream mode's bytes, row for row."""
+    db, _ji, ti, reads, _want = mixed
+    kinds = emit_modes(db, ti, reads, engine.AlignConfig(**CFG),
+                       novelsplicing=True, batch_size=32)
+    assert set(kinds) == {"unmapped", "ungapped", "path"}
 
 
 def test_rna_path_runs_without_jax(mixed, tmp_path):

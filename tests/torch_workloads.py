@@ -112,6 +112,48 @@ def sam_text(recs) -> bytes:
     return "".join(r.lines() for r in recs).encode()
 
 
+def emit_modes(db, index, reads, config, **kw) -> dict:
+    """align_records in list mode and in stream mode (sink) on the reads
+    and their reverse complements, so that rows map to both strands:
+    asserts the same SAM bytes, the same rows_native and driver.METHODS
+    counts, and each native row's RawSamRecord.flag equal to its line's
+    FLAG, with FLAG 16 among them. Returns the count of native rows of
+    each kind: unmapped, ungapped, soft-clipped and path (an N or D in
+    the CIGAR)."""
+    from tpumap_torch.gsnap import driver
+    from tpumap_torch.io.sam_bulk import RawSamRecord
+    comp = str.maketrans("ACGTN", "TGCAN")
+    reads = list(reads) + [
+        type(r)(r.accession + "_rc", "", r.sequence.translate(comp)[::-1],
+                r.quality and r.quality[::-1]) for r in reads]
+    list_stats, stream_stats, chunks = {}, {}, []
+    recs = driver.align_records(db, index, reads, config, stats=list_stats,
+                                **kw)
+    assert driver.align_records(db, index, reads, config,
+                                sink=chunks.append, stats=stream_stats,
+                                **kw) == []
+    text = b"".join(bytes(c) for c in chunks)
+    assert sam_text(recs) == text
+    for key in ("rows_native",) + driver.METHODS:
+        assert list_stats.get(key, 0) == stream_stats.get(key, 0), key
+    lines = text.decode().splitlines()
+    assert len(lines) == len(recs)
+    kinds, flags = {}, set()
+    for rec, line in zip(recs, lines):
+        if not isinstance(rec, RawSamRecord):
+            continue
+        fields = line.split("\t")
+        assert rec.flag == int(fields[1]), line
+        flags.add(rec.flag)
+        cigar = fields[5]
+        kind = ("unmapped" if rec.flag & 4 else
+                "path" if "N" in cigar or "D" in cigar else
+                "soft-clipped" if "S" in cigar else "ungapped")
+        kinds[kind] = kinds.get(kind, 0) + 1
+    assert sum(kinds.values()) == list_stats["rows_native"] and 16 in flags
+    return kinds
+
+
 _CIGAR = re.compile(r"(\d+)([MIDNSHP=X])")
 
 

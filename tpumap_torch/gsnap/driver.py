@@ -5,8 +5,10 @@ tpumap/gsnap/driver.py); the command line is tpumap_torch.cli.gsnap_cli.
 The host half here is a JAX-free copy of tpumap's: `make_batch` packs a
 batch in one C pass, the fused ladder runs on the index's device, and
 its result goes through the same acceptance rules (indels, chain
-solutions, the ambiguous splice-end review of stage 3b), MAPQ and
-native SAM emitters (tpumap.io.sam_bulk) as tpumap's fused branch. Batch
+solutions, the ambiguous splice-end review of stage 3b) and MAPQ as
+tpumap's fused branch. One native C call a batch writes every unmapped,
+ungapped and chain-path row it can (io/sam_bulk.emit_mixed_blob), in
+list and stream mode alike; the Python records write the rest. Batch
 i+1 is dispatched before the host work of batch i, so device and host
 overlap.
 
@@ -188,6 +190,37 @@ def _to_device(batch, device) -> dict:
     if "quals" in batch:        # FASTQ input: quality-weighted MAPQ
         out["quals"] = put(batch["quals"])
     return out
+
+
+def _enqueue(index, pbatch, config, L, scoring, splicing, salvage, fused,
+             known, device_ctx, pair=None) -> dict:
+    """Enqueue one uploaded batch's device program and return its device
+    result dict: the fused ladder (ladder.align_batch_full), or with
+    pair, a (pairmax, orientation, pairexpect, pairdev) tuple, the fused
+    paired program (ladder.align_pair_full), each through device_ctx's
+    ladder_full or pair_full where a context is given; without fused,
+    the staged path's cascade alone. known: the fused program's device
+    KnownSplicing tables."""
+    with span("enqueue"):
+        if not fused:
+            cascade = (device_ctx.cascade if device_ctx is not None
+                       else align_batch_cascaded_packed)
+            return ladder.narrow_result(cascade(index, pbatch, config, L))
+        # compactions scale with the batch: an RNA batch can be ~50%
+        # spliced
+        B = pbatch["lengths"].shape[0]
+        r_chain = min(max(8192, B // 2), B)
+        args = (config, L, scoring, splicing, salvage, r_chain,
+                min(max(2048, B // 8), r_chain), min(2048, B))
+        if pair is not None:
+            if device_ctx is not None:
+                return device_ctx.pair_full(pbatch, *args, *pair,
+                                            known=known)
+            return ladder.align_pair_full(index, pbatch, *args, *pair,
+                                          known=known)
+        if device_ctx is not None:
+            return device_ctx.ladder_full(pbatch, *args, known=known)
+        return ladder.align_batch_full(index, pbatch, *args, known=known)
 
 
 def _indel_limits_ok(ops, max_insertions: int, max_deletions: int,
@@ -1154,123 +1187,46 @@ def _path_ok(s, li, config, S) -> bool:
 @traced("emit")
 def _bulk_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
                      known):
-    """Native C calls emit the final SAM text of every plain or
-    soft-clipped ungapped row, every unmapped row and every chain-DP path
-    row (known splicing leaves the path rows to path_record, for XS).
-    overrides: (tr_records, splice_result, fusion_result, dp_result,
-    amb_result, sec_map).
-    Returns (lines, flags, methods), lines[i] None where the Python loop
-    emits row i, or None without the native library."""
-    if sam_bulk._get_lib() is None:
+    """List mode's view of the one native call (_native_blob): (lines,
+    flags, methods), lines[i] row i's SAM text without its newline, or
+    None where the Python loop emits row i (the blob's kind-0 rows, and
+    the rows of sec_map, whose secondaries the Python records carry);
+    flags[i] the FLAG of that line. None where _native_blob is."""
+    mix = _native_blob(db, chunk, batch, res, mapq, overrides, config,
+                       known)
+    if mix is None:
         return None
-    tr_records, splice_result, _fus, _dp, amb_result, _sec = overrides
-    n = len(chunk)
-    li, diag, strand, tqs, tqe, plain, trim_ok = _sub_rows(batch, res,
-                                                           config, n)
-    emit = plain | trim_ok
-    unm = ~plain & ~trim_ok
-    for d in overrides:
-        for i in d:
-            if i < n:
-                emit[i] = False
-                unm[i] = False
-    sp_rows = None
-    if "sp_sel" in res and known is None:
-        rsel, ii, ok = _sp_array_rows(res, li, config, amb_result,
-                                      tr_records, n)
-        emit[ii] = False            # spliced rows never emit as ungapped
-        sp_rows = (rsel[ok], ii[ok])
-        unm[sp_rows[1]] = False
-    qstart = np.where(plain, 0, tqs).astype(np.int32)
-    qend = np.where(plain, li, tqe).astype(np.int32)
-    methods = np.full(n, "sub", dtype=object)
-    flags = np.where(strand, 16, 0).astype(np.int32)
-    lines = None
-    if emit.any():
-        lines = sam_bulk.emit_ungapped_bulk(
-            db, chunk, batch["codes"], batch["nmask"], li, diag, strand,
-            mapq, np.asarray(res["n_best"][:n]), qstart, qend, emit)
-    if lines is None:
-        lines = [None] * n
-    if unm.any():
-        ulines = sam_bulk.emit_unmapped_bulk(
-            db, chunk, batch["codes"], batch["nmask"], li,
-            unm.astype(np.uint8))
-        if ulines is not None:
-            for i in np.nonzero(unm)[0].tolist():
-                if ulines[i] is not None:
-                    lines[i] = ulines[i]
-                    flags[i] = 4
-                    methods[i] = "unmapped"
-
-    # chain-DP spliced and deletion paths
-    if (splice_result or (sp_rows is not None and len(sp_rows[0]))) \
-            and known is None:
-        S = res["ch_segq"].shape[1] if "ch_segq" in res else 8
-        rows = []
-        sp_strand = np.zeros(n, np.uint8)
-        sp_qs = np.zeros(n, np.int32)
-        sp_qe = np.zeros(n, np.int32)
-        sp_emit = np.zeros(n, np.uint8)
-        counts = np.zeros(n, dtype=np.int64)
-        segq_m = np.zeros((n, S), np.int32)
-        segd_m = np.zeros((n, S), np.uint64)
-        if sp_rows is not None and len(sp_rows[0]):
-            rsel, ii = sp_rows
-            ns = res["ch_nsegs"][rsel].astype(np.int64)
-            rows.extend(ii.tolist())
-            sp_emit[ii] = 1
-            flags[ii] = np.where(strand[ii], 16, 0)
-            sp_strand[ii] = strand[ii]
-            sp_qs[ii] = res["ch_qstart"][rsel]
-            sp_qe[ii] = res["ch_qend"][rsel]
-            counts[ii] = ns
-            segq_m[ii] = res["ch_segq"][rsel]
-            segd_m[ii] = res["ch_segd"][rsel]
-            methods[ii[ns > 1]] = "splice"
-        for i in sorted(splice_result):
-            s = splice_result[i]
-            if (i >= n or i in amb_result or i in tr_records
-                    or not _path_ok(s, li[i], config, S)):
-                continue
-            segs = s["segs"]
-            rows.append(i)
-            sp_emit[i] = 1
-            flags[i] = 16 if s["strand"] else 0
-            sp_strand[i] = s["strand"]
-            sp_qs[i] = s["q_start"]
-            sp_qe[i] = s["q_end"]
-            counts[i] = len(segs)
-            for c_, (q0, d0) in enumerate(segs):
-                segq_m[i, c_] = q0
-                segd_m[i, c_] = d0
-            methods[i] = "splice" if len(segs) > 1 else "sub"
-        if rows:
-            # row i's segments are [off[i], off[i+1]) of the flat arrays
-            off = np.zeros(n + 1, dtype=np.int64)
-            np.cumsum(counts, out=off[1:])
-            segmask = (np.arange(S, dtype=np.int64)[None, :]
-                       < counts[:, None])
-            plines = sam_bulk.emit_path_bulk(
-                db, chunk, batch["codes"], batch["nmask"], li, sp_strand,
-                mapq, sp_qs, sp_qe, off, segq_m[segmask].astype(np.int32),
-                segd_m[segmask].astype(np.uint64), sp_emit, MIN_INTRON)
-            if plines is not None:
-                for i in rows:
-                    if plines[i] is not None:
-                        lines[i] = plines[i]
+    blob, methods = mix
+    text = blob.buf.decode("ascii")
+    off = blob.off.tolist()
+    lines = [text[a:b - 1] if b > a else None
+             for a, b in zip(off, off[1:])]
+    for i in overrides[5]:
+        if i < len(lines):
+            lines[i] = None
+    flags = np.array([0 if ln is None else int(ln.split("\t", 2)[1])
+                      for ln in lines], dtype=np.int32)
     return lines, flags, methods
 
 
 @traced("emit")
 def _mixed_emit_chunk(db, chunk, batch, res, mapq, overrides, config,
                       known):
+    """Stream mode's native emission: _native_blob's (SamBlob, methods),
+    or None."""
+    return _native_blob(db, chunk, batch, res, mapq, overrides, config,
+                        known)
+
+
+def _native_blob(db, chunk, batch, res, mapq, overrides, config, known):
     """Row-order blob emission: every unmapped, ungapped and chain-DP
     path row in one C call (io/sam_bulk.emit_mixed_blob); rows of the
     overrides (transcriptome records, splice_result rows the native
     emitter does not take, fusion and indel rows, rows with XA
-    alternatives) get kind 0 and their lines from the Python loop. Returns (SamBlob, methods) or None without the
-    native library."""
+    alternatives) get kind 0 and their lines from the Python loop.
+    overrides: (tr_records, splice_result, fusion_result, dp_result,
+    amb_result, sec_map). Returns (SamBlob, methods), or None without
+    the native library or where the call fails."""
     if sam_bulk._get_lib() is None:
         return None
     tr_records, splice_result, fusion_result, dp_result, amb_result, \
@@ -1356,9 +1312,7 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
     cascade a batch, with the XX/XY remap tags on every mapped record.
     merge_distant_samechr emits a colinear same-chromosome distant join
     as one spliced line. device_ctx (parallel/pipeline.MeshContext)
-    runs the batches' device work over its device grid; a context
-    without a fused ladder (SingleChipContext) takes the staged path, as
-    in tpumap. stats, if given, receives the counts of utils/trace.py:
+    runs the batches' device work over its device grid. stats, if given, receives the counts of utils/trace.py:
     each METHODS row count, batches, reads, the overflow scalars, the
     indel rows and the rows each emitter wrote."""
     out = []
@@ -1368,9 +1322,7 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
         if remapper is None:
             remapper = remap_mod.TranscriptRemapper(tr[0])
             tr[0]._remapper = remapper
-    use_fused = (not find_fusions and known_indels is None
-                 and (device_ctx is None
-                      or hasattr(device_ctx, "ladder_full")))
+    use_fused = not find_fusions and known_indels is None
     scoring = pathdp.PathScoring(max_intron=max(max_intron, MIN_INTRON))
     known_dev = (known_to_device(known, index.device)
                  if known is not None and use_fused else None)
@@ -1393,26 +1345,9 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
              else pad_to_bucket(len(chunk)))
         batch = make_batch(chunk, B, run_L)
         pbatch = _to_device(batch, index.device)
-        with span("enqueue"):
-            if use_fused:
-                # compactions scale with the batch: an RNA batch can be
-                # ~50% spliced
-                r_chain = min(max(8192, B // 2), B)
-                args = (config, run_L, scoring, splicing_on,
-                        novelsplicing and use_localdb, r_chain,
-                        min(max(2048, B // 8), r_chain), min(2048, B))
-                if device_ctx is not None:
-                    dev = device_ctx.ladder_full(pbatch, *args,
-                                                 known=known_dev)
-                else:
-                    dev = ladder.align_batch_full(index, pbatch, *args,
-                                                  known=known_dev)
-            elif device_ctx is not None:
-                dev = ladder.narrow_result(device_ctx.cascade(
-                    index, pbatch, config, run_L))
-            else:
-                dev = ladder.narrow_result(align_batch_cascaded_packed(
-                    index, pbatch, config, run_L))
+        dev = _enqueue(index, pbatch, config, run_L, scoring, splicing_on,
+                       novelsplicing and use_localdb, use_fused, known_dev,
+                       device_ctx)
         return chunk, batch, ladder.start_fetch(dev)
 
     starts = list(range(0, len(records), batch_size))
@@ -1469,12 +1404,11 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
 
             overrides = (tr_records, splice_result, fusion_result,
                          dp_result, amb_result, sec_map)
-            bulk = None
-            mix = None
-            if sink is not None and can_bulk:
+            bulk = mix = None
+            if can_bulk and sink is not None:
                 mix = _mixed_emit_chunk(db, chunk, batch, res, mapq,
                                         overrides, config, known)
-            if mix is None and can_bulk:
+            elif can_bulk:
                 bulk = _bulk_emit_chunk(db, chunk, batch, res, mapq,
                                         overrides, config, known)
             if mix is not None:
@@ -1502,11 +1436,12 @@ def _count_methods(methods) -> None:
 def _emit_rows(db, chunk, batch, res, mapq, config, overrides, bulk, mix,
                out, sink, npaths, spaces, known, show_method, remapper,
                merge_distant_samechr) -> None:
-    """The rows of one batch that the native emitters left (every row
-    where neither ran: bulk and mix None), each through io/sam's Python
+    """The rows of one batch that the native call left (every row where
+    it did not run: bulk and mix None), each through io/sam's Python
     records; appended to out, or with sink streamed in input order, into
-    the native blob of mix at their row offsets. bulk: _bulk_emit_chunk's
-    (lines, flags, methods); mix: _mixed_emit_chunk's (blob, methods)."""
+    the native blob of mix at their row offsets. bulk: list mode's
+    _bulk_emit_chunk (lines, flags, methods); mix: stream mode's
+    _mixed_emit_chunk (blob, methods)."""
     tr_records, splice_result, fusion_result, dp_result, amb_result, \
         sec_map = overrides
     if bulk is not None:

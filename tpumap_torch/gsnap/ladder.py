@@ -8,7 +8,8 @@ failure (banded DP K2, traceback K3) -> ambiguous splice-end review
 (task construction, exact-site scan K6b) -> secondary-candidate
 compaction -> one result dict. `align_pair_full` is the paired
 program: the same ladder over interleaved mates, keeping the candidate
-lists for the concordance reduction (gsnap/paired.py).
+lists for the concordance reduction (`concordance_device`, which the
+host pair layer, gsnap/paired.py, reads).
 
 All compaction sizes are fixed (top-k), so a batch is one asynchronous
 chain of launches. With `rows` (parallel/pipeline.RowSplit, the
@@ -719,6 +720,55 @@ def _amb_review(index, pbatch, res, config, L, sc, tqs, tqe, trim_nmm,
     return out
 
 
+NO_PAIR = 2 ** 28           # concordance key of a non-concordant combination
+
+
+def concordance_device(d1, s1, n1, L1, d2, s2, n2, L2, pairmax: int,
+                       orientation: str = "FR", pairexpect: int = 1000,
+                       pairdev: int = 100):
+    """The [P, K, K] concordance reduction (tpumap paired.py:48-122): d*
+    int64[P, K] candidate diagonals (INVALID-padded), s* and n* int32
+    strands and mismatches, L* int32[P] lengths. The pair key is
+    8 * (nmm1 + nmm2) plus an insert penalty of at most 16; insert
+    arithmetic is uint32 wrap, so a violated order wraps past pairmax.
+    Returns (ci, cj int32[P], valid bool[P], insert int32[P]), the first
+    minimum of the flat K * K keys winning."""
+    P, K = d1.shape
+    i32 = torch.int32
+    vk1 = (d1 != INVALID)[:, :, None]
+    vk2 = (d2 != INVALID)[:, None, :]
+    s1b, s2b = s1[:, :, None], s2[:, None, :]
+    L1b = L1.to(i32)[:, None, None]
+    L2b = L2.to(i32)[:, None, None]
+    fwd_u = (d2[:, None, :] - d1[:, :, None]) & MASK32
+    rev_u = (d1[:, :, None] - d2[:, None, :]) & MASK32
+    fwd_small = torch.clamp(fwd_u, max=pairmax).to(i32)
+    rev_small = torch.clamp(rev_u, max=pairmax).to(i32)
+    if orientation == "FF":
+        strand_ok = s1b == s2b
+        insert = torch.minimum(fwd_small, rev_small) + torch.maximum(L1b, L2b)
+        ok = (fwd_u <= pairmax) | (rev_u <= pairmax)
+    else:
+        # FR and RF: the geometry depends only on which mate is leftmost
+        strand_ok = s1b != s2b
+        first_fwd = s1b == 0
+        insert = torch.where(first_fwd, fwd_small + L2b, rev_small + L1b)
+        ok = torch.where(first_fwd, fwd_u <= pairmax,
+                         rev_u <= pairmax) & (insert > 0)
+    ok = ok & (insert <= pairmax) & strand_ok & vk1 & vk2
+    pen = torch.clamp(torch.div(8 * torch.abs(insert - pairexpect),
+                                max(1, 5 * pairdev), rounding_mode="floor"),
+                      max=16)
+    key = 8 * (n1[:, :, None] + n2[:, None, :]) + pen
+    flat = torch.where(ok, key, NO_PAIR).reshape(P, K * K).to(torch.int64)
+    lane = torch.arange(K * K, device=d1.device)
+    best = torch.argmin(flat * (K * K) + lane, dim=1)
+    valid = torch.gather(flat, 1, best[:, None])[:, 0] < NO_PAIR
+    ins_best = torch.gather(insert.reshape(P, K * K), 1, best[:, None])[:, 0]
+    return ((best // K).to(i32), (best % K).to(i32), valid,
+            ins_best.to(i32))
+
+
 def align_pair_full(index, pbatch, config: AlignConfig, L: int,
                     scoring: pathdp.PathScoring, splicing: bool,
                     salvage: bool, r_chain: int, r_salv: int, r_indel: int,
@@ -743,7 +793,6 @@ def _pair_full(index, pbatch, config, L, scoring, splicing, salvage, r_chain,
                r_salv, r_indel, pairmax, orientation, pairexpect, pairdev,
                known=None, rows=None):
     """The paired program's launches, eagerly or under capture."""
-    from tpumap_torch.gsnap.paired import concordance_device
     res = align_batch_cascaded_packed(index, pbatch, config, L, rows=rows)
     out = refine_full(index, pbatch, res, config, L, scoring, splicing,
                       salvage, r_chain, r_salv, r_indel, keep_cands=True,

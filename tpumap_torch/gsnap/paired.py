@@ -3,7 +3,7 @@ repair and pair emission (port of tpumap/gsnap/paired.py).
 
 Both mates run through the fused paired program
 (ladder.align_pair_full): the single-end ladder over the interleaved
-batch plus `concordance_device`, a [P, K, K] validity and score
+batch plus `ladder.concordance_device`, a [P, K, K] validity and score
 reduction over the mates' candidate lists in plain torch ops. With a
 transcriptome (tr) or learned indels (known_indels) they take the
 staged path instead: the cascade, the same reduction over its
@@ -31,24 +31,19 @@ import torch
 
 from tpumap_torch.gsnap import ladder
 from tpumap_torch.gsnap import spliceends as se
-from tpumap_torch.gsnap.driver import (_to_device, make_batch, pad_to_bucket,
-                                       refine_unsolved)
+from tpumap_torch.gsnap.driver import (_enqueue, _to_device, make_batch,
+                                       pad_to_bucket, refine_unsolved)
 from tpumap_torch.gsnap import remap as remap_mod
-from tpumap_torch.gsnap.engine import (AlignConfig,
-                                       align_batch_cascaded_packed,
-                                       mapq_from_scores)
+from tpumap_torch.gsnap.engine import AlignConfig, mapq_from_scores
 from tpumap_torch.gsnap.knownsplicing import known_to_device
 from tpumap_torch.index.build import GenomeDB
 from tpumap_torch.index.device import DeviceIndex
 from tpumap_torch.io import sam, sam_bulk
 from tpumap_torch.io.fasta import Record
 from tpumap_torch.ops import localscan, pack, pathdp, verify
-from tpumap_torch.ops.u32 import INVALID, MASK32
+from tpumap_torch.ops.u32 import MASK32
 from tpumap_torch.utils import dna
-from tpumap_torch.utils.trace import count, counting, counting_on, span, traced
-
-NO_PAIR = 2 ** 28           # concordance key of a non-concordant combination
-
+from tpumap_torch.utils.trace import count, counting, counting_on, traced
 
 def rescue_mate(index, codes: torch.Tensor, lengths: torch.Tensor,
                 window: int, base_diags: torch.Tensor):
@@ -65,52 +60,6 @@ def rescue_mate(index, codes: torch.Tensor, lengths: torch.Tensor,
     best = torch.argmin(nmm.to(torch.int64) * window + offs[None, :], dim=1)
     return (torch.gather(diags, 1, best[:, None])[:, 0],
             torch.gather(nmm, 1, best[:, None])[:, 0])
-
-
-def concordance_device(d1, s1, n1, L1, d2, s2, n2, L2, pairmax: int,
-                       orientation: str = "FR", pairexpect: int = 1000,
-                       pairdev: int = 100):
-    """The [P, K, K] concordance reduction (paired.py:48-122): d*
-    int64[P, K] candidate diagonals (INVALID-padded), s* and n* int32
-    strands and mismatches, L* int32[P] lengths. The pair key is
-    8 * (nmm1 + nmm2) plus an insert penalty of at most 16; insert
-    arithmetic is uint32 wrap, so a violated order wraps past pairmax.
-    Returns (ci, cj int32[P], valid bool[P], insert int32[P]), the first
-    minimum of the flat K * K keys winning."""
-    P, K = d1.shape
-    i32 = torch.int32
-    vk1 = (d1 != INVALID)[:, :, None]
-    vk2 = (d2 != INVALID)[:, None, :]
-    s1b, s2b = s1[:, :, None], s2[:, None, :]
-    L1b = L1.to(i32)[:, None, None]
-    L2b = L2.to(i32)[:, None, None]
-    fwd_u = (d2[:, None, :] - d1[:, :, None]) & MASK32
-    rev_u = (d1[:, :, None] - d2[:, None, :]) & MASK32
-    fwd_small = torch.clamp(fwd_u, max=pairmax).to(i32)
-    rev_small = torch.clamp(rev_u, max=pairmax).to(i32)
-    if orientation == "FF":
-        strand_ok = s1b == s2b
-        insert = torch.minimum(fwd_small, rev_small) + torch.maximum(L1b, L2b)
-        ok = (fwd_u <= pairmax) | (rev_u <= pairmax)
-    else:
-        # FR and RF: the geometry depends only on which mate is leftmost
-        strand_ok = s1b != s2b
-        first_fwd = s1b == 0
-        insert = torch.where(first_fwd, fwd_small + L2b, rev_small + L1b)
-        ok = torch.where(first_fwd, fwd_u <= pairmax,
-                         rev_u <= pairmax) & (insert > 0)
-    ok = ok & (insert <= pairmax) & strand_ok & vk1 & vk2
-    pen = torch.clamp(torch.div(8 * torch.abs(insert - pairexpect),
-                                max(1, 5 * pairdev), rounding_mode="floor"),
-                      max=16)
-    key = 8 * (n1[:, :, None] + n2[:, None, :]) + pen
-    flat = torch.where(ok, key, NO_PAIR).reshape(P, K * K).to(torch.int64)
-    lane = torch.arange(K * K, device=d1.device)
-    best = torch.argmin(flat * (K * K) + lane, dim=1)
-    valid = torch.gather(flat, 1, best[:, None])[:, 0] < NO_PAIR
-    ins_best = torch.gather(insert.reshape(P, K * K), 1, best[:, None])[:, 0]
-    return ((best // K).to(i32), (best % K).to(i32), valid,
-            ins_best.to(i32))
 
 
 def _put(a: np.ndarray, device) -> torch.Tensor:
@@ -131,7 +80,7 @@ def _staged_concordance(index, batch, res, n, pairmax, orientation,
                  _put(res["cand_strands"][w:2 * n:2].astype(np.int32), dev),
                  _put(res["cand_nmm"][w:2 * n:2].astype(np.int32), dev),
                  _put(lens[w:2 * n:2].astype(np.int32), dev)]
-    ci, cj, cval, _ins = concordance_device(
+    ci, cj, cval, _ins = ladder.concordance_device(
         *ends, pairmax, orientation, pairexpect or 1000, pairdev)
     ci, cj, cval = ci.cpu().numpy(), cj.cpu().numpy(), cval.cpu().numpy()
 
@@ -185,9 +134,7 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
         if remapper is None:
             remapper = remap_mod.TranscriptRemapper(tr[0])
             tr[0]._remapper = remapper
-    use_fused = (tr is None and known_indels is None
-                 and (device_ctx is None
-                      or hasattr(device_ctx, "pair_full")))
+    use_fused = tr is None and known_indels is None
     known_dev = (known_to_device(known, dev)
                  if known is not None and use_fused else None)
     sc = pathdp.PathScoring(max_intron=max(max_intron, 9))
@@ -203,26 +150,11 @@ def align_paired_records(db: GenomeDB, index: DeviceIndex,
              else pad_to_bucket(2 * len(chunk)))
         batch = make_batch(flat, B, run_L)
         pbatch = _to_device(batch, dev)
-        with span("enqueue"):
-            if use_fused:
-                args = (config, run_L, sc,
-                        novelsplicing or known is not None,
-                        novelsplicing and use_localdb,
-                        min(max(8192, B // 2), B), min(max(2048, B // 8), B),
-                        min(2048, B), pairmax, orientation,
-                        pairexpect or 1000, pairdev)
-                if device_ctx is not None:
-                    res = device_ctx.pair_full(pbatch, *args,
-                                               known=known_dev)
-                else:
-                    res = ladder.align_pair_full(index, pbatch, *args,
-                                                 known=known_dev)
-            elif device_ctx is not None:
-                res = ladder.narrow_result(device_ctx.cascade(
-                    index, pbatch, config, run_L))
-            else:
-                res = ladder.narrow_result(align_batch_cascaded_packed(
-                    index, pbatch, config, run_L))
+        res = _enqueue(index, pbatch, config, run_L, sc,
+                       novelsplicing or known is not None,
+                       novelsplicing and use_localdb, use_fused, known_dev,
+                       device_ctx, pair=(pairmax, orientation,
+                                         pairexpect or 1000, pairdev))
         return chunk, batch, ladder.start_fetch(res)
 
     bulk_ok = remapper is None and sam_bulk._get_lib() is not None

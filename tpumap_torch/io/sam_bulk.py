@@ -5,10 +5,12 @@ tpumap/io/sam_bulk.py on the port's native library.
 The reference spreads per-record printing across 32 host threads;
 tpumap has ONE host core feeding a TPU, so Python-object-per-record
 emission (~43 us/record measured on the RNA workload) was the
-end-to-end throughput wall.  Here the driver hands whole batch arrays
-to `sam_emit_ungapped` / `sam_emit_path` (tpumap_torch/native/sam_emit.cc)
-and gets back final SAM text; each line is wrapped in a RawSamRecord
-that parses lazily only if a downstream option actually inspects it.
+end-to-end throughput wall.  Here the single-end driver hands whole batch
+arrays to `sam_emit_mixed` and the paired one its plain pairs to
+`sam_emit_ungapped` (tpumap_torch/native/sam_emit.cc), and each gets
+back final SAM text; in list mode each line is wrapped in a
+RawSamRecord that parses lazily only if a downstream option actually
+inspects it.
 """
 from __future__ import annotations
 
@@ -254,47 +256,6 @@ def emit_ungapped_bulk(db, chunk, codes, rnmask, lengths, diag, strand,
     return _decode_lines(out_buf.raw, line_off, total, B)
 
 
-def emit_path_bulk(db, chunk, codes, rnmask, lengths, strand, mapq,
-                   qstart, qend, seg_off, seg_q, seg_d, emit,
-                   min_intron: int):
-    """Emit N-exon chain-DP path records in one C call (soft clips +
-    M/N/D cigar + MD with ^deletions + XS from boundary dinucleotides).
-    seg_off: (B+1,) int64 flattened segment bounds into seg_q/seg_d."""
-    lib = _get_lib()
-    if lib is None or not len(chunk):
-        return None
-    B = len(chunk)
-    genome_args, (qblob, qoffp), qual_args, _keep = _common_args(db, chunk)
-    L = codes.shape[1]
-    qn_max = max(len(r.accession) for r in chunk)
-    nseg = int(seg_off[-1])
-    cap = B * (8 * L + qn_max + 224) + 64 * nseg
-    out_buf = ctypes.create_string_buffer(cap)
-    line_off = np.zeros(B + 1, dtype=np.int64)
-    codes = np.ascontiguousarray(codes[:B], dtype=np.uint8)
-    rnmask = np.ascontiguousarray(rnmask[:B]).view(np.uint8)
-    lengths = np.ascontiguousarray(lengths[:B], dtype=np.int32)
-    strand = np.ascontiguousarray(strand[:B], dtype=np.uint8)
-    mapq = np.ascontiguousarray(np.clip(mapq[:B], 0, 255), dtype=np.uint8)
-    qstart = np.ascontiguousarray(qstart[:B], dtype=np.int32)
-    qend = np.ascontiguousarray(qend[:B], dtype=np.int32)
-    seg_off = np.ascontiguousarray(seg_off, dtype=np.int64)
-    seg_q = np.ascontiguousarray(seg_q, dtype=np.int32)
-    seg_d = np.ascontiguousarray(seg_d, dtype=np.uint64)
-    emit = np.ascontiguousarray(emit[:B], dtype=np.uint8)
-    total = lib.sam_emit_path(
-        *genome_args, qblob, qoffp,
-        _p(codes, _U8), _p(rnmask, _U8), L,
-        qual_args[0], qual_args[1],
-        _p(lengths, _I32), _p(strand, _U8), _p(mapq, _U8),
-        _p(qstart, _I32), _p(qend, _I32),
-        _p(seg_off, _I64), _p(seg_q, _I32), _p(seg_d, _U64),
-        min_intron, _p(emit, _U8), B, out_buf, cap, _p(line_off, _I64))
-    if total < 0:
-        return None
-    return _decode_lines(out_buf.raw, line_off, total, B)
-
-
 class SamBlob:
     """One batch's final SAM text as bytes + per-row line offsets.
 
@@ -378,32 +339,3 @@ def emit_mixed_blob(db, chunk, codes, rnmask, lengths, kind, diag, strand,
         return None
     return SamBlob(bytes(memoryview(scratch)[:total]), line_off, kind)
 
-
-def emit_unmapped_bulk(db, chunk, codes, rnmask, lengths, emit, flags=None):
-    """Emit unmapped SAM lines for every emit[i]!=0 row in one C call."""
-    lib = _get_lib()
-    if lib is None or not len(chunk):
-        return None
-    B = len(chunk)
-    _genome_args, (qblob, qoffp), qual_args, _keep = _common_args(db, chunk)
-    L = codes.shape[1]
-    qn_max = max(len(r.accession) for r in chunk)
-    cap = B * (2 * L + qn_max + 48)
-    out_buf = ctypes.create_string_buffer(cap)
-    line_off = np.zeros(B + 1, dtype=np.int64)
-    codes = np.ascontiguousarray(codes[:B], dtype=np.uint8)
-    rnmask = np.ascontiguousarray(rnmask[:B]).view(np.uint8)
-    lengths = np.ascontiguousarray(lengths[:B], dtype=np.int32)
-    emit = np.ascontiguousarray(emit[:B], dtype=np.uint8)
-    if flags is not None:
-        flags = np.ascontiguousarray(flags[:B], dtype=np.int32)
-    total = lib.sam_emit_unmapped(
-        qblob, qoffp,
-        _p(codes, _U8), _p(rnmask, _U8), L,
-        qual_args[0], qual_args[1],
-        _p(lengths, _I32),
-        _p(flags, _I32) if flags is not None else None,
-        _p(emit, _U8), B, out_buf, cap, _p(line_off, _I64))
-    if total < 0:
-        return None
-    return _decode_lines(out_buf.raw, line_off, total, B)

@@ -108,14 +108,6 @@ def get_lib():
         i32p, u64p, i64p,                    # flags/mate_u/tlen (paired)
         u8p, ctypes.c_long,                  # emit mask, B
         ctypes.c_char_p, ctypes.c_long, i64p]
-    lib.sam_emit_unmapped.restype = ctypes.c_long
-    lib.sam_emit_unmapped.argtypes = [
-        ctypes.c_char_p, i64p,               # qname blob/off
-        u8p, u8p, ctypes.c_long,             # codes/rnmask/Lstride
-        ctypes.c_char_p, i64p,               # qual blob/off
-        i32p, i32p,                          # lengths, flags
-        u8p, ctypes.c_long,
-        ctypes.c_char_p, ctypes.c_long, i64p]
     lib.sam_emit_mixed.restype = ctypes.c_long
     lib.sam_emit_mixed.argtypes = [
         u32p, u32p,                          # genome packed/nmask
@@ -130,20 +122,6 @@ def get_lib():
         i32p, u64p, i64p,                    # flags/mate_u/tlen
         i64p, i32p, u64p,                    # seg_off/seg_q/seg_d
         ctypes.c_long, ctypes.c_long,        # min_intron, B
-        ctypes.c_char_p, ctypes.c_long, i64p]
-    lib.sam_emit_path.restype = ctypes.c_long
-    lib.sam_emit_path.argtypes = [
-        u32p, u32p,
-        u64p, i64p, u8p, ctypes.c_long,
-        ctypes.c_char_p, i64p,
-        ctypes.c_char_p, i64p,
-        u8p, u8p, ctypes.c_long,
-        ctypes.c_char_p, i64p,
-        i32p, u8p, u8p,                      # len/strand/mapq
-        i32p, i32p,                          # qstart/qend
-        i64p, i32p, u64p,                    # seg_off/seg_q/seg_d
-        ctypes.c_long,                       # min_intron
-        u8p, ctypes.c_long,
         ctypes.c_char_p, ctypes.c_long, i64p]
     _lib = lib
     return lib

@@ -150,10 +150,11 @@ inline char* line_head(char* p, const char* qname, long qname_len,
     return p;
 }
 
-// Per-record emitter bodies shared by the bulk entry points and the
-// row-order mixed emitter.  Each returns the new cursor, or nullptr if
-// `avail` bytes do not suffice (callers translate to the -1 overflow
-// return).  Semantics match the original sam_emit_* loops exactly.
+// Per-record emitter bodies shared by the two entry points, the
+// row-order mixed emitter (single-end batches, list and stream mode)
+// and sam_emit_ungapped (paired plain pairs).  Each returns the new
+// cursor, or nullptr if `avail` bytes do not suffice (callers translate
+// to the -1 overflow return).
 
 struct EmitCtx {
     const uint32_t* gpacked;
@@ -506,80 +507,6 @@ extern "C" long sam_emit_ungapped(
             flags ? flags[i] : (st ? 16 : 0),
             mate_u ? mate_u[i] : (uint64_t)-1, tlen ? tlen[i] : 0,
             p, out_cap - (p - out), seqbuf, mdbuf);
-        if (!np) return -1;
-        p = np;
-        line_off[i + 1] = p - out;
-    }
-    return p - out;
-}
-
-// ---------------------------------------------------------------------------
-// N-exon spliced / deletion paths (the chain-DP solver output): per read,
-// segments [(qpos, univdiagonal)] ascending; gaps >= min_intron emit N,
-// smaller gaps emit D (with their genome bases in MD as ^bases).
-// Segment data is flattened: seg_off[i]..seg_off[i+1] rows of
-// (seg_q[], seg_d[]).  XS senses come from each intron's boundary
-// dinucleotides (junction_sense above): the tag prints '+'/'-' by sign
-// of the net sense, '?' when introns exist but none are canonical, and
-// is omitted for intron-free paths — matching io/sam.py path_record.
-extern "C" long sam_emit_path(
-    const uint32_t* gpacked, const uint32_t* gnmask,
-    const uint64_t* chrom_starts, const int64_t* chrom_spans,
-    const uint8_t* circularp, long n_chroms,
-    const char* rname_blob, const int64_t* rname_off,
-    const char* qname_blob, const int64_t* qname_off,
-    const uint8_t* codes, const uint8_t* rnmask, long Lstride,
-    const char* qual_blob, const int64_t* qual_off,
-    const int32_t* lengths, const uint8_t* strand, const uint8_t* mapq,
-    const int32_t* qstart, const int32_t* qend,
-    const int64_t* seg_off, const int32_t* seg_q, const uint64_t* seg_d,
-    long min_intron,
-    const uint8_t* emit, long B,
-    char* out, long out_cap, int64_t* line_off) {
-    EmitCtx cx = {gpacked, gnmask,
-                  {chrom_starts, chrom_spans, circularp, n_chroms,
-                   rname_blob, rname_off},
-                  qname_blob, qname_off, codes, rnmask, Lstride,
-                  qual_blob, qual_off, lengths};
-    char* p = out;
-    char seqbuf[8192];
-    char mdbuf[16384];
-    line_off[0] = 0;
-    for (long i = 0; i < B; i++) {
-        if (!emit[i]) { line_off[i + 1] = p - out; continue; }
-        char* np = one_path(cx, i, strand[i], mapq[i],
-                            qstart[i], qend[i], seg_q, seg_d,
-                            seg_off[i], seg_off[i + 1], min_intron,
-                            p, out_cap - (p - out), seqbuf, mdbuf);
-        if (!np) return -1;
-        p = np;
-        line_off[i + 1] = p - out;
-    }
-    return p - out;
-}
-
-// ---------------------------------------------------------------------------
-// Unmapped records: QNAME 4 * 0 0 * * 0 0 SEQ QUAL (forward orientation).
-// With `flags` non-NULL the caller supplies the full FLAG (paired-end
-// unmapped carry 0x1/0x8/0x40/0x80).
-extern "C" long sam_emit_unmapped(
-    const char* qname_blob, const int64_t* qname_off,
-    const uint8_t* codes, const uint8_t* rnmask, long Lstride,
-    const char* qual_blob, const int64_t* qual_off,
-    const int32_t* lengths, const int32_t* flags,
-    const uint8_t* emit, long B,
-    char* out, long out_cap, int64_t* line_off) {
-    EmitCtx cx = {nullptr, nullptr,
-                  {nullptr, nullptr, nullptr, 0, nullptr, nullptr},
-                  qname_blob, qname_off, codes, rnmask, Lstride,
-                  qual_blob, qual_off, lengths};
-    char* p = out;
-    char seqbuf[8192];
-    line_off[0] = 0;
-    for (long i = 0; i < B; i++) {
-        if (!emit[i]) { line_off[i + 1] = p - out; continue; }
-        char* np = one_unmapped(cx, i, flags ? flags[i] : 4, p,
-                                out_cap - (p - out), seqbuf);
         if (!np) return -1;
         p = np;
         line_off[i + 1] = p - out;

@@ -116,20 +116,7 @@ class RowSplit:
         return _cat(parts, self.lead)
 
 
-class SingleChipContext:
-    """Default device context: plain single-device calls (no fused
-    ladder method, so the drivers take the staged path with it, as
-    tpumap's do)."""
-
-    def cascade(self, index, pbatch, config, L):
-        return align_batch_cascaded_packed(index, pbatch, config, L)
-
-    def chain_solve(self, index, codes, nmask, lengths, diags, **kw):
-        return pathdp.chain_solve(index, codes, nmask, lengths, diags,
-                                  **kw)
-
-
-class MeshContext(SingleChipContext):
+class MeshContext:
     """Run the production cascade, fused ladder, paired program, chain
     solver and GMAP chain stage data-parallel over a DeviceMesh.
 

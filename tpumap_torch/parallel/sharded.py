@@ -22,11 +22,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpumap_torch.gsnap import ladder
 from tpumap_torch.gsnap.engine import (AlignConfig, _rc_rows, _strand_cols,
                                        _trim_stage, select_best)
 from tpumap_torch.index.build import GenomeDB
 from tpumap_torch.index.device import DeviceIndex
-from tpumap_torch.ops import pack, seed, verify
+from tpumap_torch.ops import pack, pathdp, seed, verify
 from tpumap_torch.parallel.mesh import (INDEX_AXIS, DeviceMesh,
                                         batch_sharding, replicated)
 from tpumap_torch.parallel.pipeline import _device_scope
@@ -222,10 +223,6 @@ def make_sharded_full_aligner(mesh: DeviceMesh, db: GenomeDB,
     Returns (device_arrays, fn(device_arrays, batch) -> the
     align_batch_full / align_pair_full dict without its scalar
     diagnostics, compacted-row indices as batch rows)."""
-    from tpumap_torch.gsnap import ladder
-    from tpumap_torch.gsnap.paired import concordance_device
-    from tpumap_torch.ops import pathdp
-
     if scoring is None:
         scoring = pathdp.PathScoring()
     arrays, span = _shard_arrays(mesh, db, pad_words)
@@ -268,7 +265,7 @@ def make_sharded_full_aligner(mesh: DeviceMesh, db: GenomeDB,
             if paired:
                 cd, cs, cn = (out.pop("cand_diags"), out.pop("cand_strands"),
                               out.pop("cand_nmm"))
-                ci, cj, valid, insert = concordance_device(
+                ci, cj, valid, insert = ladder.concordance_device(
                     cd[0::2], cs[0::2], cn[0::2], lengths[0::2],
                     cd[1::2], cs[1::2], cn[1::2], lengths[1::2],
                     pairmax, orientation, pairexpect, pairdev)
