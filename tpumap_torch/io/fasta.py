@@ -1,5 +1,6 @@
 """FASTA/FASTQ readers (host input pipeline) and the read preprocessing
-of the gsnap CLI: a copy of tpumap/io/fasta.py.
+of the gsnap CLI: a copy of tpumap/io/fasta.py, whose FASTA reader parses
+a block of text at a time (`read_fasta`) and yields the same records.
 
 Replaces the reference's input layer (src/sequence.c for GMAP queries,
 src/shortread.c for GSNAP FASTA/FASTQ) with a simple streaming parser.
@@ -8,14 +9,19 @@ gzip/bzip2 transparent decompression mirrors shortread.c's zlib/bzlib paths.
 from __future__ import annotations
 
 import bz2
+import contextlib
+import gc
 import gzip
 import io
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass
+from itertools import chain, repeat
 from typing import Iterator
 
+from tpumap_torch.utils.trace import count
 
-@dataclass
+
+@dataclass(slots=True)
 class Record:
     accession: str
     description: str
@@ -55,14 +61,101 @@ def _open_text(path: str | os.PathLike | io.IOBase,
     return open(path, "rt")
 
 
+# characters a file is read in at a time; each block is carried on to
+# its line end
+_BLOCK = 1 << 22
+# whitespace that str.strip() removes besides the space and the line end
+_STRIPPED = "\r\t\x0b\x0c\x1c\x1d\x1e\x1f"
+
+
 def read_fasta(path, read_files_command: str | None = None
                ) -> Iterator[Record]:
+    """Records in file order. An in-memory text is one block, a file is
+    read in blocks of _BLOCK characters; each block is parsed up to its
+    last record start, the rest carried into the next. A block of
+    single-line records parses in bulk (`_bulk_records`); from the first
+    block that is not, the rest of the stream goes through the line loop
+    (`_read_fasta_lines`), so every input yields that loop's records. A
+    handle passed in is taken to end its lines at "\n" in the text it
+    reads, as universal newlines and a default StringIO do."""
     fh = _open_text(path, read_files_command)
+    size = -1 if isinstance(fh, io.StringIO) else _BLOCK
+    carry = ""
+    while True:
+        block = fh.read(size)
+        if block[-1:] not in ("\n", ""):
+            block += fh.readline()
+        text = carry + block
+        end = size < 0 or not block
+        # parse up to the last record start; the whole text at the end
+        cut = len(text) if end else text.rfind("\n>") + 1
+        with _gc_paused():
+            recs = _bulk_records(text[:cut]) if cut else None
+        if recs is None:
+            # not single-line records, or one longer than the block
+            yield from _read_fasta_lines(chain(io.StringIO(text), fh))
+            return
+        count("parse_bulk", len(recs))
+        yield from recs
+        if end:
+            return
+        carry = text[cut:]
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """No cyclic collection while a block's records are built. Every
+    object built is kept by the result, so a collection frees nothing,
+    yet the records would set off a young collection every threshold's
+    allocations (700 by default) and, through them, full collections of
+    the process's heap; paused, the next allocation sets off one young
+    collection. A caller that paused the collector keeps it paused.
+    Never held across a yield."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
+def _bulk_records(text: str) -> list[Record] | None:
+    """The records of text, complete records each of one header line and
+    one sequence line, as the line loop reads them; None where text is
+    not such a block or a line's whitespace would be stripped."""
+    if text[:1] != ">" or not text.isascii():
+        return None
+    for c in _STRIPPED:
+        if c in text:
+            return None
+    lines = text.split("\n")
+    if not lines[-1]:
+        lines.pop()
+    k = len(lines) >> 1
+    if len(lines) != 2 * k or text.count("\n>") != k - 1:
+        return None
+    heads = "\n".join(lines[0::2])
+    ids = heads[1:].replace("\n>", "\n")
+    if len(heads) - len(ids) != k:
+        return None   # a header line lacks its ">"
+    seqs = lines[1::2]
+    if " " not in text:
+        return list(map(Record, ids.split("\n"), repeat(""), seqs))
+    parts = map(str.partition, map(str.strip, ids.split("\n")),
+                repeat(" "))
+    return [Record(acc, desc, seq) for (acc, _, desc), seq
+            in zip(parts, map(str.strip, seqs))]
+
+
+def _read_fasta_lines(lines) -> Iterator[Record]:
+    """The line loop: any FASTA text, one line at a time."""
     acc, desc, chunks = None, "", []
-    for line in fh:
+    for line in lines:
         line = line.rstrip("\r\n")
         if line.startswith(">"):
             if acc is not None:
+                count("parse_lines")
                 yield Record(acc, desc, "".join(chunks))
             header = line[1:].strip()
             acc, _, desc = header.partition(" ")
@@ -70,6 +163,7 @@ def read_fasta(path, read_files_command: str | None = None
         elif line and acc is not None:
             chunks.append(line.strip())
     if acc is not None:
+        count("parse_lines")
         yield Record(acc, desc, "".join(chunks))
 
 
