@@ -308,13 +308,19 @@ def _fused_acceptance(batch, res, known, dict_all, chunk_len, len_v,
         segq_l = res["ch_segq"]
         segd_l = res["ch_segd"]
         nsegs_l = res["ch_nsegs"].astype(np.int32)
+        S = segq_l.shape[1]
         st_l = res["strand"]
         sel = res["ch_sel"] & (ch_idx < chunk_len)
+        # F5: a path of more segments than the chain DP keeps has lost
+        # its first ones (their slots read INT32_MIN and INVALID)
+        too_long = sel & (nsegs_l > S)
+        count("chain_segs_refused", int(np.count_nonzero(too_long)))
+        sel &= ~too_long
         # rows whose accepted path has a short terminal exon need the
         # splice-ends review and so a mutable dict; the rest stay
         # array-form for the native bulk emitter (sp_sel)
         last_q = np.take_along_axis(
-            segq_l, np.maximum(nsegs_l - 1, 0)[:, None],
+            segq_l, np.clip(nsegs_l - 1, 0, S - 1)[:, None],
             axis=1)[:, 0].astype(np.int64)
         multi = nsegs_l >= 2
         end_short = multi & (res["ch_qend"] - last_q >= 1) & (
@@ -343,6 +349,9 @@ def _fused_acceptance(batch, res, known, dict_all, chunk_len, len_v,
                 "score": int(res["ch_score"][r]),
                 "nmm": int(res["ch_nmm"][r]),
             }
+        count("chain_ins_refused", sum(
+            _mend_overrun(splice_result[int(ch_idx[r])])
+            for r in np.nonzero(sel & has_ins)[0].tolist()))
         res["sp_sel"] = sel & ~need_dict
     irows = np.nonzero(res["in_sel"])[0]
     count("indel_rows", len(irows))
@@ -373,6 +382,41 @@ def _fused_acceptance(batch, res, known, dict_all, chunk_len, len_v,
                 dp_result[i] = (int(diag_v[i]) + start_l[row], ops,
                                 score_l[row])
     return dp_result, splice_result
+
+
+def _mend_overrun(s) -> bool:
+    """Mend a chain path (a splice_result dict) in place where an
+    insertion junction is longer than the segment before it (F4).
+    Segment j covers query [q_j, q_{j+1}) at diagonal d_j, and an
+    insertion junction (d_{j+1} < d_j) takes the last d_j - d_{j+1} of
+    those bases, so such a segment has a negative match run and no
+    CIGAR states the path (the chain DP gives one between a deletion
+    and an insertion of one length). The segment is dropped and the one
+    before it runs on to the next (one segment where their diagonals
+    agree, else a junction taken from the diagonals as any other), or a
+    first segment's bases are soft clipped; until every match run is at
+    least 0. Each base keeps its genome position by its diagonal, so
+    path_record's CIGAR, NM and MD state the mended path; its score and
+    nmm stay the chain DP's. Returns whether the path changed."""
+    segs = list(s["segs"])
+    j = 0
+    mended = False
+    while j + 1 < len(segs):
+        (q0, d0), (q1, d1) = segs[j], segs[j + 1]
+        if q1 - max(d0 - d1, 0) - q0 >= 0:
+            j += 1
+            continue
+        mended = True
+        del segs[j]
+        if j == 0:
+            s["q_start"] = q1
+            continue
+        if segs[j][1] == segs[j - 1][1]:
+            del segs[j]
+        j -= 1
+    if mended:
+        s["segs"] = segs
+    return mended
 
 
 def _put(index, a: np.ndarray) -> torch.Tensor:
@@ -552,6 +596,7 @@ def _staged_chains(db, index, batch, res, dp_result, tr_records, L,
     segd_l = cres["seg_diag"].tolist()
     trim_score_l2 = (np.asarray(res["trim_score"]).tolist()
                      if trim_qs is not None else None)
+    mended = too_long = 0
     for row, (i, st0, cands) in enumerate(rows):
         li = int(len_v[i])
         nsegs = nsegs_l[row]
@@ -568,6 +613,9 @@ def _staged_chains(db, index, batch, res, dp_result, tr_records, L,
             best_other = max(best_other, dp_result[i][2] * 8 // 3)
         if score8 <= best_other:
             continue
+        if nsegs > pathdp.MAX_SEGMENTS:
+            too_long += 1       # F5, as in _fused_acceptance
+            continue
         q_start = qs_l[row]
         q_end = qe_l[row]
         segs = list(zip(segq_l[row][:nsegs], segd_l[row][:nsegs]))
@@ -580,6 +628,9 @@ def _staged_chains(db, index, batch, res, dp_result, tr_records, L,
             "segs": segs, "q_start": q_start, "q_end": q_end,
             "strand": st0, "score": score8, "nmm": nmm_cl[row],
         }
+        mended += _mend_overrun(splice_result[i])
+    count("chain_ins_refused", mended)
+    count("chain_segs_refused", too_long)
     return splice_result
 
 
@@ -799,6 +850,7 @@ def _demote(s, side) -> None:
         s["segs"] = s["segs"][1:]
 
 
+@traced("splice_review")
 def _splice_ends_review(db, index, batch, res, config, dp_result,
                         splice_result, max_intron, L, amb_out, chunk_len,
                         len_v, known, tr_records):
@@ -810,7 +862,9 @@ def _splice_ends_review(db, index, batch, res, config, dp_result,
     trimmed row's path with the junction (into splice_result); tied
     placements keep the soft clip and go to amb_out (XA:Z:); a solved
     short terminal exon with tied placements, or with a noncanonical
-    boundary that wobbles to a tie, is demoted to a soft clip."""
+    boundary that wobbles to a tie, is demoted to a soft clip. Counts
+    review_rows (the rows examined) and review_spliced (the trimmed rows
+    extended with a junction)."""
     diag_v = res["diag"][:chunk_len]
     strand_v = res["strand"][:chunk_len]
     valid_v = diag_v != 0xFFFFFFFF
@@ -866,6 +920,8 @@ def _splice_ends_review(db, index, batch, res, config, dp_result,
         acode_req[i] = int(strand_v[i])
         amb_rows.append((i, int(diag_v[i]), tqs, tqe, li,
                          ("qstart", "qend")))
+    count("review_rows", len(acode_req))
+    spliced = 0
     if acode_req:
         iis = np.fromiter(acode_req.keys(), dtype=np.int64)
         sts = np.fromiter(acode_req.values(), dtype=np.int64)
@@ -904,6 +960,7 @@ def _splice_ends_review(db, index, batch, res, config, dp_result,
                     "score": 8 * (q_end - q_start) - 32 * nmm,
                     "nmm": nmm,
                 }
+                spliced += 1
             if amb_out is not None and i in se_amb:
                 amb_out[i] = se_amb[i]
         # a unique placement confirms a solved junction; tied placements
@@ -915,6 +972,7 @@ def _splice_ends_review(db, index, batch, res, config, dp_result,
                 _demote(splice_result[i], amb.side)
                 if amb_out is not None:
                     amb_out.setdefault(i, []).append(amb)
+    count("review_spliced", spliced)
     for (i, side) in nc_rows:
         s = splice_result.get(i)
         if s is None or len(s["segs"]) < 2 or i not in acodes:
@@ -1314,7 +1372,9 @@ def align_records(db: GenomeDB, index: DeviceIndex, records: list[Record],
     as one spliced line. device_ctx (parallel/pipeline.MeshContext)
     runs the batches' device work over its device grid. stats, if given, receives the counts of utils/trace.py:
     each METHODS row count, batches, reads, the overflow scalars, the
-    indel rows and the rows each emitter wrote."""
+    indel rows and the rows each emitter wrote; with splicing, F4's
+    paths mended (chain_ins_refused), the review's rows (review_rows,
+    review_spliced) and the rows by path_record (path_rows)."""
     out = []
     remapper = None
     if tr is not None:
@@ -1483,6 +1543,7 @@ def _emit_rows(db, chunk, batch, res, mapq, config, overrides, bulk, mix,
 
     mark0 = len(out)
     native = []                 # the bulk-emitted rows' methods
+    path_rows = 0
     for i in rows_iter:
         rec = chunk[i]
         row_marks.append(len(out))
@@ -1503,6 +1564,7 @@ def _emit_rows(db, chunk, batch, res, mapq, config, overrides, bulk, mix,
             alen = s["q_end"] - s["q_start"]
             if (s["nmm"] <= max(1, int(alen * config.max_mismatch_frac))
                     and alen >= max(20, int(li * config.min_coverage))):
+                path_rows += 1
                 _emit(sam.path_record(
                     db, rec.accession, rec.sequence, rec.quality,
                     s["segs"], s["q_start"], s["q_end"], s["strand"],
@@ -1557,6 +1619,8 @@ def _emit_rows(db, chunk, batch, res, mapq, config, overrides, bulk, mix,
         count("rows_native", len(native))
         count("rows_python", len(rows_iter) - len(native))
         _count_methods(native)
+        if path_rows:
+            count("path_rows", path_rows)
 
     if sink is not None:
         if mix is not None:

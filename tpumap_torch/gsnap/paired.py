@@ -31,8 +31,9 @@ import torch
 
 from tpumap_torch.gsnap import ladder
 from tpumap_torch.gsnap import spliceends as se
-from tpumap_torch.gsnap.driver import (_enqueue, _to_device, make_batch,
-                                       pad_to_bucket, refine_unsolved)
+from tpumap_torch.gsnap.driver import (_enqueue, _mend_overrun, _to_device,
+                                       make_batch, pad_to_bucket,
+                                       refine_unsolved)
 from tpumap_torch.gsnap import remap as remap_mod
 from tpumap_torch.gsnap.engine import AlignConfig, mapq_from_scores
 from tpumap_torch.gsnap.knownsplicing import known_to_device
@@ -275,6 +276,7 @@ def _mate_repair(db, index, batch, res, repair_rows, bases, L, pairmax,
     repair_result = {}
     if not chain_rows:
         return repair_result
+    mended = 0
     nb2 = pad_to_bucket(len(chain_rows))
     codes2 = np.zeros((nb2, L), np.uint8)
     nmask2 = np.zeros((nb2, L), bool)
@@ -296,7 +298,7 @@ def _mate_repair(db, index, batch, res, repair_rows, bases, L, pairmax,
     for rr, (bad, cands, win0) in enumerate(chain_rows):
         c, m, want_strand, li = oriented[bad]
         nsegs = int(cres2["nsegs"][rr])
-        if nsegs < 1:
+        if not 1 <= nsegs <= pathdp.MAX_SEGMENTS:
             continue
         q_start = int(cres2["q_start"][rr])
         q_end = int(cres2["q_end"][rr])
@@ -316,6 +318,8 @@ def _mate_repair(db, index, batch, res, repair_rows, bases, L, pairmax,
             "strand": want_strand, "score": int(cres2["score"][rr]),
             "nmm": nmm, "_win": (win0, win0 + W + li),
         }
+        mended += _mend_overrun(repair_result[bad])
+    count("chain_ins_refused", mended)
     return repair_result
 
 
@@ -731,6 +735,7 @@ def _special_record(db, rec, i, res, dp_result, splice_result, li, config,
         alen = s["q_end"] - s["q_start"]
         if (s["nmm"] <= max(1, int(alen * config.max_mismatch_frac))
                 and alen >= max(20, int(li * config.min_coverage))):
+            count("path_rows")
             return (sam.path_record(
                 db, rec.accession, rec.sequence, rec.quality,
                 s["segs"], s["q_start"], s["q_end"], s["strand"], mq,

@@ -395,6 +395,8 @@ def path_record(db: GenomeDB, qname: str, seq: str, qual: str | None,
 
     segs: [(qpos, univdiagonal)] ascending query order; segment i covers
     query [qpos_i, qpos_{i+1} or q_end) at genome univdiagonal diag_i.
+    Raises ValueError on a segment shorter than the insertion after it
+    (the chain stages mend such paths first: driver._mend_overrun).
     """
     L = len(seq)
     oriented = dna.revcomp(seq) if strand else seq
@@ -416,6 +418,10 @@ def path_record(db: GenomeDB, qname: str, seq: str, qual: str | None,
         # segment's M run ends where the insertion begins
         n_ins = -gap if gap < 0 else 0
         n = q1 - n_ins - q0
+        if n < 0:
+            raise ValueError(f"path_record: segment {i} of {qname} has "
+                             f"{q1 - q0} bases before a {n_ins}-base "
+                             f"insertion")
         cig.append(f"{n}M")
         ops.extend([0] * n)
         read_parts.append(oriented[q0:q1 - n_ins])
